@@ -1,0 +1,11 @@
+"""seed_story_torch: the PyTorch / CUDA port of seed_story_tpu for one
+NVIDIA H100. Same layers and names as the JAX package:
+
+  ops/        attention (plain + the CUDA flash forward), RoPE, sincos, GroupNorm
+  csrc/       hand-written CUDA kernels, built with nvcc at first use
+  models/     ViT-bigG, LLaMA (+LoRA, KV cache), agent, resamplers, sdxl/
+  decode/     greedy generation with the image-token automaton
+  pipelines/  story generation, SDXL sampling
+  inference/  build_stack: the story stack from configs and weights
+  weights.py  JAX parameter trees -> state dicts; seeded random init
+"""

@@ -1,0 +1,102 @@
+"""ContinuousLVLM inference surface in PyTorch: ViT features scattered
+into the LLM's token slots, and LLM hidden states regressed back to ViT
+features; counterpart of ``seed_story_tpu/models/agent.py``. State-dict
+names follow the reference agent (``llm.*``, ``input_resampler.*``,
+``output_resampler.*``)."""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch import nn
+
+from .llama import KVCache, LlamaConfig, LlamaForCausalLM
+from .resampler import Resampler
+
+
+def _selected_first_perm(mask: torch.Tensor) -> torch.Tensor:
+    """Permutation putting True entries first, preserving order."""
+    return torch.argsort((~mask).to(torch.int8), stable=True)
+
+
+def scatter_image_embeds(input_embeds, image_embeds_lm, ids_mask, embeds_mask):
+    """input_embeds[ids_mask] = image_embeds_lm[embeds_mask].reshape(-1, D)
+    with the JAX version's row order. input_embeds (B, S, D),
+    image_embeds_lm (N, nq, D), ids_mask (B, S) bool, embeds_mask (N,) bool."""
+    b, s, d = input_embeds.shape
+    n, nq, _ = image_embeds_lm.shape
+    src = image_embeds_lm[_selected_first_perm(embeds_mask)].reshape(n * nq, d)
+    ordinal = (torch.cumsum(ids_mask.reshape(b * s).to(torch.int64), 0) - 1).clamp(0, n * nq - 1)
+    gathered = src[ordinal].reshape(b, s, d).to(input_embeds.dtype)
+    return torch.where(ids_mask[..., None], gathered, input_embeds)
+
+
+def gather_image_hidden(hidden, ids_mask, embeds_mask, nq: int):
+    """hidden[ids_mask].view(num_sel, nq, D) placed back on the (N, nq, D)
+    image axis; unselected image rows are zero."""
+    b, s, d = hidden.shape
+    n = embeds_mask.shape[0]
+    order = torch.argsort((~ids_mask.reshape(b * s)).to(torch.int8), stable=True)[: n * nq]
+    blocks = hidden.reshape(b * s, d)[order].reshape(n, nq, d)
+    out = torch.zeros((n, nq, d), dtype=hidden.dtype, device=hidden.device)
+    out[_selected_first_perm(embeds_mask)] = blocks
+    return torch.where(embeds_mask[:, None, None], out, 0.0)
+
+
+@dataclasses.dataclass(frozen=True)
+class AgentConfig:
+    llm: LlamaConfig
+    input_resampler_grid: int = 8  # 64 queries == num_img_in_tokens
+    output_resampler_grid: int = 16  # 256 queries == ViT n_queries
+    num_img_out_tokens: int = 64  # gen slots per image in the sequence
+    resampler_heads: int = 32
+    vit_dim: int = 4096
+    lm_loss_scale: float = 1.0
+    rec_loss_scale: float = 1.0
+
+    @property
+    def num_img_in_tokens(self) -> int:
+        return self.input_resampler_grid ** 2
+
+    @property
+    def num_vit_tokens(self) -> int:
+        return self.output_resampler_grid ** 2
+
+    @staticmethod
+    def tiny(**kw) -> "AgentConfig":
+        base = dict(llm=LlamaConfig.tiny(dtype=torch.float32), input_resampler_grid=2,
+                    output_resampler_grid=3, num_img_out_tokens=9, resampler_heads=4,
+                    vit_dim=128)
+        base.update(kw)
+        return AgentConfig(**base)
+
+
+class ContinuousLVLM(nn.Module):
+    def __init__(self, cfg: AgentConfig):
+        super().__init__()
+        self.cfg = cfg
+        d, dt, pd = cfg.llm.hidden_size, cfg.llm.dtype, cfg.llm.param_dtype
+        self.llm = LlamaForCausalLM(cfg.llm)
+        self.input_resampler = Resampler(
+            grid_size=cfg.input_resampler_grid, embed_dim=d, num_heads=cfg.resampler_heads,
+            kv_dim=cfg.vit_dim if cfg.vit_dim != d else None, dtype=dt, param_dtype=pd)
+        self.output_resampler = Resampler(
+            grid_size=cfg.output_resampler_grid, embed_dim=cfg.vit_dim,
+            num_heads=cfg.resampler_heads, kv_dim=d if d != cfg.vit_dim else None,
+            dtype=dt, param_dtype=pd)
+
+    def embed_with_images(self, input_ids, image_embeds, ids_cmp_mask, embeds_cmp_mask):
+        """Prefill embeddings with the resampled image features scattered in."""
+        return scatter_image_embeds(self.llm.embed(input_ids), self.input_resampler(image_embeds),
+                                    ids_cmp_mask, embeds_cmp_mask)
+
+    def llm_step(self, inputs_embeds, cache: KVCache, logits_indices=None):
+        return self.llm(inputs_embeds=inputs_embeds, cache=cache, logits_indices=logits_indices)
+
+    def embed_tokens(self, input_ids):
+        return self.llm.embed(input_ids)
+
+    def resample_output(self, hidden_blocks):
+        """(N, num_img_out_tokens, D) hidden states -> (N, 256, vit_dim)."""
+        return self.output_resampler(hidden_blocks)
