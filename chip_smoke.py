@@ -5,14 +5,25 @@
 Phases, each printing its own lines; any failure raises and the process
 exits non-zero:
 
-1. device: the card's name and power limit, and the kernel build;
-2. kernels: every hand-written kernel against its plain PyTorch version at
-   the shapes the main path gives it, with errors and times;
-3. story: the port's main path at full width (LLaMA-2-7B + LoRA agent,
+1. device: the card's name and power limit, and the kernel builds;
+2. kernels: the flash forward against its plain PyTorch version at the
+   shapes the story path and the frozen ViT of training give it, with
+   errors and times;
+3. backward kernels: at the stage-2 training shapes of the LLaMA and the
+   resamplers (and the forward's edge cases and the UNet's 64x64
+   self-attention), the flash forward against the plain forward, and the
+   flash backward's dq and dk/dv kernels against the plain backward, with
+   errors and times;
+4. story: the port's main path at full width (LLaMA-2-7B + LoRA agent,
    ViT-bigG, SDXL-base UNet + ResamplerXLV2, SDXL VAE) on seeded random
    bf16 weights: one 3-segment story of 1024x1024 images through
    ``build_stack`` -> ``StoryGenerationPipeline.run``, with the kernel's
-   launch count checked per stage.
+   launch count checked per stage;
+5. train: stage 2 at full width (frozen ViT-bigG -> LLaMA-2-7B + LoRA
+   agent with remat, chunked CE and bf16 parameters) on seeded random
+   weights: ``run_training`` for 4 steps on one repeated batch of 2 x 1280
+   tokens and 20 images, with losses, parameters, per-step times and the
+   kernels' launches per step checked.
 
 The line before the last is the kernel report (JSON); the last line is
 ``{"ok": true, "device": {...}}``.
@@ -20,31 +31,48 @@ The line before the last is the kernel report (JSON); the last line is
 
 from __future__ import annotations
 
+import gc
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from collections import defaultdict
 
 import numpy as np
 import torch
 
-from seed_story_torch.inference.common import build_stack
-from seed_story_torch.models.agent import AgentConfig
-from seed_story_torch.models.llama import LlamaConfig
+from seed_story_torch.inference.common import build_stack, fill_module
+from seed_story_torch.models.agent import AgentConfig, ContinuousLVLM
+from seed_story_torch.models.llama import LlamaConfig, LoRADense, lora_trainable_mask
 from seed_story_torch.models.sdxl.adapter import SDXLAdapterConfig
 from seed_story_torch.models.sdxl.unet import SDXLUNetConfig
 from seed_story_torch.models.sdxl.vae import VAEConfig
-from seed_story_torch.models.vit import ViTConfig
-from seed_story_torch.ops.attention import flash_fwd, mha, mha_reference_lse
+from seed_story_torch.models.vit import ViTConfig, VisionTransformerWithAttnPool
+from seed_story_torch.ops.attention import (
+    _normalize_lens,
+    flash_bwd,
+    flash_fwd,
+    mha,
+    mha_backward_reference,
+    mha_reference_lse,
+)
 from seed_story_torch.pipelines.story_generation import (
     StoryGenerationPipeline,
     StoryPipelineConfig,
 )
+from seed_story_torch.train.runner import (LAUNCH_COUNTS, RunnerArgs, flash_launch_counts,
+                                           run_training)
+from seed_story_torch.train.stage2 import make_stage2_loss_fn
+from seed_story_torch.train.trainer import TrainConfig
 
 # Kernel against its plain version, both from the same bf16 inputs; the plain
 # version computes in f32. The bound is set by rounding P to bf16 before PV.
 O_MAX_ABS, O_MEAN_ABS, LSE_MAX_ABS = 2e-2, 2e-3, 1e-3
+# Backward kernels against the plain f32 backward from the same bf16 inputs,
+# relative to the reference's own size; set by rounding P and dS to bf16.
+GRAD_MAX_REL, GRAD_MEAN_REL = 2e-2, 1e-2
 
 
 def card_label() -> str:
@@ -61,13 +89,14 @@ def phase_device():
     print(label, flush=True)
     print(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()} "
           f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
-    t0 = time.perf_counter()
-    built = flash_fwd.build()
-    print(f"flash_fwd build: {time.perf_counter() - t0:.3f} s "
-          f"(nvcc {built.build_seconds:.3f} s) -> {built.path.name}", flush=True)
-    for line in built.ptxas_log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            print(f"  ptxas: {line.strip()}", flush=True)
+    for name, wrapper in (("flash_fwd", flash_fwd), ("flash_bwd", flash_bwd)):
+        t0 = time.perf_counter()
+        built = wrapper.build()
+        print(f"{name} build: {time.perf_counter() - t0:.3f} s "
+              f"(nvcc {built.build_seconds:.3f} s) -> {built.path.name}", flush=True)
+        for line in built.ptxas_log.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line or "Function" in line:
+                print(f"  ptxas: {line.strip()}", flush=True)
     return label
 
 
@@ -78,6 +107,9 @@ KERNEL_CASES = [
     ("llama_prefill", 1, 32, 32, 384, 640, 128, True, 0, 384, "bshd"),
     ("vit_bigG_self", 1, 16, 16, 1024, 1024, 104, False, None, None, "bshd"),
     ("vit_attn_pool", 1, 32, 32, 256, 1024, 128, False, None, None, "bshd"),
+    # the frozen ViT in stage-2 training: 20 images per step
+    ("vit_bigG_self_train", 20, 16, 16, 1024, 1024, 104, False, None, None, "bshd"),
+    ("vit_attn_pool_train", 20, 32, 32, 256, 1024, 128, False, None, None, "bshd"),
     ("agent_input_resampler", 3, 32, 32, 64, 256, 128, False, None, None, "bshd"),
     ("agent_output_resampler", 1, 32, 32, 256, 64, 128, False, None, None, "bshd"),
     ("unet_self_64x64", 2, 10, 10, 4096, 4096, 64, False, None, None, "bshd"),
@@ -108,6 +140,23 @@ def _time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def check_forward(name: str, row: dict, o, lse, o_ref, lse_ref) -> list:
+    """Writes the forward kernel's O and LSE errors against the plain
+    version's into ``row``; returns what is out of bounds."""
+    err = (o.float() - o_ref.float()).abs()
+    finite = torch.isfinite(lse_ref)
+    lse_err = (lse - lse_ref)[finite].abs() if finite.any() else torch.zeros(1)
+    row.update(o_max_abs=float(err.max()), o_mean_abs=float(err.mean()),
+               lse_max_abs=float(lse_err.max()), lse_mean_abs=float(lse_err.mean()))
+    failed = []
+    if not torch.equal(finite, torch.isfinite(lse)):
+        failed.append(f"{name} (LSE -inf pattern)")
+    if (row["o_max_abs"] > O_MAX_ABS or row["o_mean_abs"] > O_MEAN_ABS
+            or row["lse_max_abs"] > LSE_MAX_ABS):
+        failed.append(f"{name} (forward)")
+    return failed
+
+
 def phase_kernels(label: str):
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows, failed = [], []
@@ -119,27 +168,113 @@ def phase_kernels(label: str):
         o, lse = mha(q, k, v, implementation="kernel", with_lse=True, **kw)
         torch.cuda.synchronize()
         o_ref, lse_ref = mha_reference_lse(q.float(), k.float(), v.float(), **kw)
-        err = (o.float() - o_ref).abs()
-        finite = torch.isfinite(lse_ref)
-        if not torch.equal(finite, torch.isfinite(lse)):
-            failed.append(f"{name} (LSE -inf pattern)")
-        lse_err = float((lse - lse_ref)[finite].abs().max()) if finite.any() else 0.0
-        lse_mean = float((lse - lse_ref)[finite].abs().mean()) if finite.any() else 0.0
-        row = dict(name=name, shape=[b, hq, hkv, sq, skv, d], causal=causal,
-                   o_max_abs=float(err.max()), o_mean_abs=float(err.mean()),
-                   lse_max_abs=lse_err, lse_mean_abs=lse_mean)
+        row = dict(name=name, shape=[b, hq, hkv, sq, skv, d], causal=causal)
+        failed += check_forward(name, row, o, lse, o_ref, lse_ref)
+        del o_ref, lse_ref
         iters = 20 if sq * skv >= 1 << 20 else 50
         t = [_time_ms(lambda: mha(q, k, v, implementation=impl, **kw), iters)
              for impl in ("plain", "kernel", "kernel", "plain")]
         row["ms"] = (t[1] + t[2]) / 2
         row["plain_ms"] = (t[0] + t[3]) / 2
         print(f"kernel {name}: {json.dumps(row)} [{label}]", flush=True)
-        if (row["o_max_abs"] > O_MAX_ABS or row["o_mean_abs"] > O_MEAN_ABS
-                or row["lse_max_abs"] > LSE_MAX_ABS):
-            failed.append(name)
         rows.append(row)
     if failed:
         raise AssertionError(f"kernel disagrees with the plain version at {failed}")
+    return rows
+
+
+# (name, B, Hq, Hkv, Sq, Skv, D, causal, q_start, kv_len, layout): the
+# training shapes of stage 2 (LLaMA self-attention over B=2 x 1280 tokens,
+# the resamplers over N=20 images), the forward's edge cases, and the UNet's
+# 64x64 self-attention for stage 3.
+BWD_CASES = [
+    ("llama_train_causal", 2, 32, 32, 1280, 1280, 128, True, 0, [1280, 1100], "bshd"),
+    ("agent_input_resampler", 20, 32, 32, 64, 256, 128, False, None, None, "bshd"),
+    ("agent_output_resampler", 20, 32, 32, 256, 64, 128, False, None, None, "bshd"),
+    ("ragged_gqa_causal", 2, 8, 2, 200, 333, 128, True, [133, 50], [333, 170], "bhsd"),
+    ("empty_rows", 2, 4, 4, 100, 300, 80, True, [-10, 5], [300, 0], "bhsd"),
+    ("unaligned_d100", 2, 4, 4, 77, 150, 100, False, None, [150, 91], "bshd"),
+    ("unet_self_64x64", 2, 10, 10, 4096, 4096, 64, False, None, None, "bshd"),
+]
+
+
+def _profiled_ms(fn, iters: int, kernels) -> dict:
+    """(device ms per launch, launches recorded) of each named kernel
+    (``fn`` launches each once), from one torch.profiler pass over ``iters``
+    calls: the mean over the launches the profiler recorded, which may miss
+    some."""
+    fn()
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    out = {}
+    for kernel in kernels:
+        mine = [e for e in events if kernel in e.key]
+        count = sum(e.count for e in mine)
+        if count == 0:
+            raise AssertionError(f"the profiler recorded no launch of {kernel}")
+        out[kernel] = (sum(e.device_time_total for e in mine) / 1e3 / count, count)
+    return out
+
+
+def phase_bwd_kernels(label: str):
+    """At the training shapes: the forward kernel's O and LSE against the
+    plain forward, then flash_bwd (dq and dk/dv kernels, fed the kernel's O
+    and LSE) against mha_backward_reference (fed the plain forward's), one
+    random dO for both."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows, failed = [], []
+    for name, b, hq, hkv, sq, skv, d, causal, q_start, kv_len, layout in BWD_CASES:
+        q = _make(b, hq, sq, d, layout, gen)
+        k = _make(b, hkv, skv, d, layout, gen)
+        v = _make(b, hkv, skv, d, layout, gen)
+        do = _make(b, hq, sq, d, layout, gen)
+        kw = dict(causal=causal, q_start=q_start, kv_len=kv_len)
+        o, lse = mha(q, k, v, implementation="kernel", with_lse=True, **kw)
+        qs, kl = _normalize_lens(b, sq, skv, q_start, kv_len, "cuda")
+        scale = 1.0 / d ** 0.5
+        got = flash_bwd(q, k, v, o, lse, do, qs, kl, causal, scale)
+        torch.cuda.synchronize()
+        f32 = [t.float() for t in (q, k, v, do)]
+        o_ref, lse_ref = mha_reference_lse(*f32[:3], scale=scale, **kw)
+        row = dict(name=name, shape=[b, hq, hkv, sq, skv, d], causal=causal)
+        failed += check_forward(name, row, o, lse, o_ref, lse_ref)
+
+        def plain():
+            return mha_backward_reference(*f32[:3], o_ref, lse_ref, f32[3], scale=scale, **kw)
+
+        want = plain()
+        for gname, g, w in zip(("dq", "dk", "dv"), got, want):
+            err = (g.float() - w).abs()
+            row[f"{gname}_max_abs"] = float(err.max())
+            row[f"{gname}_max_rel"] = float(err.max() / w.abs().max().clamp_min(1e-30))
+            row[f"{gname}_mean_rel"] = float(err.mean() / w.abs().mean().clamp_min(1e-30))
+            if not bool(torch.isfinite(g).all()):
+                failed.append(f"{name} ({gname} not finite)")
+            elif (row[f"{gname}_max_rel"] > GRAD_MAX_REL
+                  or row[f"{gname}_mean_rel"] > GRAD_MEAN_REL):
+                failed.append(f"{name} ({gname})")
+        empty = torch.isinf(lse[..., 0])
+        if empty.any() and not bool(torch.all(got[0][empty] == 0)):
+            failed.append(f"{name} (dq of empty rows not zero)")
+        if any(bool((g[i, :, int(kl[i]):] != 0).any()) for g in got[1:] for i in range(b)):
+            failed.append(f"{name} (dk/dv of keys past kv_len not zero)")
+        iters = 10 if sq * skv >= 1 << 22 else 30
+        kernel = lambda: flash_bwd(q, k, v, o, lse, do, qs, kl, causal, scale)  # noqa: E731
+        t = [_time_ms(fn, iters) for fn in (plain, kernel, kernel, plain)]
+        row["ms"] = (t[1] + t[2]) / 2  # delta + both kernels, as the autograd backward runs
+        row["plain_ms"] = (t[0] + t[3]) / 2
+        per_kernel = _profiled_ms(kernel, iters, ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"))
+        row["dq_ms"], row["dq_recorded"] = per_kernel["flash_bwd_dq_kernel"]
+        row["dkv_ms"], row["dkv_recorded"] = per_kernel["flash_bwd_dkv_kernel"]
+        print(f"bwd kernel {name}: {json.dumps(row)} [{label}]", flush=True)
+        rows.append(row)
+    if failed:
+        raise AssertionError(f"backward kernels disagree with the plain version at {failed}")
     return rows
 
 
@@ -259,17 +394,169 @@ def phase_story(label: str):
     return launches
 
 
+# Stage 2 at full width: configs/clm_models/llama2chat7b_lora.yaml with the
+# one-chip recipe's remat, ce_chunk_size and bf16 parameters,
+# agent_7b_sft.yaml, qwen_vitg_448.yaml; the batch follows george_sft.yaml
+# (max_length 1280) with 10 image slots per sample. Cut: 4 steps on one
+# repeated synthetic batch, random weights.
+TRAIN_STEPS, TRAIN_SEQ, TRAIN_IMAGES = 4, 1280, 10
+TRAIN_CONTEXT = (4, 8)  # context images per sample; each also has one generated image
+TRAIN_VALID = (1280, 1100)  # sample 1 is padded after 1100 tokens
+
+
+def train_batch(agent_cfg: AgentConfig, seed: int = 0):
+    """One stage-2 batch with the keys, shapes and dtypes the long-story
+    datapipe yields after ``flatten_images``: 64 in-token slots per context
+    image, 64 out-token slots per generated image, labels on the response
+    (the last segment) only, unused image slots zero."""
+    rng = np.random.RandomState(seed)
+    b, s, m = len(TRAIN_CONTEXT), TRAIN_SEQ, TRAIN_IMAGES
+    n_in, n_out = agent_cfg.num_img_in_tokens, agent_cfg.num_img_out_tokens
+    ids = rng.randint(100, 32000, size=(b, s)).astype(np.int32)
+    mask = np.zeros((b, s), np.int32)
+    labels = np.full((b, s), -100, np.int32)
+    ids_cmp, ids_gen = np.zeros((b, s), bool), np.zeros((b, s), bool)
+    emb_cmp, emb_gen = np.zeros(b * m, bool), np.zeros(b * m, bool)
+    for row, (n_ctx, valid) in enumerate(zip(TRAIN_CONTEXT, TRAIN_VALID)):
+        pos = 8
+        for i in range(n_ctx):
+            ids_cmp[row, pos:pos + n_in] = True
+            emb_cmp[row * m + i] = True
+            pos += n_in + 40
+        ids_gen[row, pos + 100:pos + 100 + n_out] = True
+        emb_gen[row * m + n_ctx] = True
+        mask[row, :valid] = 1
+        labels[row, pos:valid] = ids[row, pos:valid]
+        ids[row, valid:] = 0
+    images = rng.randn(b * m, 3, 448, 448).astype(np.float32)
+    images[~(emb_cmp | emb_gen)] = 0.0
+    return {"input_ids": ids, "attention_mask": mask, "labels": labels, "images": images,
+            "embeds_cmp_mask": emb_cmp, "embeds_gen_mask": emb_gen,
+            "ids_cmp_mask": ids_cmp, "ids_gen_mask": ids_gen}
+
+
+def phase_train(label: str):
+    """Stage-2 training at full width through ``run_training``; per-step
+    times, peak memory and launches are the runner's own metrics."""
+    bf16 = torch.bfloat16
+    vit_cfg = ViTConfig(param_dtype=bf16)
+    llm_cfg = LlamaConfig(lora_rank=16, lora_alpha=32.0, lora_dropout=0.05, remat=True,
+                          ce_chunk_size=256, param_dtype=bf16)
+    agent_cfg = AgentConfig(llm=llm_cfg)
+    n_layers = llm_cfg.num_hidden_layers
+    print(f"train cuts: {TRAIN_STEPS} steps on one repeated synthetic batch "
+          f"({len(TRAIN_CONTEXT)} x {TRAIN_SEQ} tokens, {len(TRAIN_CONTEXT) * TRAIN_IMAGES} "
+          f"images of 448x448), random weights; widths and depths not cut", flush=True)
+    print(f"device memory before the build: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+          f"allocated [{label}]", flush=True)
+
+    t0 = time.perf_counter()
+    vit = fill_module(VisionTransformerWithAttnPool, vit_cfg, "cuda", seed=0)
+    vit.eval().requires_grad_(False)
+    agent = fill_module(ContinuousLVLM, agent_cfg, "cuda", seed=1)
+    mask = lora_trainable_mask(agent)
+    mask = {k: v or k.startswith(("input_resampler.", "output_resampler.")) for k, v in mask.items()}
+    torch.cuda.synchronize()
+    params = dict(agent.named_parameters())
+    n_agent = sum(p.numel() for p in params.values())
+    n_train = sum(params[k].numel() for k, v in mask.items() if v)
+    n_vit = sum(p.numel() for p in vit.parameters())
+    print(f"train build: {time.perf_counter() - t0:.2f} s, agent {n_agent / 1e9:.3f} B "
+          f"parameters ({n_train / 1e9:.3f} B trainable), ViT {n_vit / 1e9:.3f} B frozen, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated [{label}]", flush=True)
+
+    batch = train_batch(agent_cfg)
+    frozen = agent.llm.model.layers[0].self_attn.q_proj.weight
+    frozen_before = frozen.detach().clone()
+    vit_clock = StageClock()
+    vit_clock.watch(vit, lambda a, k: "vit_encode")
+
+    def repeated():
+        while True:
+            yield batch
+
+    with tempfile.TemporaryDirectory() as out:
+        flash_fwd.launches = flash_bwd.dq_launches = flash_bwd.dkv_launches = 0
+        t_run = time.perf_counter()
+        run_training(RunnerArgs(output_dir=out, max_steps=TRAIN_STEPS, save_steps=10**9,
+                                log_steps=1, seed=0),
+                     TrainConfig(learning_rate=1e-3, warmup_steps=1, training_steps=TRAIN_STEPS),
+                     agent, make_stage2_loss_fn(agent, vit), repeated(), trainable_mask=mask)
+        run_s = time.perf_counter() - t_run
+        launches = flash_launch_counts()
+        with open(os.path.join(out, "metrics.jsonl")) as f:
+            logged = [json.loads(line) for line in f]
+        ckpt_dir = os.path.join(out, str(TRAIN_STEPS))
+        ckpt_bytes = sum(os.path.getsize(os.path.join(ckpt_dir, n)) for n in os.listdir(ckpt_dir))
+
+    failures = []
+    steps = [m for m in logged if "loss" in m]
+    ckpt_s = next(m for m in logged if "checkpoint_write_seconds" in m)
+    losses = [m["loss"] for m in steps]
+    if len(losses) != TRAIN_STEPS or not np.all(np.isfinite(losses)):
+        failures.append(f"losses {losses}")
+    elif not losses[-1] < losses[0]:
+        failures.append(f"the last loss is not below the first: {losses}")
+    lora_b = [m.lora_B.weight for m in agent.modules() if isinstance(m, LoRADense) and m.lora_rank]
+    if not all(bool((w != 0).any()) for w in lora_b):
+        failures.append("a LoRA B stayed at zero")
+    if not torch.equal(frozen, frozen_before):
+        failures.append("a frozen base projection weight changed")
+    vit_calls = vit_clock.calls["vit_encode"]
+    for i, m in enumerate(steps):
+        vit_s, vit_fwd = vit_calls[i]
+        sec = m["step_seconds"]
+        fwd, dq, dkv = (int(m[k]) for k in LAUNCH_COUNTS)
+        print(f"train step {i + 1}: {sec:.3f} s, loss {losses[i]:.4f}, vit_encode "
+              f"{1e3 * vit_s:.3f} ms, agent fwd+bwd {1e3 * (m['fwd_bwd_seconds'] - vit_s):.3f} "
+              f"ms, optimizer {1e3 * m['update_seconds']:.3f} ms, "
+              f"{len(TRAIN_CONTEXT) * TRAIN_SEQ / sec:.1f} tokens/s, launches fwd {fwd} "
+              f"(ViT {vit_fwd}) dq {dq} dkv {dkv}, peak {m['peak_gib']:.2f} GiB [{label}]",
+              flush=True)
+        # each differentiated attention call: 32 LLaMA layers + 2 resamplers;
+        # the forward also runs again for each rematerialized layer
+        if dq != n_layers + 2 or dkv != n_layers + 2:
+            failures.append(f"step {i + 1}: {dq} dq / {dkv} dk-dv launches, expected {n_layers + 2}")
+        if fwd - vit_fwd != 2 * n_layers + 2:
+            failures.append(f"step {i + 1}: {fwd - vit_fwd} agent forward launches, expected "
+                            f"{2 * n_layers + 2} (remat recompute included)")
+    print(f"train run: {run_s:.3f} s for {TRAIN_STEPS} steps; final checkpoint "
+          f"{ckpt_bytes / 2**30:.3f} GiB, host copy {ckpt_s['checkpoint_copy_seconds']:.3f} s "
+          f"+ write {ckpt_s['checkpoint_write_seconds']:.3f} s; "
+          f"launches fwd {launches[0]} dq {launches[1]} dkv {launches[2]} [{label}]", flush=True)
+    if "jax" in sys.modules:
+        failures.append("jax was imported")
+    if failures:
+        raise AssertionError(f"train phase failed: {failures}")
+    return launches
+
+
 def main():
     label = phase_device()
     rows = phase_kernels(label)
-    launches = phase_story(label)
+    bwd_rows = phase_bwd_kernels(label)
+    story_launches = phase_story(label)
+    gc.collect()  # the story stack is gone; give its memory back before training
+    torch.cuda.empty_cache()
+    train_fwd, train_dq, train_dkv = phase_train(label)
     at = next(r for r in rows if r["name"] == "unet_self_64x64")
+    bat = next(r for r in bwd_rows if r["name"] == "llama_train_causal")
     print(label, flush=True)
-    print(json.dumps({"kernels": [{
-        "name": "flash_fwd", "route": "cuda", "source": "seed_story_torch/csrc/flash_fwd.cu",
-        "replaces": "seed_story_tpu/ops/attention.py:180", "launches": launches,
-        "max_abs_err": max(r["o_max_abs"] for r in rows), "ms": at["ms"],
-        "plain_ms": at["plain_ms"], "at": at["name"]}]}), flush=True)
+    print(json.dumps({"kernels": [
+        {"name": "flash_fwd", "route": "cuda", "source": "seed_story_torch/csrc/flash_fwd.cu",
+         "replaces": "seed_story_tpu/ops/attention.py:180",
+         "launches": story_launches + train_fwd,
+         "launches_by_path": {"story": story_launches, "train": train_fwd},
+         "max_abs_err": max(r["o_max_abs"] for r in rows + bwd_rows), "ms": at["ms"],
+         "plain_ms": at["plain_ms"], "at": at["name"]},
+        *({"name": f"flash_bwd_{kname}", "route": "cuda",
+           "source": "seed_story_torch/csrc/flash_bwd.cu",
+           "replaces": f"seed_story_tpu/ops/attention.py:{line}", "launches": n,
+           "max_abs_err": max(max(r[f"{g}_max_abs"] for g in grads) for r in bwd_rows),
+           "ms": bat[f"{kname}_ms"], "plain_ms": bat["plain_ms"], "at": bat["name"]}
+          for kname, line, n, grads in (("dq", 398, train_dq, ("dq",)),
+                                        ("dkv", 453, train_dkv, ("dk", "dv"))))]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

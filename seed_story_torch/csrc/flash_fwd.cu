@@ -34,6 +34,8 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "flash_common.cuh"
+
 using namespace nvcuda;
 
 namespace {
@@ -81,27 +83,10 @@ struct Layout {
   static constexpr int BYTES = STATS + 3 * BLOCK_M * 4;
 };
 
-// Copies a ROWS x d tile (row pitch `stride` elements) into shared memory with
-// pitch DP + 8, zero-filling rows >= rows_valid and columns >= d.
 template <int DP, int ROWS>
 __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
                                           long long stride, int rows_valid, int d, int vec) {
-  constexpr int LD = DP + 8;
-  constexpr int CHUNKS = DP / 8;
-  const __nv_bfloat16 zero = __float2bfloat16(0.f);
-  for (int idx = threadIdx.x; idx < ROWS * CHUNKS; idx += NUM_THREADS) {
-    const int r = idx / CHUNKS;
-    const int c = (idx % CHUNKS) * 8;
-    __nv_bfloat16* out = dst + r * LD + c;
-    if (vec && r < rows_valid && c + 8 <= d) {
-      *reinterpret_cast<uint4*>(out) = *reinterpret_cast<const uint4*>(src + r * stride + c);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        out[e] = (r < rows_valid && c + e < d) ? src[r * stride + c + e] : zero;
-      }
-    }
-  }
+  flash::load_tile<DP, ROWS, NUM_THREADS>(dst, src, stride, rows_valid, d, vec);
 }
 
 template <int DP>

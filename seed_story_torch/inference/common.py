@@ -39,9 +39,10 @@ class InferenceStack:
     image_pipe: Optional[SDXLImagePipeline] = None
 
 
-def _build(cls, cfg, device, seed: int, params, to_state_dict) -> torch.nn.Module:
+def fill_module(cls, cfg, device, seed: int, params=None, to_state_dict=None) -> torch.nn.Module:
     """Creates the module on ``device`` and fills it: from the JAX ``params``
-    when given, else from a seeded generator on the device."""
+    (through ``to_state_dict``) when given, else from a seeded generator on
+    the device. The module stays in training mode with gradients on."""
     with torch.device(device):
         module = cls(cfg)
     module.to(device)  # buffers made from numpy start on the host
@@ -49,7 +50,12 @@ def _build(cls, cfg, device, seed: int, params, to_state_dict) -> torch.nn.Modul
         W.init_random_(module, seed)
     else:
         module.load_state_dict(to_state_dict(module, params))
-    return module.eval().requires_grad_(False)
+    return module
+
+
+def _build(cls, cfg, device, seed: int, params, to_state_dict) -> torch.nn.Module:
+    """A filled module, frozen for inference."""
+    return fill_module(cls, cfg, device, seed, params, to_state_dict).eval().requires_grad_(False)
 
 
 def build_stack(vit_cfg: ViTConfig, agent_cfg: AgentConfig,

@@ -1,17 +1,19 @@
-"""ContinuousLVLM inference surface in PyTorch: ViT features scattered
-into the LLM's token slots, and LLM hidden states regressed back to ViT
-features; counterpart of ``seed_story_tpu/models/agent.py``. State-dict
-names follow the reference agent (``llm.*``, ``input_resampler.*``,
+"""ContinuousLVLM in PyTorch: ViT features scattered into the LLM's token
+slots, and LLM hidden states regressed back to ViT features; counterpart of
+``seed_story_tpu/models/agent.py``. ``forward`` is the training loss (CE +
+cosine regression); the other methods are the generation surface.
+State-dict names follow the reference agent (``llm.*``, ``input_resampler.*``,
 ``output_resampler.*``)."""
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 from torch import nn
 
-from .llama import KVCache, LlamaConfig, LlamaForCausalLM
+from .llama import KVCache, LlamaConfig, LlamaForCausalLM, cross_entropy_loss
 from .resampler import Resampler
 
 
@@ -42,6 +44,20 @@ def gather_image_hidden(hidden, ids_mask, embeds_mask, nq: int):
     out = torch.zeros((n, nq, d), dtype=hidden.dtype, device=hidden.device)
     out[_selected_first_perm(embeds_mask)] = blocks
     return torch.where(embeds_mask[:, None, None], out, 0.0)
+
+
+def cosine_loss(rec, target, valid: Optional[torch.Tensor] = None):
+    """Mean (1 - cos) over the tokens of valid images, in f32. The
+    rsqrt(|x|^2 + 1e-12) normalization keeps gradients finite on the
+    exactly-zero rows of unselected images."""
+    rec, target = rec.float(), target.float()
+    rec = rec * torch.rsqrt(rec.square().sum(-1, keepdim=True) + 1e-12)
+    target = target * torch.rsqrt(target.square().sum(-1, keepdim=True) + 1e-12)
+    per_token = 1.0 - (rec * target).sum(-1)  # (N, nq)
+    if valid is None:
+        return per_token.mean()
+    w = valid.float()[:, None]
+    return (per_token * w).sum() / (w.sum() * per_token.shape[1]).clamp_min(1.0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,6 +101,35 @@ class ContinuousLVLM(nn.Module):
             grid_size=cfg.output_resampler_grid, embed_dim=cfg.vit_dim,
             num_heads=cfg.resampler_heads, kv_dim=d if d != cfg.vit_dim else None,
             dtype=dt, param_dtype=pd)
+
+    def forward(self, input_ids, attention_mask, labels, image_embeds, embeds_gen_mask,
+                embeds_cmp_mask, ids_gen_mask, ids_cmp_mask,
+                dropout_seed: Optional[int] = None):
+        """The stage-2 losses. input_ids / attention_mask / labels /
+        ids_*_mask: (B, S); image_embeds: (N, n_vit_tokens, vit_dim) on the
+        flattened image axis; embeds_*_mask: (N,). ``dropout_seed`` turns on
+        LoRA dropout in training mode. Returns {"total_loss", "lm_loss",
+        "rec_loss", "recon_image_embeds"}."""
+        cfg = self.cfg
+        inputs_embeds = self.embed_with_images(input_ids, image_embeds, ids_cmp_mask,
+                                               embeds_cmp_mask)
+        if cfg.llm.ce_chunk_size:  # no (B, S, V) logits
+            hidden = self.llm.hidden_states(inputs_embeds=inputs_embeds,
+                                            attention_mask=attention_mask,
+                                            dropout_seed=dropout_seed)
+            lm_loss = self.llm.chunked_loss(hidden, labels)
+        else:
+            out = self.llm(inputs_embeds=inputs_embeds, attention_mask=attention_mask,
+                           dropout_seed=dropout_seed)
+            lm_loss = cross_entropy_loss(out["logits"], labels)
+            hidden = out["hidden_states"]
+        gen_blocks = gather_image_hidden(hidden, ids_gen_mask, embeds_gen_mask,
+                                         cfg.num_img_out_tokens)
+        recon = self.output_resampler(gen_blocks)
+        rec_loss = cosine_loss(recon, image_embeds, valid=embeds_gen_mask)
+        total = cfg.lm_loss_scale * lm_loss + cfg.rec_loss_scale * rec_loss
+        return {"total_loss": total, "lm_loss": lm_loss, "rec_loss": rec_loss,
+                "recon_image_embeds": recon}
 
     def embed_with_images(self, input_ids, image_embeds, ids_cmp_mask, embeds_cmp_mask):
         """Prefill embeddings with the resampled image features scattered in."""

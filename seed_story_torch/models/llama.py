@@ -1,23 +1,31 @@
-"""LLaMA-2 with LoRA for inference, in PyTorch; counterpart of
+"""LLaMA-2 with LoRA in PyTorch, for inference and training; counterpart of
 ``seed_story_tpu/models/llama.py``.
 
 Module and parameter names follow HF ``LlamaForCausalLM`` with PEFT LoRA
 (``model.layers.{i}.self_attn.q_proj.weight``, ``...q_proj.lora_A.weight``),
 so ``seed_story_tpu/tools/convert_torch_weights.py`` reads a state dict of
-this model. Prefill attention goes through ``ops.attention.mha`` (the CUDA
-flash kernel on the card); short query blocks (s <= 8) through
-``decode_attention``. The embedding and lm_head keep the padded vocab rows;
-logits past ``vocab_size`` are masked to -1e9.
+this model. Prefill and training attention go through ``ops.attention.mha``
+(the CUDA flash kernels on the card, differentiable); short query blocks
+(s <= 8) through ``decode_attention``. The embedding and lm_head keep the
+padded vocab rows; logits past ``vocab_size`` are masked to -1e9.
+
+Training surface: LoRA dropout on the adapter input with masks drawn from
+(step seed, layer, projection), so a rematerialized layer draws the same
+masks again; per-layer ``remat``; ``hidden_states`` + ``chunked_loss``
+(next-token CE in sequence chunks, never the (B, S, V) logits);
+``lora_trainable_mask``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+import hashlib
+from typing import Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import decode_attention, mha
 from ..ops.rope import apply_rope, rope_frequencies
@@ -43,6 +51,10 @@ class LlamaConfig:
     lora_rank: int = 0
     lora_alpha: float = 32.0
     lora_dropout: float = 0.05  # training only; inference applies none
+    # rematerialize each decoder layer in the backward (no-cache path only)
+    remat: bool = False
+    # training CE in sequence chunks of this size (0 = the whole sequence)
+    ce_chunk_size: int = 0
     dtype: torch.dtype = torch.bfloat16  # compute dtype
     param_dtype: torch.dtype = torch.float32  # projection / embedding storage
 
@@ -110,13 +122,32 @@ class RMSNorm(nn.Module):
         return (xf * self.weight.float()).to(self.dtype)
 
 
+def derive_seed(*parts) -> int:
+    """A 63-bit seed from ints and strings: the same on every run and host,
+    and unrelated for different parts."""
+    digest = hashlib.blake2b(repr(parts).encode(), digest_size=8).digest()
+    return int.from_bytes(digest, "little") >> 1
+
+
+def lora_dropout(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
+    """Inverted dropout (kept entries scaled by 1 / (1 - rate)) with the mask
+    drawn from a generator seeded with ``seed`` on x's device, so the same
+    seed gives the same mask again."""
+    gen = torch.Generator(device=x.device).manual_seed(seed)
+    keep = torch.rand(x.shape, generator=gen, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), 0.0)
+
+
 class LoRADense(nn.Module):
-    """y = x W^T (+ b) + (alpha / r) * (x A^T) B^T, all in ``dtype``.
+    """y = x W^T (+ b) + (alpha / r) * (dropout(x) A^T) B^T, all in ``dtype``.
     ``weight`` is (out, in) like ``nn.Linear``; the adapter is the PEFT pair
-    ``lora_A`` (r, in) and ``lora_B`` (out, r)."""
+    ``lora_A`` (r, in) and ``lora_B`` (out, r). Dropout acts on the adapter's
+    input only, in training mode with a ``dropout_seed``; its mask comes from
+    (dropout_seed, ``dropout_key``), and ``LlamaModel`` names each projection's
+    key by layer and module path."""
 
     def __init__(self, in_features: int, out_features: int, *, bias: bool = False,
-                 lora_rank: int = 0, lora_alpha: float = 32.0,
+                 lora_rank: int = 0, lora_alpha: float = 32.0, lora_dropout: float = 0.0,
                  dtype=torch.bfloat16, param_dtype=torch.float32):
         super().__init__()
         self.dtype = dtype
@@ -124,24 +155,31 @@ class LoRADense(nn.Module):
         self.bias = (nn.Parameter(torch.zeros(out_features, dtype=param_dtype))
                      if bias else None)
         self.lora_rank = lora_rank
+        self.lora_dropout = lora_dropout
+        self.dropout_key = ""
         if lora_rank > 0:
             self.scaling = lora_alpha / lora_rank
             self.lora_A = nn.Linear(in_features, lora_rank, bias=False, dtype=param_dtype)
             self.lora_B = nn.Linear(lora_rank, out_features, bias=False, dtype=param_dtype)
 
-    def forward(self, x):
+    def forward(self, x, dropout_seed: Optional[int] = None):
         dt = self.dtype
         bias = None if self.bias is None else self.bias.to(dt)
         y = F.linear(x, self.weight.to(dt), bias)
         if self.lora_rank > 0:
-            xa = F.linear(x, self.lora_A.weight.to(dt))
+            xl = x
+            if self.training and self.lora_dropout > 0 and dropout_seed is not None:
+                xl = lora_dropout(x, self.lora_dropout,
+                                  derive_seed(dropout_seed, self.dropout_key))
+            xa = F.linear(xl, self.lora_A.weight.to(dt))
             y = y + self.scaling * F.linear(xa, self.lora_B.weight.to(dt))
         return y
 
 
 def _proj(cfg: LlamaConfig, n_in: int, n_out: int) -> LoRADense:
     return LoRADense(n_in, n_out, lora_rank=cfg.lora_rank, lora_alpha=cfg.lora_alpha,
-                     dtype=cfg.dtype, param_dtype=cfg.param_dtype)
+                     lora_dropout=cfg.lora_dropout, dtype=cfg.dtype,
+                     param_dtype=cfg.param_dtype)
 
 
 class LlamaAttention(nn.Module):
@@ -155,15 +193,16 @@ class LlamaAttention(nn.Module):
         self.o_proj = _proj(cfg, h * hd, d)
 
     def forward(self, x, cos, sin, *, layer_idx: int, cache: Optional[KVCache],
-                start: torch.Tensor, kv_len: Optional[torch.Tensor]):
+                start: torch.Tensor, kv_len: Optional[torch.Tensor],
+                dropout_seed: Optional[int] = None):
         """x: (B, S, D). With a cache, the new K/V land at each row's fill
         level ``start`` (B,) and attention spans the buffer's valid prefix."""
         cfg = self.cfg
         b, s, _ = x.shape
         h, hkv, hd = cfg.num_attention_heads, cfg.kv_heads, cfg.head_dim
-        q = self.q_proj(x).view(b, s, h, hd).transpose(1, 2)
-        k = self.k_proj(x).view(b, s, hkv, hd).transpose(1, 2)
-        v = self.v_proj(x).view(b, s, hkv, hd).transpose(1, 2)
+        q = self.q_proj(x, dropout_seed).view(b, s, h, hd).transpose(1, 2)
+        k = self.k_proj(x, dropout_seed).view(b, s, hkv, hd).transpose(1, 2)
+        v = self.v_proj(x, dropout_seed).view(b, s, hkv, hd).transpose(1, 2)
         q, k = apply_rope(q, k, cos, sin)
 
         if cache is None:
@@ -184,7 +223,7 @@ class LlamaAttention(nn.Module):
                 out = mha(q, k_buf.to(cfg.dtype), v_buf.to(cfg.dtype), causal=True,
                           q_start=start, kv_len=end)
         out = out.transpose(1, 2).reshape(b, s, h * hd)
-        return self.o_proj(out)
+        return self.o_proj(out, dropout_seed)
 
 
 class LlamaMLP(nn.Module):
@@ -194,8 +233,9 @@ class LlamaMLP(nn.Module):
         self.up_proj = _proj(cfg, cfg.hidden_size, cfg.intermediate_size)
         self.down_proj = _proj(cfg, cfg.intermediate_size, cfg.hidden_size)
 
-    def forward(self, x):
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+    def forward(self, x, dropout_seed: Optional[int] = None):
+        h = F.silu(self.gate_proj(x, dropout_seed)) * self.up_proj(x, dropout_seed)
+        return self.down_proj(h, dropout_seed)
 
 
 class LlamaDecoderLayer(nn.Module):
@@ -206,9 +246,10 @@ class LlamaDecoderLayer(nn.Module):
         self.post_attention_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, cfg.dtype)
         self.mlp = LlamaMLP(cfg)
 
-    def forward(self, x, cos, sin, **attn_kw):
-        x = x + self.self_attn(self.input_layernorm(x), cos, sin, **attn_kw)
-        return x + self.mlp(self.post_attention_layernorm(x))
+    def forward(self, x, cos, sin, dropout_seed: Optional[int] = None, **attn_kw):
+        x = x + self.self_attn(self.input_layernorm(x), cos, sin, dropout_seed=dropout_seed,
+                               **attn_kw)
+        return x + self.mlp(self.post_attention_layernorm(x), dropout_seed)
 
 
 class LlamaModel(nn.Module):
@@ -218,15 +259,22 @@ class LlamaModel(nn.Module):
         self.embed_tokens = nn.Embedding(cfg.vocab_padded, cfg.hidden_size, dtype=cfg.param_dtype)
         self.layers = nn.ModuleList(LlamaDecoderLayer(cfg) for _ in range(cfg.num_hidden_layers))
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, cfg.dtype)
+        for i, layer in enumerate(self.layers):
+            for name, m in layer.named_modules():
+                if isinstance(m, LoRADense):
+                    m.dropout_key = f"layers.{i}.{name}"
 
     def embed(self, input_ids):
         return self.embed_tokens(input_ids).to(self.cfg.dtype)
 
     def forward(self, input_ids=None, *, inputs_embeds=None, cache: Optional[KVCache] = None,
-                attention_mask: Optional[torch.Tensor] = None):
+                attention_mask: Optional[torch.Tensor] = None,
+                dropout_seed: Optional[int] = None):
         """Returns the final-norm hidden states (B, S, D). With a cache, the
         call appends S tokens to every row and advances ``cache.length``.
-        Without one, ``attention_mask`` (B, S) marks suffix padding."""
+        Without one, ``attention_mask`` (B, S) marks suffix padding, and with
+        ``cfg.remat`` each layer is recomputed in the backward.
+        ``dropout_seed`` turns on LoRA dropout in training mode."""
         cfg = self.cfg
         x = (self.embed(input_ids) if inputs_embeds is None else inputs_embeds).to(cfg.dtype)
         b, s, _ = x.shape
@@ -247,8 +295,16 @@ class LlamaModel(nn.Module):
             scaling_factor=cfg.rope_scaling_factor,
             max_position_embeddings=cfg.max_position_embeddings,
             seq_len=float(max(start_host) + s))
+        use_remat = cfg.remat and cache is None and torch.is_grad_enabled()
         for i, layer in enumerate(self.layers):
-            x = layer(x, cos, sin, layer_idx=i, cache=cache, start=start, kv_len=kv_len)
+            kw = dict(layer_idx=i, cache=cache, start=start, kv_len=kv_len,
+                      dropout_seed=dropout_seed)
+            if use_remat:  # the recompute draws the same dropout masks (derive_seed),
+                # so the global RNG state need not be saved and restored
+                x = checkpoint(layer, x, cos, sin, use_reentrant=False,
+                               preserve_rng_state=False, **kw)
+            else:
+                x = layer(x, cos, sin, **kw)
         if cache is not None:
             cache.length = [n + s for n in cache.length]
         return self.norm(x)
@@ -264,21 +320,76 @@ class LlamaForCausalLM(nn.Module):
 
     def forward(self, input_ids=None, *, inputs_embeds=None, cache: Optional[KVCache] = None,
                 attention_mask: Optional[torch.Tensor] = None,
-                logits_indices: Optional[torch.Tensor] = None):
+                logits_indices: Optional[torch.Tensor] = None,
+                dropout_seed: Optional[int] = None):
         """``logits_indices`` (B,): lm_head only at those positions -> (B, 1, V).
         Returns {"logits", "hidden_states", "cache"}."""
         hidden = self.model(input_ids, inputs_embeds=inputs_embeds, cache=cache,
-                            attention_mask=attention_mask)
+                            attention_mask=attention_mask, dropout_seed=dropout_seed)
         head_in = hidden
         if logits_indices is not None:
             rows = torch.arange(hidden.shape[0], device=hidden.device)
             head_in = hidden[rows, logits_indices.to(hidden.device)][:, None]
-        logits = self.lm_head(head_in)
+        return {"logits": self._logits(head_in), "hidden_states": hidden, "cache": cache}
+
+    def _logits(self, hidden):
+        logits = self.lm_head(hidden)
         cfg = self.cfg
         if cfg.vocab_padded != cfg.vocab_size:
             pad = torch.arange(cfg.vocab_padded, device=logits.device) >= cfg.vocab_size
             logits = logits.masked_fill(pad, -1e9)
-        return {"logits": logits, "hidden_states": hidden, "cache": cache}
+        return logits
 
     def embed(self, input_ids):
         return self.model.embed(input_ids)
+
+    def hidden_states(self, input_ids=None, *, inputs_embeds=None, attention_mask=None,
+                      dropout_seed: Optional[int] = None):
+        """Decoder stack only, no lm_head; pair with :meth:`chunked_loss`."""
+        return self.model(input_ids, inputs_embeds=inputs_embeds,
+                          attention_mask=attention_mask, dropout_seed=dropout_seed)
+
+    def chunked_loss(self, hidden, labels, ignore_index: int = -100):
+        """Next-token CE, equal to ``cross_entropy_loss(logits, labels)``,
+        taken in ``cfg.ce_chunk_size`` sequence chunks. Each chunk's logits
+        and log-softmax live only inside a checkpointed call and are
+        recomputed in the backward, so (B, S, V) logits never exist. The
+        last chunk is shorter instead of padded."""
+        chunk = self.cfg.ce_chunk_size or hidden.shape[1]
+        h, lab = hidden[:, :-1], labels[:, 1:]
+        totals = torch.zeros(2, dtype=torch.float32, device=hidden.device)
+        for s0 in range(0, h.shape[1], chunk):
+            totals = totals + checkpoint(self._ce_sums, h[:, s0:s0 + chunk],
+                                         lab[:, s0:s0 + chunk], ignore_index,
+                                         use_reentrant=False, preserve_rng_state=False)
+        return totals[0] / totals[1].clamp_min(1.0)
+
+    def _ce_sums(self, hidden, labels, ignore_index: int):
+        return _nll_sums(self._logits(hidden), labels, ignore_index)
+
+
+def _nll_sums(logits, labels, ignore_index: int):
+    """(summed negative log-likelihood in f32, number of supervised tokens)
+    of ``logits`` against ``labels`` at the same positions."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    valid = labels != ignore_index
+    tll = logp.gather(-1, torch.where(valid, labels, 0).long()[..., None])[..., 0]
+    return torch.stack([-(tll * valid).sum(), valid.sum().float()])
+
+
+def cross_entropy_loss(logits, labels, ignore_index: int = -100):
+    """Mean next-token CE over supervised positions (logits[:, :-1] against
+    labels[:, 1:]), in f32."""
+    nll, count = _nll_sums(logits[:, :-1], labels[:, 1:], ignore_index)
+    return nll / count.clamp_min(1.0)
+
+
+def lora_trainable_mask(module: nn.Module) -> Dict[str, bool]:
+    """Parameter name -> trained in the reference LoRA recipe: ``lora_A`` /
+    ``lora_B``, both decoder layernorms, any module named ``norm`` (the final
+    norm), ``embed_tokens`` and ``lm_head``; the counterpart of the JAX
+    ``lora_trainable_mask``."""
+    trained = {"lora_A", "lora_B", "input_layernorm", "post_attention_layernorm", "norm",
+               "embed_tokens", "lm_head"}
+    return {name: bool(trained.intersection(name.split(".")))
+            for name, _ in module.named_parameters()}

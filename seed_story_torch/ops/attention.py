@@ -1,6 +1,8 @@
 """Multi-head attention: the mask contract of
-``seed_story_tpu/ops/attention.py``, a plain PyTorch version, and the
-hand-written CUDA flash forward (``csrc/flash_fwd.cu``) behind one entry.
+``seed_story_tpu/ops/attention.py``, a plain PyTorch version of the forward
+and the backward, and the hand-written CUDA flash forward
+(``csrc/flash_fwd.cu``) and backward (``csrc/flash_bwd.cu``) behind one
+differentiable entry.
 
 Masking rule for query row ``i`` (0-based within the call) and key ``j``:
 
@@ -9,9 +11,9 @@ Masking rule for query row ``i`` (0-based within the call) and key ``j``:
 Defaults ``q_start = Skv - Sq`` and ``kv_len = Skv``. Rows with no visible
 key output exactly 0 (LSE -inf).
 
-``mha(implementation="auto")`` runs the plain version on CPU tensors and the
-kernel on CUDA tensors. There is no fallback: a CUDA tensor the kernel does
-not take raises, and so does a failed build or launch.
+``mha(implementation="auto")`` runs the plain versions on CPU tensors and
+the kernels on CUDA tensors. There is no fallback: a CUDA tensor the
+kernels do not take raises, and so does a failed build or launch.
 """
 
 from __future__ import annotations
@@ -118,6 +120,71 @@ def decode_attention(q, k, v, *, kv_len: torch.Tensor,
     return out.reshape(b, hq, sq, d)
 
 
+def mha_backward_reference(q, k, v, o, lse, do, *, causal: bool = True, q_start: Lens = None,
+                           kv_len: Lens = None, scale: Optional[float] = None):
+    """Plain attention backward in f32 under the module's mask rule: the
+    formulas of the flash backward (P = exp(scale * Q K^T - LSE) on visible
+    entries, dS = P * (dO V^T - rowsum(dO * O)), dq = scale * dS K,
+    dk = scale * dS^T Q, dv = P^T dO), with the GQA group summed. Rows with
+    no visible key give zero gradient. Returns (dq, dk, dv) in the dtypes of
+    q, k and v."""
+    b, hq, sq, d = q.shape
+    _, hkv, skv, _ = k.shape
+    group = hq // hkv
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    q_start, kv_len = _normalize_lens(b, sq, skv, q_start, kv_len, q.device)
+    qf, kf, vf, of, dof = (t.float() for t in (q, k, v, o, do))
+    if group > 1:
+        kf = kf.repeat_interleave(group, dim=1)
+        vf = vf.repeat_interleave(group, dim=1)
+    mask = _visible(sq, skv, causal, q_start, kv_len)
+    scores = scale * (qf @ kf.transpose(-1, -2))
+    # a select, not a product with the mask: exp is inf on rows whose LSE is -inf
+    probs = torch.where(mask, torch.exp(scores - lse), 0.0)
+    delta = (dof * of).sum(dim=-1, keepdim=True)
+    ds = probs * (dof @ vf.transpose(-1, -2) - delta)
+    dq = scale * (ds @ kf)
+    dk = scale * (ds.transpose(-1, -2) @ qf)
+    dv = probs.transpose(-1, -2) @ dof
+    if group > 1:
+        dk = dk.view(b, hkv, group, skv, d).sum(dim=2)
+        dv = dv.view(b, hkv, group, skv, d).sum(dim=2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_kernel_inputs(kernel: str, q, k, v, q_start, kv_len, **more):
+    """Raises on what the flash kernels do not take: bf16 CUDA tensors on one
+    device with a unit-stride head dim, d <= 128, int32 (B,) lengths."""
+    b, hq, sq, d = q.shape
+    _, hkv, skv, _ = k.shape
+    for name, t in (("q", q), ("k", k), ("v", v), *more.items()):
+        if not t.is_cuda or t.device != q.device:
+            raise ValueError(f"{kernel}: {name} must be on {q.device}, got {t.device}")
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"{kernel} takes bfloat16, got {name}.dtype={t.dtype}")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{kernel}: {name} needs a unit-stride head dim")
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d or hq % hkv:
+        raise ValueError(f"{kernel}: bad shapes q={tuple(q.shape)} "
+                         f"k={tuple(k.shape)} v={tuple(v.shape)}")
+    if not 0 < d <= 128:
+        raise ValueError(f"{kernel} takes head dims 1..128, got {d}")
+    for name, t in (("q_start", q_start), ("kv_len", kv_len)):
+        if (t.dtype != torch.int32 or t.device != q.device or t.shape != (b,)
+                or not t.is_contiguous()):
+            raise ValueError(f"{kernel}: {name} must be contiguous int32 ({b},) "
+                             f"on {q.device}")
+
+
+def _strides_and_vec(*tensors):
+    """(batch, head, seq) strides of each tensor, and whether every pointer is
+    16-byte aligned and every stride a multiple of 8 (16-byte loads)."""
+    strides = [s for t in tensors for s in t.stride()[:3]]
+    vec = all(t.data_ptr() % 16 == 0 for t in tensors) and all(s % 8 == 0 for s in strides)
+    return strides, vec
+
+
 class FlashForward:
     """Wrapper of the CUDA flash forward. ``launches`` counts kernel launches
     made through it; nothing else touches the count."""
@@ -144,32 +211,14 @@ class FlashForward:
         unit-stride head dim (other strides are free); q_start, kv_len: (B,)
         int32 on the same device. Returns O (B, Hq, Sq, D) bf16 and LSE
         (B, Hq, Sq, 1) f32."""
+        _check_kernel_inputs("flash_fwd", q, k, v, q_start, kv_len)
         b, hq, sq, d = q.shape
         _, hkv, skv, _ = k.shape
-        for name, t in (("q", q), ("k", k), ("v", v)):
-            if not t.is_cuda or t.device != q.device:
-                raise ValueError(f"flash_fwd: {name} must be on {q.device}, got {t.device}")
-            if t.dtype != torch.bfloat16:
-                raise TypeError(f"flash_fwd takes bfloat16, got {name}.dtype={t.dtype}")
-            if t.stride(-1) != 1:
-                raise ValueError(f"flash_fwd: {name} needs a unit-stride head dim")
-        if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d or hq % hkv:
-            raise ValueError(f"flash_fwd: bad shapes q={tuple(q.shape)} "
-                             f"k={tuple(k.shape)} v={tuple(v.shape)}")
-        if not 0 < d <= 128:
-            raise ValueError(f"flash_fwd takes head dims 1..128, got {d}")
-        for name, t in (("q_start", q_start), ("kv_len", kv_len)):
-            if (t.dtype != torch.int32 or t.device != q.device or t.shape != (b,)
-                    or not t.is_contiguous()):
-                raise ValueError(f"flash_fwd: {name} must be contiguous int32 ({b},) "
-                                 f"on {q.device}")
         o = torch.empty((b, hq, sq, d), dtype=torch.bfloat16, device=q.device)
         lse = torch.empty((b, hq, sq, 1), dtype=torch.float32, device=q.device)
         if b == 0 or hq == 0 or sq == 0:
             return o, lse
-        strides = [s for t in (q, k, v) for s in t.stride()[:3]]
-        vec = all(t.data_ptr() % 16 == 0 for t in (q, k, v)) and all(
-            s % 8 == 0 for s in strides)
+        strides, vec = _strides_and_vec(q, k, v)
         fn = self.build().lib.flash_fwd_bf16
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -183,7 +232,105 @@ class FlashForward:
         return o, lse
 
 
+class FlashBackward:
+    """Wrapper of the two CUDA flash backward kernels (``csrc/flash_bwd.cu``).
+    ``dq_launches`` and ``dkv_launches`` count the launches of each, made
+    through it; nothing else touches the counts."""
+
+    def __init__(self):
+        self.dq_launches = 0
+        self.dkv_launches = 0
+        self._built: Optional[BuiltLibrary] = None
+
+    def build(self) -> BuiltLibrary:
+        if self._built is None:
+            built = BuiltLibrary("flash_bwd")
+            for fn in (built.lib.flash_bwd_dq_bf16, built.lib.flash_bwd_dkv_bf16):
+                fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
+                               + [ctypes.c_longlong] * 12
+                               + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                                  ctypes.c_void_p])
+                fn.restype = ctypes.c_int
+            self._built = built
+        return self._built
+
+    def __call__(self, q, k, v, o, lse, do, q_start: torch.Tensor, kv_len: torch.Tensor,
+                 causal: bool, scale: float):
+        """q, o, do: (B, Hq, Sq, D), k/v: (B, Hkv, Skv, D) bf16 CUDA tensors
+        with a unit-stride head dim; lse: the forward's (B, Hq, Sq, 1) f32;
+        q_start, kv_len: (B,) int32. Returns dq, dk, dv (bf16, contiguous).
+        delta = rowsum(dO * O) is computed in f32 outside the kernels, as in
+        the JAX package."""
+        _check_kernel_inputs("flash_bwd", q, k, v, q_start, kv_len, o=o, do=do)
+        b, hq, sq, d = q.shape
+        _, hkv, skv, _ = k.shape
+        if o.shape != q.shape or do.shape != q.shape:
+            raise ValueError(f"flash_bwd: o {tuple(o.shape)} and do {tuple(do.shape)} "
+                             f"must match q {tuple(q.shape)}")
+        if (lse.dtype != torch.float32 or lse.shape != (b, hq, sq, 1)
+                or not lse.is_contiguous() or lse.device != q.device):
+            raise ValueError(f"flash_bwd: lse must be contiguous f32 {(b, hq, sq, 1)}")
+        dq = torch.empty((b, hq, sq, d), dtype=torch.bfloat16, device=q.device)
+        dk = torch.empty((b, hkv, skv, d), dtype=torch.bfloat16, device=q.device)
+        dv = torch.empty((b, hkv, skv, d), dtype=torch.bfloat16, device=q.device)
+        if dq.numel() == 0 or dk.numel() == 0:  # nothing to launch: zero gradients
+            for t in (dq, dk, dv):
+                t.zero_()
+            return dq, dk, dv
+        delta = (do.float() * o.float()).sum(dim=-1).contiguous()
+        strides, vec = _strides_and_vec(q, k, v, do)
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                q_start.data_ptr(), kv_len.data_ptr(), b, hq, hkv, sq, skv, d,
+                *strides, float(scale), int(causal), int(vec))
+        lib = self.build().lib
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            err = lib.flash_bwd_dq_bf16(*args, stream)
+            if err != 0:
+                raise RuntimeError(f"flash_bwd dq launch failed with CUDA error {err}")
+            self.dq_launches += 1
+            err = lib.flash_bwd_dkv_bf16(*args, stream)
+            if err != 0:
+                raise RuntimeError(f"flash_bwd dkv launch failed with CUDA error {err}")
+            self.dkv_launches += 1
+        return dq, dk, dv
+
+
 flash_fwd = FlashForward()
+flash_bwd = FlashBackward()
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable attention under the module's mask rule; the PyTorch
+    counterpart of the JAX ``custom_vjp`` around the flash kernels. With
+    ``kernel`` it pairs the CUDA forward with the CUDA backward, otherwise
+    ``mha_reference_lse`` with ``mha_backward_reference``. Returns (O, LSE);
+    the LSE is not differentiable."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_start, kv_len, causal: bool, scale: float, kernel: bool):
+        if kernel:
+            o, lse = flash_fwd(q, k, v, q_start, kv_len, causal, scale)
+        else:
+            o, lse = mha_reference_lse(q, k, v, causal=causal, q_start=q_start,
+                                       kv_len=kv_len, scale=scale)
+        ctx.save_for_backward(q, k, v, o, lse, q_start, kv_len)
+        ctx.causal, ctx.scale, ctx.kernel = causal, scale, kernel
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, o, lse, q_start, kv_len = ctx.saved_tensors
+        if ctx.kernel:
+            if do.stride(-1) != 1:  # e.g. the expanded gradient of a sum
+                do = do.contiguous()
+            dq, dk, dv = flash_bwd(q, k, v, o, lse, do, q_start, kv_len, ctx.causal, ctx.scale)
+        else:
+            dq, dk, dv = mha_backward_reference(q, k, v, o, lse, do, causal=ctx.causal,
+                                                q_start=q_start, kv_len=kv_len, scale=ctx.scale)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def mha(q, k, v, *, causal: bool = True, q_start: Lens = None,
@@ -192,8 +339,9 @@ def mha(q, k, v, *, causal: bool = True, q_start: Lens = None,
     """Multi-head attention under the module's mask rule.
 
     implementation: 'auto' (the plain version for CPU tensors, the CUDA
-    kernel for CUDA tensors), 'kernel' (CUDA tensors only) or 'plain'.
-    Returns O, or (O, LSE) with ``with_lse``.
+    kernels for CUDA tensors), 'kernel' (CUDA tensors only) or 'plain'.
+    Both go through :class:`FlashAttention`, so the output is differentiable
+    in q, k and v. Returns O, or (O, LSE) with ``with_lse``.
     """
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = k.shape
@@ -205,14 +353,10 @@ def mha(q, k, v, *, causal: bool = True, q_start: Lens = None,
         scale = 1.0 / math.sqrt(d)
     if implementation == "auto":
         implementation = "kernel" if q.is_cuda else "plain"
-    if implementation == "plain":
-        out = mha_reference_lse(q, k, v, causal=causal, q_start=q_start,
-                                kv_len=kv_len, scale=scale)
-    elif implementation == "kernel":
-        if not q.is_cuda:
-            raise ValueError("implementation='kernel' needs CUDA tensors")
-        qs, kl = _normalize_lens(b, sq, skv, q_start, kv_len, q.device)
-        out = flash_fwd(q, k, v, qs, kl, causal, scale)
-    else:
+    if implementation not in ("plain", "kernel"):
         raise ValueError(f"unknown implementation {implementation!r}")
+    if implementation == "kernel" and not q.is_cuda:
+        raise ValueError("implementation='kernel' needs CUDA tensors")
+    qs, kl = _normalize_lens(b, sq, skv, q_start, kv_len, q.device)
+    out = FlashAttention.apply(q, k, v, qs, kl, causal, scale, implementation == "kernel")
     return out if with_lse else out[0]

@@ -4,7 +4,8 @@ first use and loads them with ctypes.
 Each source has a plain C interface, so ``nvcc`` compiles it in seconds
 without PyTorch's headers. The shared library lands in
 ``seed_story_torch/_build/`` (git-ignored) under a name keyed by a hash of
-the source, so an edited kernel is rebuilt and a built one is reused.
+the source and the shared ``csrc/*.cuh`` headers, so an edited kernel is
+rebuilt and a built one is reused.
 """
 
 from __future__ import annotations
@@ -43,7 +44,10 @@ class BuiltLibrary:
 
     def __init__(self, name: str):
         src = CSRC_DIR / f"{name}.cu"
-        digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+        h = hashlib.sha256(src.read_bytes())
+        for header in sorted(CSRC_DIR.glob("*.cuh")):  # shared headers rebuild every user
+            h.update(header.read_bytes())
+        digest = h.hexdigest()[:16]
         path = BUILD_DIR / f"{name}_{digest}.so"
         log = path.with_suffix(".log")
         self.build_seconds = 0.0

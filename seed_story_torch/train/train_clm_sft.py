@@ -1,0 +1,162 @@
+"""Stage-2 MLLM SFT entry point of the port: frozen ViT -> LoRA'd LLaMA
+agent, CE + cosine losses, AdamW with the cosine-min-ratio schedule, on one
+device; counterpart of ``seed_story_tpu/train/train_clm_sft.py`` with the
+same flags and YAML configs.
+
+  python -m seed_story_torch.train.train_clm_sft \\
+    --image_transform configs/processer/qwen_448_transform.yaml \\
+    --tokenizer configs/tokenizer/clm_llama_tokenizer.yaml \\
+    --visual_encoder configs/visual_tokenizer/qwen_vitg_448.yaml \\
+    --llm_model configs/clm_models/llama2chat7b_lora.yaml \\
+    --agent_model configs/clm_models/agent_7b_sft.yaml \\
+    --train_dataset configs/data/george_sft.yaml \\
+    --output_dir output/sft --learning_rate 1e-4 ...
+
+The model YAMLs name the JAX package's config classes; they become the
+port's config dataclasses of the same name, with JAX dtypes mapped by
+name. The tokenizer, image transform and data pipeline are the JAX
+package's framework-free builders, used as they are. It trains on the card
+and raises when there is none; ``main(argv, device="cpu")`` trains on the
+CPU instead.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+from typing import Any, Dict
+
+import torch
+
+from seed_story_tpu.data.story_telling import flatten_images
+
+from ..inference.common import fill_module
+from ..models.agent import AgentConfig, ContinuousLVLM
+from ..models.llama import LlamaConfig, lora_trainable_mask
+from ..models.vit import ViTConfig, VisionTransformerWithAttnPool
+from .checkpoint import load_params_partial
+from .runner import RunnerArgs, run_training
+from .stage2 import make_stage2_loss_fn
+from .trainer import TrainConfig
+
+log = logging.getLogger("seed_story_torch")
+
+CONFIG_CLASSES = {cls.__name__: cls for cls in (ViTConfig, LlamaConfig, AgentConfig)}
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
+# JAX-only options: a scanned layer stack changes the parameter layout, not
+# the numbers, so it is dropped; the others change the numbers and are refused.
+IGNORED_OPTIONS = ("scan_layers",)
+NOT_PORTED_OPTIONS = ("quantize_base", "quantize_kv", "shard_attention_axis")
+
+
+def port_config(raw: Dict[str, Any], **overrides):
+    """A model YAML (``_target_`` naming a JAX config class) -> the port's
+    config dataclass of the same name."""
+    raw = dict(raw)
+    name = raw.pop("_target_").rsplit(".", 1)[-1]
+    if name not in CONFIG_CLASSES:
+        raise ValueError(f"no port config for {name}")
+    kwargs = {}
+    for key, value in raw.items():
+        if key in IGNORED_OPTIONS:
+            log.info("%s: %s=%s has no effect in the port", name, key, value)
+            continue
+        if key in NOT_PORTED_OPTIONS:
+            if value:
+                raise ValueError(f"{name}.{key}={value} is not ported yet")
+            continue
+        if isinstance(value, dict) and "path" in value:  # {_target_: resolve_target, path: dtype}
+            value = DTYPES[value["path"].rsplit(".", 1)[-1]]
+        kwargs[key] = value
+    kwargs.update(overrides)
+    return CONFIG_CLASSES[name](**kwargs)
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--image_transform", required=True)
+    p.add_argument("--tokenizer", required=True)
+    p.add_argument("--visual_encoder", required=True)
+    p.add_argument("--llm_model", required=True)
+    p.add_argument("--agent_model", required=True)
+    p.add_argument("--train_dataset", required=True)
+    p.add_argument("--pretrained_agent_path", default=None)
+    p.add_argument("--pretrained_vit_path", default=None)
+    p.add_argument("--output_dir", default="output/sft")
+    p.add_argument("--resume_from_checkpoint", default=None)
+    p.add_argument("--learning_rate", type=float, default=1e-4)
+    p.add_argument("--weight_decay", type=float, default=0.05)
+    p.add_argument("--max_grad_norm", type=float, default=1.0)
+    p.add_argument("--gradient_accumulation_steps", type=int, default=1)
+    p.add_argument("--lr_scheduler_type", default="cosine")
+    p.add_argument("--warmup_steps", type=int, default=100)
+    p.add_argument("--max_steps", type=int, default=6000)
+    p.add_argument("--min_lr_ratio", type=float, default=0.05)
+    p.add_argument("--save_steps", type=int, default=1000)
+    p.add_argument("--log_steps", type=int, default=10)
+    p.add_argument("--seed", type=int, default=42)
+    # one device: every preset lays the model out the same; DDP / FSDP later
+    p.add_argument("--mesh_data", type=int, default=None)
+    p.add_argument("--sharding", default="fsdp", choices=["dp", "fsdp", "fsdp_tp"])
+    p.add_argument("--mesh_model", type=int, default=1)
+    p.add_argument("--profile_start", type=int, default=-1)
+    p.add_argument("--profile_stop", type=int, default=-1)
+    return p.parse_args(argv)
+
+
+def main(argv=None, device: str = "cuda"):
+    # PyYAML (and PIL, through the transforms) only for this entry point, so
+    # the rest of the package imports without them
+    from seed_story_tpu.utils.config import instantiate, load_config
+
+    args = parse_args(argv)
+    if args.mesh_data not in (None, 1) or args.mesh_model != 1:
+        raise ValueError("the port trains on one device: --mesh_data and --mesh_model must be 1")
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("stage-2 training needs a CUDA device and none is available")
+
+    tokenizer = instantiate(load_config(args.tokenizer))
+    image_transform = instantiate(load_config(args.image_transform))
+    vit_cfg = port_config(load_config(args.visual_encoder))
+    llm_cfg = port_config(load_config(args.llm_model))
+    agent_cfg = port_config(load_config(args.agent_model), llm=llm_cfg)
+
+    vit = fill_module(VisionTransformerWithAttnPool, vit_cfg, device, seed=0)
+    if args.pretrained_vit_path:
+        vit.load_state_dict(load_params_partial(args.pretrained_vit_path, vit.state_dict())[0])
+    vit.eval().requires_grad_(False)  # frozen (the reference's train_clm_sft.py:213-215)
+    agent = fill_module(ContinuousLVLM, agent_cfg, device, seed=args.seed)
+    if args.pretrained_agent_path:
+        agent.load_state_dict(load_params_partial(args.pretrained_agent_path,
+                                                  agent.state_dict())[0])
+
+    # trainable set: the LoRA recipe on the LLM; both resamplers fully
+    mask = lora_trainable_mask(agent)
+    for name in mask:
+        if name.startswith(("input_resampler.", "output_resampler.")):
+            mask[name] = True
+
+    datapipe = instantiate(load_config(args.train_dataset), tokenizer=tokenizer,
+                           image_transform=image_transform, sd_image_transform=None)
+
+    def batches():
+        for batch in iter(datapipe):
+            yield flatten_images(batch)
+
+    train_cfg = TrainConfig(
+        learning_rate=args.learning_rate, weight_decay=args.weight_decay,
+        max_grad_norm=args.max_grad_norm, lr_scheduler_type=args.lr_scheduler_type,
+        warmup_steps=args.warmup_steps, training_steps=args.max_steps,
+        min_lr_ratio=args.min_lr_ratio, grad_accum_steps=args.gradient_accumulation_steps)
+    runner_args = RunnerArgs(
+        output_dir=args.output_dir, max_steps=args.max_steps, save_steps=args.save_steps,
+        log_steps=args.log_steps, resume_from_checkpoint=args.resume_from_checkpoint,
+        seed=args.seed, profile_start=args.profile_start, profile_stop=args.profile_stop)
+    return run_training(runner_args, train_cfg, agent, make_stage2_loss_fn(agent, vit),
+                        batches(), trainable_mask=mask, config_record=vars(args),
+                        data_source=datapipe if hasattr(datapipe, "state") else None)
+
+
+if __name__ == "__main__":
+    main()

@@ -59,14 +59,12 @@ def _leaf(module: nn.Module, key: str) -> Tuple[str, Callable[[np.ndarray], np.n
     return name, lambda w: w
 
 
-def _state_dict(module: nn.Module, params, path_of: PathFn) -> Dict[str, torch.Tensor]:
-    flat = _flatten(params)
-    unused = set(flat)
-    current = module.state_dict()
-    sd = {}
-    for key, ref in current.items():
+def _flax_paths(module: nn.Module, path_of: PathFn) -> Dict[str, Tuple[str, Callable]]:
+    """Every state-dict key of ``module`` except the frozen sin-cos buffers ->
+    (the flax leaf path it comes from, the flax -> torch array transform)."""
+    out = {}
+    for key in module.state_dict():
         if key.endswith("pos_embed"):  # frozen sin-cos buffer, not a flax param
-            sd[key] = ref
             continue
         leaf, transform = _leaf(module, key)
         prefix = key.rpartition(".")[0]
@@ -75,6 +73,20 @@ def _state_dict(module: nn.Module, params, path_of: PathFn) -> Dict[str, torch.T
             path = path[:-len("lora_A")] + path[-len("lora_A"):].lower()
         else:
             path = f"{path}/{leaf}" if path else leaf
+        out[key] = (path, transform)
+    return out
+
+
+def _state_dict(module: nn.Module, params, path_of: PathFn) -> Dict[str, torch.Tensor]:
+    flat = _flatten(params)
+    unused = set(flat)
+    paths = _flax_paths(module, path_of)
+    sd = {}
+    for key, ref in module.state_dict().items():
+        if key not in paths:
+            sd[key] = ref
+            continue
+        path, transform = paths[key]
         if path not in flat:
             raise KeyError(f"{key}: no flax leaf {path}")
         value = np.ascontiguousarray(transform(flat[path]))
@@ -135,6 +147,14 @@ def agent_state_dict(module: ContinuousLVLM, params) -> Dict[str, torch.Tensor]:
     ``output_resampler``) -> the port's state dict. Its parts (a bare
     ``LlamaForCausalLM``, a ``Resampler``) map the same way."""
     return _state_dict(module, params, _llama_path)
+
+
+def agent_flax_paths(module: nn.Module) -> Dict[str, Tuple[str, Callable]]:
+    """Parameter name of the port's agent (or its parts) -> (flax leaf path
+    joined with '/', transform), as :func:`agent_state_dict` pairs them; used
+    to hold gradients and trainable sets to the JAX package's. The agent's
+    transforms are transposes or identities, so each is its own inverse."""
+    return _flax_paths(module, _llama_path)
 
 
 def adapter_state_dict(module, params) -> Dict[str, torch.Tensor]:

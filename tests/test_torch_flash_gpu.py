@@ -1,16 +1,25 @@
-"""The CUDA flash forward against its plain PyTorch version, on the card.
+"""The CUDA flash forward and backward kernels against their plain
+PyTorch versions, on the card.
 
-The kernel has no CPU mode, so this test skips without CUDA. It imports
-neither JAX nor the JAX package, so it runs on a machine that has only
+The kernels have no CPU mode, so these tests skip without CUDA. They import
+neither JAX nor the JAX package, so they run on a machine that has only
 PyTorch: ``python -m pytest --noconftest -m gpu tests/test_torch_flash_gpu.py``.
-Tolerances (plain version in f32 from the same bf16 inputs): O max abs
-2e-2 and LSE max abs 1e-3, set by bf16 rounding of P before PV.
+Tolerances (plain versions in f32 from the same bf16 inputs): O max abs
+2e-2 and LSE max abs 1e-3, set by bf16 rounding of P before PV; dq, dk, dv
+max abs 2e-2 and mean abs 1e-2 relative to the plain gradient's max and
+mean, set by bf16 rounding of P and dS.
 """
 
 import pytest
 import torch
 
-from seed_story_torch.ops.attention import flash_fwd, mha
+from seed_story_torch.ops.attention import (
+    flash_bwd,
+    flash_fwd,
+    mha,
+    mha_backward_reference,
+    mha_reference_lse,
+)
 
 # (causal, sq, skv, hq, hkv, d, q_start, kv_len): causal and full, GQA,
 # ragged kv_len, bottom-right q_start, empty rows, head dims 64 / 104 / 128
@@ -49,6 +58,65 @@ def test_kernel_matches_plain_on_gpu(causal, sq, skv, hq, hkv, d, q_start, kv_le
     assert float((lse - want_lse)[finite].abs().max()) <= 1e-3
     empty = torch.isinf(want_lse[..., 0])
     assert torch.all(out[empty] == 0)
+
+
+def _inputs(causal, sq, skv, hq, hkv, d, q_start, kv_len, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    b = 2
+    q, do = (torch.randn(b, hq, sq, d, generator=gen, device="cuda").to(torch.bfloat16)
+             for _ in range(2))
+    k, v = (torch.randn(b, hkv, skv, d, generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    kv_len = torch.tensor([skv, skv - 37] if kv_len is None else kv_len, device="cuda",
+                          dtype=torch.int32)
+    q_start = (kv_len - sq if q_start is None else torch.tensor(q_start, device="cuda")).int()
+    return q, k, v, do, q_start, kv_len
+
+
+def _assert_grads_close(got, want):
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape, name
+        assert bool(torch.isfinite(g).all()), name
+        err = (g.float() - w.float()).abs()
+        assert float(err.max()) <= 2e-2 * float(w.abs().max()), name
+        assert float(err.mean()) <= 1e-2 * float(w.abs().mean()), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal,sq,skv,hq,hkv,d,q_start,kv_len", CASES)
+def test_backward_kernels_match_plain_on_gpu(causal, sq, skv, hq, hkv, d, q_start, kv_len):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the flash kernels have no CPU mode)")
+    q, k, v, do, q_start, kv_len = _inputs(causal, sq, skv, hq, hkv, d, q_start, kv_len, sq + d)
+    kw = dict(causal=causal, q_start=q_start, kv_len=kv_len)
+    o, lse = mha(q, k, v, implementation="kernel", with_lse=True, **kw)
+    scale = d ** -0.5
+    before = flash_bwd.dq_launches, flash_bwd.dkv_launches
+    got = flash_bwd(q, k, v, o, lse, do, q_start, kv_len, causal, scale)
+    torch.cuda.synchronize()
+    assert (flash_bwd.dq_launches, flash_bwd.dkv_launches) == (before[0] + 1, before[1] + 1)
+    want = mha_backward_reference(q.float(), k.float(), v.float(), o.float(), lse, do.float(),
+                                  scale=scale, **kw)
+    _assert_grads_close(got, want)
+    empty = torch.isinf(lse[..., 0])
+    assert torch.all(got[0][empty] == 0)
+
+
+@pytest.mark.gpu
+def test_gradients_through_mha_on_gpu_match_autograd_of_plain():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the flash kernels have no CPU mode)")
+    q, k, v, do, q_start, kv_len = _inputs(*CASES[4], seed=7)  # GQA, empty rows, d=104
+    kw = dict(causal=True, q_start=q_start, kv_len=kv_len)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = flash_bwd.dq_launches
+    out = mha(*leaves, implementation="kernel", **kw)
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
+    got = torch.autograd.grad(out, leaves, do)
+    assert flash_bwd.dq_launches == before + 1
+    ref = [t.float().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(mha_reference_lse(*ref, **kw)[0], ref, do.float())
+    _assert_grads_close(got, want)
 
 
 @pytest.mark.gpu

@@ -1,0 +1,195 @@
+"""The port's training runner on the CPU at pico size: resume replays an
+uninterrupted run bit for bit (LoRA dropout on, data position restored),
+the checkpoint manager keeps whole checkpoints only, ``load_params_partial``
+reports what it could not load, and the stage-2 entry point
+``seed_story_torch.train.train_clm_sft.main`` runs from YAML configs and
+jsonl + jpg data on disk, with a profiler window, and resumes."""
+
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+from seed_story_torch.inference.common import fill_module
+from seed_story_torch.models.agent import AgentConfig, ContinuousLVLM
+from seed_story_torch.models.llama import LlamaConfig
+from seed_story_torch.train.checkpoint import CheckpointManager, load_params_partial, save_params
+from seed_story_torch.train.runner import RunnerArgs, run_training
+from seed_story_torch.train.stage2 import make_stage2_loss_fn
+from seed_story_torch.train.trainer import TrainConfig, Trainer
+from test_torch_train import tiny_batch
+
+
+class CountingSource:
+    """Endless batches with a position: batch i is made from seed i."""
+
+    def __init__(self):
+        self.position = 0
+
+    def state(self):
+        return {"position": self.position}
+
+    def set_state(self, state):
+        self.position = int(state["position"])
+
+    def __iter__(self):
+        while True:
+            batch = tiny_batch(bs=1, seed=self.position)
+            self.position += 1
+            yield batch
+
+
+def _pico_agent():
+    cfg = AgentConfig.tiny(llm=LlamaConfig.tiny(dtype=torch.float32, num_hidden_layers=1,
+                                                lora_rank=2, lora_dropout=0.2))
+    return fill_module(ContinuousLVLM, cfg, "cpu", seed=0)
+
+
+def _run(out_dir, max_steps, resume=False):
+    agent, source = _pico_agent(), CountingSource()
+    args = RunnerArgs(output_dir=str(out_dir), max_steps=max_steps, save_steps=100, log_steps=1,
+                      resume_from_checkpoint=str(out_dir) if resume else None, seed=3)
+    trainer = run_training(args, TrainConfig(learning_rate=1e-3, warmup_steps=1,
+                                             training_steps=4),
+                           agent, make_stage2_loss_fn(agent), source, data_source=source)
+    return trainer, source
+
+
+def test_resume_replays_an_uninterrupted_run_bitwise(tmp_path):
+    straight, _ = _run(tmp_path / "straight", 4)
+    _run(tmp_path / "resumed", 2)
+    resumed, source = _run(tmp_path / "resumed", 4, resume=True)
+    assert straight.step_count == resumed.step_count == 4
+    for (name, a), b in zip(straight.model.state_dict().items(),
+                            resumed.model.state_dict().values()):
+        assert torch.equal(a, b), name
+    for name in straight.mu:
+        assert torch.equal(straight.mu[name], resumed.mu[name]), name
+        assert torch.equal(straight.nu[name], resumed.nu[name]), name
+    assert CheckpointManager(str(tmp_path / "resumed")).steps() == [2, 4]
+    with open(tmp_path / "resumed" / "4" / "meta.json") as f:
+        assert json.load(f) == {"step": 4, "data_state": {"position": 4}}
+    lines = [json.loads(line) for line in
+             (tmp_path / "resumed" / "metrics.jsonl").read_text().splitlines()]
+    assert [m["step"] for m in lines if "loss" in m] == [1, 2, 3, 4]
+    assert all(m["step_seconds"] == m["fwd_bwd_seconds"] + m["update_seconds"] > 0
+               for m in lines if "loss" in m)
+    assert [m["step"] for m in lines if "checkpoint_write_seconds" in m] == [2, 4]
+
+
+def test_checkpoint_manager_keeps_the_newest_whole_checkpoints(tmp_path):
+    agent = _pico_agent()
+    trainer = Trainer(agent, make_stage2_loss_fn(agent), TrainConfig())
+    mgr = CheckpointManager(str(tmp_path), max_to_keep=2)
+    for step in (1, 2, 3):
+        trainer.step_count = step
+        assert mgr.save(step, trainer, data_state={"at": step})
+    assert not mgr.save(3, trainer)  # already saved
+    mgr.wait()
+    assert mgr.steps() == [2, 3] and sorted(os.listdir(tmp_path)) == ["2", "3"]
+    trainer.step_count = 0
+    assert mgr.restore(trainer, step=2) == (2, {"at": 2})
+    assert trainer.step_count == 2
+    assert CheckpointManager(str(tmp_path / "empty")).restore(trainer) == (None, None)
+
+
+def test_load_params_partial_reports_missing_and_unexpected(tmp_path):
+    target = {"a": torch.zeros(2, 3), "b": torch.zeros(4), "c": torch.zeros(5, dtype=torch.bfloat16)}
+    saved = {"a": torch.ones(2, 3), "b": torch.ones(3), "c": torch.ones(5), "extra": torch.ones(1)}
+    save_params(str(tmp_path / "p.pt"), saved)
+    merged, missing, unexpected = load_params_partial(str(tmp_path / "p.pt"), target)
+    assert sorted(missing) == ["b"] and unexpected == ["extra"]  # a shape mismatch is missing
+    assert torch.equal(merged["a"], torch.ones(2, 3)) and torch.equal(merged["b"], torch.zeros(4))
+    assert merged["c"].dtype == torch.bfloat16 and torch.equal(merged["c"].float(), torch.ones(5))
+
+
+@pytest.fixture(scope="module")
+def workspace(tmp_path_factory):
+    """``tests/test_train_entries.py::workspace``, stage-2 part: pico YAML
+    configs and three 4-image stories of jpgs and jsonl."""
+    root = tmp_path_factory.mktemp("ws")
+    img_dir = root / "images"
+    img_dir.mkdir()
+    records = []
+    for s in range(3):
+        names = []
+        for i in range(4):
+            name = f"s{s}_{i}.jpg"
+            Image.new("RGB", (256, 256), (s * 50, i * 60, 120)).save(img_dir / name)
+            names.append(name)
+        records.append({"images": names,
+                        "captions": [f"story {s} scene {i} with a happy dog" for i in range(4)]})
+    (root / "data").mkdir()
+    with open(root / "data" / "train.jsonl", "w") as f:
+        for r in records:
+            f.write(json.dumps(r) + "\n")
+    cfg = root / "configs"
+    cfg.mkdir()
+    f32 = ("dtype:\n  _target_: seed_story_tpu.utils.config.resolve_target\n"
+           "  path: jax.numpy.float32\n")
+    (cfg / "tokenizer.yaml").write_text("_target_: seed_story_tpu.data.tokenizer.TinyTokenizer\n")
+    (cfg / "transform.yaml").write_text(
+        "_target_: seed_story_tpu.data.transforms.get_transform\n"
+        "type: clip\nimage_size: 28\nkeep_ratio: False\n")
+    (cfg / "vit.yaml").write_text(
+        "_target_: seed_story_tpu.models.vit.ViTConfig\n"
+        "image_size: 28\npatch_size: 14\nwidth: 32\nlayers: 1\nheads: 2\n"
+        "mlp_ratio: 2.0\nn_queries: 9\noutput_dim: 64\n" + f32)
+    (cfg / "llm.yaml").write_text(
+        "_target_: seed_story_tpu.models.llama.LlamaConfig\n"
+        "vocab_size: 32066\nhidden_size: 64\nintermediate_size: 128\n"
+        "num_hidden_layers: 1\nnum_attention_heads: 2\nlora_rank: 2\n"
+        "remat: true\nscan_layers: true\nce_chunk_size: 32\n" + f32)
+    (cfg / "agent.yaml").write_text(
+        "_target_: seed_story_tpu.models.agent.AgentConfig\n"
+        "input_resampler_grid: 2\noutput_resampler_grid: 3\n"
+        "num_img_out_tokens: 4\nresampler_heads: 2\nvit_dim: 64\n")
+    (cfg / "data.yaml").write_text(
+        "_target_: seed_story_tpu.data.builders.build_multi_datapipes\n"
+        "_recursive_: False\n"
+        "datapipes:\n"
+        "  - _target_: seed_story_tpu.data.builders.build_long_story_datapipe\n"
+        f"    data_dir: {root}/data\n"
+        f"    image_dir: {root}/images\n"
+        "    max_length: 128\n    batch_size: 2\n"
+        "    instruction_prompt: \"{instruction}\"\n"
+        "    min_aspect_ratio: 0.2\n    min_resolution: 64\n"
+        "    num_img_in_tokens: 4\n    num_img_out_tokens: 4\n"
+        "    cycle_count: 50\n    story_len: 4\n"
+        "sample_weights:\n  - 1.0\n")
+    return root
+
+
+def test_stage2_entry_runs_from_yaml_and_resumes(workspace):
+    from seed_story_torch.train.train_clm_sft import main
+
+    cfg, out = workspace / "configs", workspace / "out_sft"
+    argv = ["--image_transform", str(cfg / "transform.yaml"),
+            "--tokenizer", str(cfg / "tokenizer.yaml"),
+            "--visual_encoder", str(cfg / "vit.yaml"),
+            "--llm_model", str(cfg / "llm.yaml"),
+            "--agent_model", str(cfg / "agent.yaml"),
+            "--train_dataset", str(cfg / "data.yaml"),
+            "--output_dir", str(out), "--learning_rate", "1e-3", "--max_steps", "3",
+            "--save_steps", "2", "--log_steps", "1", "--warmup_steps", "1", "--sharding", "fsdp",
+            "--profile_start", "1", "--profile_stop", "2"]
+    if not torch.cuda.is_available():  # no CPU continuation without being asked
+        with pytest.raises(RuntimeError, match="CUDA"):
+            main(argv)
+    trainer = main(argv, device="cpu")
+    assert trainer.step_count == 3
+    assert trainer.model.cfg.llm.remat and trainer.model.cfg.llm.ce_chunk_size == 32
+    assert (out / "2").is_dir() and (out / "3").is_dir()
+    assert (out / "profile_trace.json").exists() and (out / "profile_kernels.txt").exists()
+    logged = [json.loads(line) for line in (out / "metrics.jsonl").read_text().splitlines()]
+    losses = [m["loss"] for m in logged if "loss" in m]
+    assert len(losses) == 3 and np.isfinite(losses).all()
+    with open(out / "3" / "meta.json") as f:
+        assert json.load(f)["data_state"] is not None  # the datapipe position travels along
+
+    trainer = main(argv + ["--resume_from_checkpoint", str(out), "--max_steps", "4"],
+                   device="cpu")
+    assert trainer.step_count == 4 and (out / "4").is_dir()

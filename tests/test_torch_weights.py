@@ -158,6 +158,8 @@ def test_init_random_is_seeded_and_uses_flax_scales():
 def test_port_imports_no_jax_flax_yaml_or_pil():
     names = [m.name for m in pkgutil.walk_packages(seed_story_torch.__path__, "seed_story_torch.")]
     assert "seed_story_torch.inference.common" in names
+    assert {f"seed_story_torch.train.{m}" for m in (
+        "trainer", "stage2", "checkpoint", "metrics", "runner", "scheduler")} <= set(names)
     code = ("import importlib, sys\n"
             f"for name in {names!r}:\n"
             "    importlib.import_module(name)\n"
