@@ -8,22 +8,26 @@ exits non-zero:
 1. device: the card's name and power limit, and the kernel builds;
 2. kernels: the flash forward against its plain PyTorch version at the
    shapes the story path and the frozen ViT of training give it, with
-   errors and times;
+   errors, times, TFLOP/s, the bound (the least time the card could take:
+   operations at the real head dim over the bf16 peak, or bytes read and
+   written once over the memory rate, whichever is larger) and the time of
+   one ``F.scaled_dot_product_attention`` call on the same inputs, timed
+   here as a yardstick and used nowhere in the port;
 3. backward kernels: at the stage-2 training shapes of the LLaMA and the
    resamplers (and the forward's edge cases and the UNet's 64x64
    self-attention), the flash forward against the plain forward, and the
    flash backward's dq and dk/dv kernels against the plain backward, with
-   errors and times;
+   errors, times, bounds and SDPA's backward;
 4. story: the port's main path at full width (LLaMA-2-7B + LoRA agent,
    ViT-bigG, SDXL-base UNet + ResamplerXLV2, SDXL VAE) on seeded random
    bf16 weights: one 3-segment story of 1024x1024 images through
    ``build_stack`` -> ``StoryGenerationPipeline.run``, with the kernel's
-   launch count checked per stage;
+   launch count checked per stage and no input copied for TMA;
 5. train: stage 2 at full width (frozen ViT-bigG -> LLaMA-2-7B + LoRA
    agent with remat, chunked CE and bf16 parameters) on seeded random
    weights: ``run_training`` for 4 steps on one repeated batch of 2 x 1280
-   tokens and 20 images, with losses, parameters, per-step times and the
-   kernels' launches per step checked.
+   tokens and 20 images, with losses, parameters, per-step times, the
+   kernels' launches per step and no input copied for TMA checked.
 
 The line before the last is the kernel report (JSON); the last line is
 ``{"ok": true, "device": {...}}``.
@@ -38,10 +42,13 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from collections import defaultdict
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.nn.attention import SDPBackend, sdpa_kernel
 
 from seed_story_torch.inference.common import build_stack, fill_module
 from seed_story_torch.models.agent import AgentConfig, ContinuousLVLM
@@ -52,6 +59,7 @@ from seed_story_torch.models.sdxl.vae import VAEConfig
 from seed_story_torch.models.vit import ViTConfig, VisionTransformerWithAttnPool
 from seed_story_torch.ops.attention import (
     _normalize_lens,
+    _visible,
     flash_bwd,
     flash_fwd,
     mha,
@@ -73,6 +81,16 @@ O_MAX_ABS, O_MEAN_ABS, LSE_MAX_ABS = 2e-2, 2e-3, 1e-3
 # Backward kernels against the plain f32 backward from the same bf16 inputs,
 # relative to the reference's own size; set by rounding P and dS to bf16.
 GRAD_MAX_REL, GRAD_MEAN_REL = 2e-2, 1e-2
+# One H100 SXM (NVIDIA's data sheet, dense): bf16 tensor cores, device memory.
+PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 989e12, 3.35e12
+SDPA_BACKENDS = ("FLASH_ATTENTION", "CUDNN_ATTENTION", "EFFICIENT_ATTENTION")
+
+
+def forbidden_imports() -> list:
+    """JAX or any module of the JAX package in this process: the port
+    imports neither."""
+    bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "seed_story_tpu")))
+    return [f"imported {bad[:5]}"] if bad else []
 
 
 def card_label() -> str:
@@ -95,7 +113,7 @@ def phase_device():
         print(f"{name} build: {time.perf_counter() - t0:.3f} s "
               f"(nvcc {built.build_seconds:.3f} s) -> {built.path.name}", flush=True)
         for line in built.ptxas_log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line or "Function" in line:
+            if any(w in line for w in ("registers", "spill", "smem", "Function", "arning")):
                 print(f"  ptxas: {line.strip()}", flush=True)
     return label
 
@@ -140,6 +158,83 @@ def _time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def attention_work(b, hq, hkv, sq, skv, d, causal, q_start, kv_len) -> dict:
+    """What these inputs need: visible (query, key) pairs summed over the
+    heads, the bytes of one bf16 (B, Hq, Sq, d) tensor, of one K or V
+    counting only keys some row sees, and of one f32 (B, Hq, Sq) row
+    statistic."""
+    qs, kl = _normalize_lens(b, sq, skv, q_start, kv_len, "cpu")
+    mask = _visible(sq, skv, causal, qs, kl).expand(b, 1, sq, skv)
+    return {"pairs": int(mask.sum()) * hq, "q": 2 * b * hq * sq * d,
+            "kv": 2 * int(mask.any(dim=2).sum()) * hkv * d, "row": 4 * b * hq * sq,
+            "kv_all": 2 * b * hkv * skv * d, "d": d}
+
+
+def bound(flops: float, nbytes: float):
+    """(ms, what binds): the larger of operations over the bf16 peak and
+    bytes over the memory rate."""
+    ops_ms, bytes_ms = 1e3 * flops / PEAK_BF16_FLOPS, 1e3 * nbytes / PEAK_BYTES_PER_S
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def forward_bound(w: dict):
+    """Q, K, V read, O and LSE written; QK^T and PV at the real head dim."""
+    return 4 * w["d"] * w["pairs"], bound(4 * w["d"] * w["pairs"],
+                                          2 * w["q"] + 2 * w["kv"] + w["row"])
+
+
+def backward_bounds(w: dict):
+    """dq: S, dP and dS K (6 d per pair) reading Q, dO, K, V, LSE, delta and
+    writing dq; dk/dv: S, dP, P^T dO and dS^T Q (8 d per pair), writing dk
+    and dv for every key."""
+    reads = 2 * w["q"] + 2 * w["kv"] + 2 * w["row"]
+    return (bound(6 * w["d"] * w["pairs"], reads + w["q"]),
+            bound(8 * w["d"] * w["pairs"], reads + 2 * w["kv_all"]))
+
+
+def library_call(q, k, causal, q_start, kv_len):
+    """Keyword arguments of one ``F.scaled_dot_product_attention`` call that
+    computes the kernel's function on these inputs, and how it masks; None
+    where none does (a row with no visible key gives NaN there, not 0)."""
+    b, hq, sq, d = q.shape
+    skv = k.shape[2]
+    qs, kl = _normalize_lens(b, sq, skv, q_start, kv_len, q.device)
+    kw = dict(scale=d ** -0.5, enable_gqa=hq != k.shape[1])
+    if bool((kl == skv).all()) and (not causal or (sq == skv and bool((qs == 0).all()))):
+        return dict(is_causal=causal, **kw), "is_causal" if causal else "no mask"
+    mask = _visible(sq, skv, causal, qs, kl).expand(b, 1, sq, skv)
+    if bool(mask.any(dim=-1).all()):
+        return dict(attn_mask=mask, **kw), "boolean mask"
+    return None, "no single call: rows with no visible key"
+
+
+def time_library(q, k, v, iters: int, causal, q_start, kv_len, do=None):
+    """(device ms per call, backend) of the fastest SDPA backend that takes
+    these inputs: the forward, or with ``do`` the backward of dq, dk and dv
+    together."""
+    call, how = library_call(q, k, causal, q_start, kv_len)
+    if call is None:
+        return None, how
+    best = (None, f"no backend ({how})")
+    for name in SDPA_BACKENDS:
+        try:
+            with warnings.catch_warnings(), sdpa_kernel(getattr(SDPBackend, name)):
+                warnings.simplefilter("ignore")
+                if do is None:
+                    fn = lambda: F.scaled_dot_product_attention(q, k, v, **call)  # noqa: E731
+                else:
+                    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+                    out = F.scaled_dot_product_attention(*leaves, **call)
+                    fn = lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)  # noqa: E731
+                fn()
+                ms = _profiled_ms(fn, iters)["all"][0]
+        except RuntimeError:
+            continue
+        if best[0] is None or ms < best[0]:
+            best = (ms, f"{name.lower()} ({how})")
+    return best
+
+
 def check_forward(name: str, row: dict, o, lse, o_ref, lse_ref) -> list:
     """Writes the forward kernel's O and LSE errors against the plain
     version's into ``row``; returns what is out of bounds."""
@@ -174,8 +269,16 @@ def phase_kernels(label: str):
         iters = 20 if sq * skv >= 1 << 20 else 50
         t = [_time_ms(lambda: mha(q, k, v, implementation=impl, **kw), iters)
              for impl in ("plain", "kernel", "kernel", "plain")]
-        row["ms"] = (t[1] + t[2]) / 2
+        row["call_ms"] = (t[1] + t[2]) / 2  # the whole mha call, host path included
         row["plain_ms"] = (t[0] + t[3]) / 2
+        row["ms"], row["recorded"] = _profiled_ms(
+            lambda: mha(q, k, v, implementation="kernel", **kw), iters, ("flash_fwd_kernel",))[
+            "flash_fwd_kernel"]
+        flops, (row["bound_ms"], row["bound_by"]) = forward_bound(
+            attention_work(b, hq, hkv, sq, skv, d, causal, q_start, kv_len))
+        row["tflops"] = flops / row["ms"] / 1e9
+        row["roofline"] = row["bound_ms"] / row["ms"]
+        row["library_ms"], row["library"] = time_library(q, k, v, iters, **kw)
         print(f"kernel {name}: {json.dumps(row)} [{label}]", flush=True)
         rows.append(row)
     if failed:
@@ -198,11 +301,20 @@ BWD_CASES = [
 ]
 
 
-def _profiled_ms(fn, iters: int, kernels) -> dict:
+def device_events(events) -> list:
+    """The profiler's device-side events (kernels, copies, fills): a CPU
+    op's self device time repeats the kernels it launched."""
+    found = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not found:
+        raise AssertionError("the profiler recorded no device event")
+    return found
+
+
+def _profiled_ms(fn, iters: int, kernels=()) -> dict:
     """(device ms per launch, launches recorded) of each named kernel
     (``fn`` launches each once), from one torch.profiler pass over ``iters``
     calls: the mean over the launches the profiler recorded, which may miss
-    some."""
+    some; under "all", the device time of everything per call."""
     fn()
     torch.cuda.synchronize()
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -211,7 +323,10 @@ def _profiled_ms(fn, iters: int, kernels) -> dict:
             fn()
         torch.cuda.synchronize()
     events = prof.key_averages()
-    out = {}
+    # each device event's mean duration times its launches per call, so that
+    # events the profiler dropped do not shorten the sum
+    out = {"all": (sum(e.self_device_time_total / e.count * max(1, round(e.count / iters))
+                       for e in device_events(events)) / 1e3, iters)}
     for kernel in kernels:
         mine = [e for e in events if kernel in e.key]
         count = sum(e.count for e in mine)
@@ -271,6 +386,9 @@ def phase_bwd_kernels(label: str):
         per_kernel = _profiled_ms(kernel, iters, ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"))
         row["dq_ms"], row["dq_recorded"] = per_kernel["flash_bwd_dq_kernel"]
         row["dkv_ms"], row["dkv_recorded"] = per_kernel["flash_bwd_dkv_kernel"]
+        (row["dq_bound_ms"], row["dq_bound_by"]), (row["dkv_bound_ms"], row["dkv_bound_by"]) = (
+            backward_bounds(attention_work(b, hq, hkv, sq, skv, d, causal, q_start, kv_len)))
+        row["library_ms"], row["library"] = time_library(q, k, v, iters, **kw, do=do)
         print(f"bwd kernel {name}: {json.dumps(row)} [{label}]", flush=True)
         rows.append(row)
     if failed:
@@ -291,12 +409,17 @@ class StageClock:
 
     def __init__(self):
         self.calls = defaultdict(list)  # stage -> [(seconds, kernel launches)]
+        self.last_inputs = {}  # stage -> (args, kwargs) of its last call, where kept
 
-    def watch(self, module, stage_of):
+    def watch(self, module, stage_of, keep_inputs: bool = False):
+        """Times ``module``'s calls; with ``keep_inputs`` it holds on to the
+        last call's inputs (and the memory they pin)."""
         start = {}
 
         def before(mod, args, kwargs):
             torch.cuda.synchronize()
+            if keep_inputs:
+                self.last_inputs[stage_of(args, kwargs)] = (args, kwargs)
             start["t"], start["n"] = time.perf_counter(), flash_fwd.launches
 
         def after(mod, args, kwargs, out):
@@ -312,6 +435,27 @@ class StageClock:
 
     def mean_ms(self, stage: str) -> float:
         return 1e3 * float(np.mean([t for t, _ in self.calls[stage]]))
+
+
+def profile_call(module, args, kwargs) -> dict:
+    """One more call of ``module`` on the inputs it last saw, under
+    torch.profiler: wall ms (synchronized), device ms of everything it
+    launched, and device ms and launches of the flash forward."""
+    with torch.inference_mode():
+        module(*args, **kwargs)
+        torch.cuda.synchronize()
+        activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            module(*args, **kwargs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    flash = [e for e in device_events(events) if "flash_fwd_kernel" in e.key]
+    return {"wall_ms": 1e3 * wall,
+            "device_ms": sum(e.self_device_time_total for e in device_events(events)) / 1e3,
+            "flash_ms": sum(e.self_device_time_total for e in flash) / 1e3,
+            "flash_launches": sum(e.count for e in flash)}
 
 
 def phase_story(label: str):
@@ -341,7 +485,7 @@ def phase_story(label: str):
     clock.watch(stack.vit, lambda a, k: "vit_encode")
     clock.watch(stack.agent.llm, lambda a, k: (
         "prefill" if k["inputs_embeds"].shape[1] > 1 else "decode_token"))
-    clock.watch(stack.image_pipe.adapter.unet, lambda a, k: "unet_cfg_step")
+    clock.watch(stack.image_pipe.adapter.unet, lambda a, k: "unet_cfg_step", keep_inputs=True)
     clock.watch(stack.image_pipe.vae.decoder, lambda a, k: "vae_decode")
 
     pipe = StoryGenerationPipeline(stack.tokenizer, stack.generator, stack.visual_encode,
@@ -349,7 +493,8 @@ def phase_story(label: str):
                                        story_len=SEGMENTS + 1, window_size=WINDOW,
                                        num_img_in_tokens=agent_cfg.num_img_in_tokens))
     pixels = np.random.RandomState(0).randn(1, 3, 448, 448).astype(np.float32)
-    flash_fwd.launches = 0
+    torch.cuda.reset_peak_memory_stats()  # the story's own peak, not the kernel phases'
+    flash_fwd.launches = flash_fwd.padded_copies = 0
     segments, seg_s = [], []
     t_prev = time.perf_counter()
     for seg in pipe.run(pixels, "george the monkey went to the park"):
@@ -357,9 +502,11 @@ def phase_story(label: str):
         seg_s.append(time.perf_counter() - t_prev)
         segments.append(seg)
         t_prev = time.perf_counter()
-    launches = flash_fwd.launches
+    launches, copies = flash_fwd.launches, flash_fwd.padded_copies
 
     failures = []
+    if copies:
+        failures.append(f"{copies} inputs copied for TMA on the main path")
     if len(segments) != SEGMENTS:
         failures.append(f"{len(segments)} segments, expected {SEGMENTS}")
     for seg in segments:
@@ -378,8 +525,7 @@ def phase_story(label: str):
             failures.append(f"flash kernel not launched during {stage}")
     if launches == 0:
         failures.append("flash kernel not launched on the main path")
-    if "jax" in sys.modules:
-        failures.append("jax was imported")
+    failures += forbidden_imports()
 
     for stage in ("vit_encode", "prefill", "decode_token", "unet_cfg_step", "vae_decode"):
         print(f"stage {stage}: {clock.mean_ms(stage):.3f} ms mean over "
@@ -387,8 +533,12 @@ def phase_story(label: str):
               f"[{label}]", flush=True)
     print(f"stage segment: {np.mean(seg_s):.3f} s/segment mean "
           f"({', '.join(f'{s:.3f}' for s in seg_s)}) [{label}]", flush=True)
-    print(f"main path: {launches} flash launches, peak "
+    print(f"main path: {launches} flash launches, {copies} padded copies, peak "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{label}]", flush=True)
+    # after the counts are read: one more UNet CFG step, profiled (the
+    # profiler's own overhead is in its wall time)
+    unet = profile_call(stack.image_pipe.adapter.unet, *clock.last_inputs["unet_cfg_step"])
+    print(f"unet_cfg_step profiled: {json.dumps(unet)} [{label}]", flush=True)
     if failures:
         raise AssertionError(f"story phase failed: {failures}")
     return launches
@@ -477,19 +627,20 @@ def phase_train(label: str):
 
     with tempfile.TemporaryDirectory() as out:
         flash_fwd.launches = flash_bwd.dq_launches = flash_bwd.dkv_launches = 0
+        flash_fwd.padded_copies = 0
         t_run = time.perf_counter()
         run_training(RunnerArgs(output_dir=out, max_steps=TRAIN_STEPS, save_steps=10**9,
                                 log_steps=1, seed=0),
                      TrainConfig(learning_rate=1e-3, warmup_steps=1, training_steps=TRAIN_STEPS),
                      agent, make_stage2_loss_fn(agent, vit), repeated(), trainable_mask=mask)
         run_s = time.perf_counter() - t_run
-        launches = flash_launch_counts()
+        launches, copies = flash_launch_counts(), flash_fwd.padded_copies
         with open(os.path.join(out, "metrics.jsonl")) as f:
             logged = [json.loads(line) for line in f]
         ckpt_dir = os.path.join(out, str(TRAIN_STEPS))
         ckpt_bytes = sum(os.path.getsize(os.path.join(ckpt_dir, n)) for n in os.listdir(ckpt_dir))
 
-    failures = []
+    failures = [f"{copies} inputs copied for TMA in training"] if copies else []
     steps = [m for m in logged if "loss" in m]
     ckpt_s = next(m for m in logged if "checkpoint_write_seconds" in m)
     losses = [m["loss"] for m in steps]
@@ -523,9 +674,9 @@ def phase_train(label: str):
     print(f"train run: {run_s:.3f} s for {TRAIN_STEPS} steps; final checkpoint "
           f"{ckpt_bytes / 2**30:.3f} GiB, host copy {ckpt_s['checkpoint_copy_seconds']:.3f} s "
           f"+ write {ckpt_s['checkpoint_write_seconds']:.3f} s; "
-          f"launches fwd {launches[0]} dq {launches[1]} dkv {launches[2]} [{label}]", flush=True)
-    if "jax" in sys.modules:
-        failures.append("jax was imported")
+          f"launches fwd {launches[0]} dq {launches[1]} dkv {launches[2]}, {copies} padded "
+          f"copies [{label}]", flush=True)
+    failures += forbidden_imports()
     if failures:
         raise AssertionError(f"train phase failed: {failures}")
     return launches
@@ -548,12 +699,16 @@ def main():
          "launches": story_launches + train_fwd,
          "launches_by_path": {"story": story_launches, "train": train_fwd},
          "max_abs_err": max(r["o_max_abs"] for r in rows + bwd_rows), "ms": at["ms"],
-         "plain_ms": at["plain_ms"], "at": at["name"]},
+         "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
+         "library_ms": at["library_ms"], "library": at["library"], "at": at["name"]},
         *({"name": f"flash_bwd_{kname}", "route": "cuda",
            "source": "seed_story_torch/csrc/flash_bwd.cu",
            "replaces": f"seed_story_tpu/ops/attention.py:{line}", "launches": n,
            "max_abs_err": max(max(r[f"{g}_max_abs"] for g in grads) for r in bwd_rows),
-           "ms": bat[f"{kname}_ms"], "plain_ms": bat["plain_ms"], "at": bat["name"]}
+           "ms": bat[f"{kname}_ms"], "plain_ms": bat["plain_ms"],
+           "bound_ms": bat[f"{kname}_bound_ms"], "bound_by": bat[f"{kname}_bound_by"],
+           "library_ms": bat["library_ms"], "library": f"{bat['library']}: dq, dk and dv",
+           "at": bat["name"]}
           for kname, line, n, grads in (("dq", 398, train_dq, ("dq",)),
                                         ("dkv", 453, train_dkv, ("dk", "dv"))))]}),
           flush=True)

@@ -1,4 +1,5 @@
-// Pieces shared by the flash-attention kernels (flash_fwd.cu, flash_bwd.cu).
+// Pieces of the wmma flash-attention kernels (flash_bwd.cu); the Hopper
+// forward (flash_fwd.cu) loads its tiles with TMA instead.
 #pragma once
 
 #include <cuda_bf16.h>

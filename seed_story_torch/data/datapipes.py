@@ -1,0 +1,183 @@
+"""Host-side data pipeline: jsonl shards -> seeded shuffles -> decoded,
+statically batched numpy batches, and a background-thread loader; the
+port's own copy of what it uses of ``seed_story_tpu/data/datapipes.py``.
+The stream is a pure function of (seed, records consumed), so a restored
+position replays it exactly.
+"""
+
+from __future__ import annotations
+
+import glob
+import inspect
+import itertools
+import json
+import os
+import queue
+import random
+import threading
+from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional
+
+import numpy as np
+
+from .story_telling import collate
+
+
+def list_jsonl_files(data_dir) -> List[str]:
+    if isinstance(data_dir, (list, tuple)):
+        return sorted(f for d in data_dir for f in list_jsonl_files(d))
+    if os.path.isfile(data_dir):
+        return [data_dir]
+    return sorted(glob.glob(os.path.join(data_dir, "**/*.jsonl"), recursive=True))
+
+
+def parse_jsonl(path: str) -> Iterator[Dict[str, Any]]:
+    """Yields records, skipping bad lines and unreadable files."""
+    try:
+        with open(path, "r") as f:
+            for line in f:
+                line = line.strip()
+                if not line:
+                    continue
+                try:
+                    yield json.loads(line)
+                except json.JSONDecodeError:
+                    continue
+    except OSError:
+        return
+
+
+class JsonlStoryDataset:
+    """Deterministic iterable over decoded samples. One epoch is one pass
+    over (files x cycle_count) with seeded shuffles; ``host_index`` /
+    ``host_count`` take every n-th file (one host reads them all)."""
+
+    def __init__(self, data_dir,
+                 decode_fn: Callable[..., Optional[Dict[str, np.ndarray]]], *,
+                 cycle_count: int = 1, seed: int = 0, host_index: int = 0,
+                 host_count: int = 1, shuffle_buffer: int = 256):
+        self.files = list_jsonl_files(data_dir)
+        if not self.files:
+            raise FileNotFoundError(f"no .jsonl under {data_dir}")
+        self.decode_fn = decode_fn
+        self.cycle_count = cycle_count
+        self.seed = seed
+        self.host_index = host_index
+        self.host_count = host_count
+        self.shuffle_buffer = shuffle_buffer
+        # the decode's own draws are seeded by (seed, record position) too
+        try:
+            self._decode_takes_rng = "rng" in inspect.signature(decode_fn).parameters
+        except (TypeError, ValueError):
+            self._decode_takes_rng = False
+        self._records_consumed = 0
+        self._skip = 0
+
+    def state(self) -> Dict[str, int]:
+        return {"seed": self.seed, "records_consumed": self._records_consumed}
+
+    def set_state(self, state: Dict[str, int]) -> None:
+        if int(state["seed"]) != self.seed:
+            raise ValueError(f"data state of seed {state['seed']}, dataset seed {self.seed}")
+        self._records_consumed = 0
+        self._skip = int(state["records_consumed"])
+
+    def _emit(self, record):
+        """Counts the record; decodes it unless fast-forwarding."""
+        self._records_consumed += 1
+        if self._skip > 0:
+            self._skip -= 1
+            return None
+        if self._decode_takes_rng:
+            rng = random.Random(f"{self.seed}:decode:{self._records_consumed - 1}")
+            return self.decode_fn(record, rng=rng)
+        return self.decode_fn(record)
+
+    def _file_stream(self, epoch: int) -> List[str]:
+        rng = random.Random(f"{self.seed}:files:{epoch}")
+        files = list(self.files)
+        rng.shuffle(files)
+        files = files * self.cycle_count
+        rng.shuffle(files)
+        return files[self.host_index::self.host_count]
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        # every __iter__ restarts the stream at epoch 0, and the position with
+        # it (a pending set_state fast-forward is kept)
+        self._records_consumed = 0
+        for epoch in itertools.count():
+            rng = random.Random(f"{self.seed}:sample:{epoch}")
+            buf: List[Dict[str, Any]] = []
+            for path in self._file_stream(epoch):
+                for record in parse_jsonl(path):
+                    buf.append(record)
+                    if len(buf) >= self.shuffle_buffer:
+                        idx = rng.randrange(len(buf))
+                        buf[idx], buf[-1] = buf[-1], buf[idx]
+                        sample = self._emit(buf.pop())
+                        if sample is not None:
+                            yield sample
+            rng.shuffle(buf)
+            for record in buf:
+                sample = self._emit(record)
+                if sample is not None:
+                    yield sample
+
+
+def batched(samples: Iterable, batch_size: int) -> Iterator[Dict[str, np.ndarray]]:
+    """Collated batches of ``batch_size``; a ragged tail is dropped."""
+    it = iter(samples)
+    while True:
+        batch = list(itertools.islice(it, batch_size))
+        if len(batch) < batch_size:
+            return
+        yield collate(batch)
+
+
+class ThreadedLoader:
+    """Background-thread pipeline with a bounded prefetch queue. Batches are
+    produced (and moved to the device by ``device_put_fn``) off the
+    trainer's thread. ``state_fn()`` is taken right after each batch is
+    produced and travels with it, so ``current_state`` describes the
+    batches the consumer has seen, not the producer's position."""
+
+    _SENTINEL = object()
+
+    def __init__(self, batch_iter_factory: Callable[[], Iterator], prefetch: int = 2,
+                 device_put_fn: Optional[Callable] = None,
+                 state_fn: Optional[Callable[[], Dict]] = None):
+        self.factory = batch_iter_factory
+        self.device_put_fn = device_put_fn
+        self.state_fn = state_fn
+        self.current_state: Optional[Dict] = None
+        self._q: queue.Queue = queue.Queue(maxsize=prefetch)
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._thread.start()
+
+    def _worker(self):
+        try:
+            for batch in self.factory():
+                if self._stop.is_set():
+                    return
+                snap = self.state_fn() if self.state_fn is not None else None
+                if self.device_put_fn is not None:
+                    batch = self.device_put_fn(batch)
+                self._q.put((batch, snap))
+        finally:
+            self._q.put(self._SENTINEL)
+
+    def __iter__(self):
+        while True:
+            item = self._q.get()
+            if item is self._SENTINEL:
+                return
+            batch, self.current_state = item
+            yield batch
+
+    def close(self):
+        self._stop.set()
+        try:
+            while True:
+                self._q.get_nowait()
+        except queue.Empty:
+            pass

@@ -17,8 +17,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from seed_story_tpu.data.tokenizer import BOI_TOKEN_ID, EOI_TOKEN_ID, NUM_IMG_TOKENS
-
+from ..data.tokenizer import BOI_TOKEN_ID, EOI_TOKEN_ID, NUM_IMG_TOKENS
 from ..models.llama import KVCache
 from .logits_processors import ImageTokenAutomaton
 

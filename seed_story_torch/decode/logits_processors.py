@@ -10,7 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from seed_story_tpu.data.tokenizer import (
+from ..data.tokenizer import (
     BOI_TOKEN_ID,
     EOI_TOKEN_ID,
     FIRST_IMG_TOKEN_ID,

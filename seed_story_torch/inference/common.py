@@ -16,8 +16,7 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
-from seed_story_tpu.data.tokenizer import TinyTokenizer
-
+from ..data.tokenizer import TinyTokenizer
 from .. import weights as W
 from ..decode.generate import GenerateConfig, StoryGenerator
 from ..models.agent import AgentConfig, ContinuousLVLM

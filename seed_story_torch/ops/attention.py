@@ -1,8 +1,8 @@
 """Multi-head attention: the mask contract of
 ``seed_story_tpu/ops/attention.py``, a plain PyTorch version of the forward
-and the backward, and the hand-written CUDA flash forward
-(``csrc/flash_fwd.cu``) and backward (``csrc/flash_bwd.cu``) behind one
-differentiable entry.
+and the backward, and the hand-written CUDA flash forward for Hopper
+(``csrc/flash_fwd.cu``: wgmma, TMA, mbarriers) and backward
+(``csrc/flash_bwd.cu``) behind one differentiable entry.
 
 Masking rule for query row ``i`` (0-based within the call) and key ``j``:
 
@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import numbers
 from typing import Optional, Tuple, Union
 
 import torch
@@ -36,6 +37,10 @@ def _normalize_lens(b: int, sq: int, skv: int, q_start: Lens, kv_len: Lens,
     def as_rows(x, default):
         if x is None:
             x = default
+        if isinstance(x, numbers.Integral):
+            # filled on the device: a copy from pageable host memory would
+            # wait for the stream, once per attention call
+            return torch.full((b,), int(x), dtype=torch.int32, device=device)
         return torch.as_tensor(x, dtype=torch.int32, device=device).expand(b).contiguous()
 
     return as_rows(q_start, skv - sq), as_rows(kv_len, skv)
@@ -185,22 +190,40 @@ def _strides_and_vec(*tensors):
     return strides, vec
 
 
+def tma_ready(t: torch.Tensor) -> bool:
+    """Whether TMA reads ``t`` (B, H, S, D) in place: a 16-byte aligned base
+    and (batch, head, seq) strides of whole 16-byte units, non-zero on every
+    dim longer than 1."""
+    return t.data_ptr() % 16 == 0 and all(
+        size == 1 or (stride > 0 and stride % 8 == 0)
+        for size, stride in zip(t.shape[:3], t.stride()[:3]))
+
+
+def padded_copy(t: torch.Tensor, cols: int) -> torch.Tensor:
+    """A contiguous copy of ``t`` (B, H, S, D) with D zero-padded to ``cols``."""
+    out = t.new_zeros((*t.shape[:3], cols))
+    out[..., :t.shape[3]] = t
+    return out
+
+
 class FlashForward:
     """Wrapper of the CUDA flash forward. ``launches`` counts kernel launches
-    made through it; nothing else touches the count."""
+    made through it; nothing else touches the count. ``padded_copies``
+    counts the inputs it copied first because TMA cannot read them in place
+    (see :func:`tma_ready`)."""
 
     def __init__(self):
         self.launches = 0
+        self.padded_copies = 0
         self._built: Optional[BuiltLibrary] = None
 
     def build(self) -> BuiltLibrary:
         if self._built is None:
             built = BuiltLibrary("flash_fwd")
             fn = built.lib.flash_fwd_bf16
-            fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+            fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
                            + [ctypes.c_longlong] * 9
-                           + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                              ctypes.c_void_p])
+                           + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
             fn.restype = ctypes.c_int
             self._built = built
         return self._built
@@ -209,25 +232,38 @@ class FlashForward:
                  causal: bool, scale: float):
         """q: (B, Hq, Sq, D), k/v: (B, Hkv, Skv, D) bf16 CUDA tensors with a
         unit-stride head dim (other strides are free); q_start, kv_len: (B,)
-        int32 on the same device. Returns O (B, Hq, Sq, D) bf16 and LSE
-        (B, Hq, Sq, 1) f32."""
+        int32 on the same device; scale > 0. Returns O (B, Hq, Sq, D) bf16 and
+        LSE (B, Hq, Sq, 1) f32. Inputs that TMA cannot read in place are
+        copied into aligned buffers with D padded to a multiple of 8, and the
+        same kernel runs on those."""
         _check_kernel_inputs("flash_fwd", q, k, v, q_start, kv_len)
+        if not scale > 0:
+            raise ValueError(f"flash_fwd takes a positive scale, got {scale}")
         b, hq, sq, d = q.shape
         _, hkv, skv, _ = k.shape
         o = torch.empty((b, hq, sq, d), dtype=torch.bfloat16, device=q.device)
         lse = torch.empty((b, hq, sq, 1), dtype=torch.float32, device=q.device)
         if b == 0 or hq == 0 or sq == 0:
             return o, lse
-        strides, vec = _strides_and_vec(q, k, v)
+        if skv == 0:  # no key at all: every row is empty
+            return o.zero_(), lse.fill_(float("-inf"))
+        d_in = d
+        if not all(tma_ready(t) for t in (q, k, v)):
+            d_in = -(-d // 8) * 8
+            q, k, v = (padded_copy(t, d_in) for t in (q, k, v))
+            self.padded_copies += 3
+        strides = [s for t in (q, k, v) for s in t.stride()[:3]]
         fn = self.build().lib.flash_fwd_bf16
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream(q.device).cuda_stream
             err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                      lse.data_ptr(), q_start.data_ptr(), kv_len.data_ptr(),
-                     b, hq, hkv, sq, skv, d, *strides, float(scale),
-                     int(causal), int(vec), stream)
+                     b, hq, hkv, sq, skv, d, d_in, *strides, float(scale),
+                     int(causal), stream)
         if err != 0:
-            raise RuntimeError(f"flash_fwd launch failed with CUDA error {err}")
+            what = (f"tensor map encode failed with CUresult {err - 1000}" if err >= 1000
+                    else f"CUDA error {err}")
+            raise RuntimeError(f"flash_fwd launch failed: {what}")
         self.launches += 1
         return o, lse
 

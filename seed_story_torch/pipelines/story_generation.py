@@ -17,8 +17,7 @@ from typing import Any, Callable, Iterator, Optional
 import numpy as np
 import torch
 
-from seed_story_tpu.data.tokenizer import BOI_TOKEN, EOI_TOKEN, image_comprehension_string
-
+from ..data.tokenizer import BOI_TOKEN, EOI_TOKEN, image_comprehension_string
 from ..decode.generate import StoryGenerator
 
 TAG_RE = re.compile(r"\s*<[^>]*>\s*")

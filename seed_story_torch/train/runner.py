@@ -23,8 +23,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from seed_story_tpu.data.datapipes import ThreadedLoader
-
+from ..data.datapipes import ThreadedLoader
 from ..models.llama import derive_seed
 from ..ops.attention import flash_bwd, flash_fwd
 from .checkpoint import CheckpointManager

@@ -14,10 +14,11 @@ same flags and YAML configs.
 
 The model YAMLs name the JAX package's config classes; they become the
 port's config dataclasses of the same name, with JAX dtypes mapped by
-name. The tokenizer, image transform and data pipeline are the JAX
-package's framework-free builders, used as they are. It trains on the card
-and raises when there is none; ``main(argv, device="cpu")`` trains on the
-CPU instead.
+name. The tokenizer, image transform and data pipeline YAMLs name the JAX
+package's builders under ``seed_story_tpu.data``; ``utils.config`` resolves
+each to the port's own copy under ``seed_story_torch.data`` and refuses
+any other ``seed_story_tpu.`` target. It trains on the card and raises
+when there is none; ``main(argv, device="cpu")`` trains on the CPU instead.
 """
 
 from __future__ import annotations
@@ -28,12 +29,12 @@ from typing import Any, Dict
 
 import torch
 
-from seed_story_tpu.data.story_telling import flatten_images
-
+from ..data.story_telling import flatten_images
 from ..inference.common import fill_module
 from ..models.agent import AgentConfig, ContinuousLVLM
 from ..models.llama import LlamaConfig, lora_trainable_mask
 from ..models.vit import ViTConfig, VisionTransformerWithAttnPool
+from ..utils.config import instantiate, load_config
 from .checkpoint import load_params_partial
 from .runner import RunnerArgs, run_training
 from .stage2 import make_stage2_loss_fn
@@ -105,10 +106,6 @@ def parse_args(argv=None):
 
 
 def main(argv=None, device: str = "cuda"):
-    # PyYAML (and PIL, through the transforms) only for this entry point, so
-    # the rest of the package imports without them
-    from seed_story_tpu.utils.config import instantiate, load_config
-
     args = parse_args(argv)
     if args.mesh_data not in (None, 1) or args.mesh_model != 1:
         raise ValueError("the port trains on one device: --mesh_data and --mesh_model must be 1")
@@ -138,7 +135,7 @@ def main(argv=None, device: str = "cuda"):
             mask[name] = True
 
     datapipe = instantiate(load_config(args.train_dataset), tokenizer=tokenizer,
-                           image_transform=image_transform, sd_image_transform=None)
+                           image_transform=image_transform)
 
     def batches():
         for batch in iter(datapipe):

@@ -98,3 +98,47 @@ def test_dispatch_on_cpu():
     before = port.flash_fwd.launches
     port.mha(q, k, k)
     assert port.flash_fwd.launches == before  # CPU tensors never reach the kernel
+
+
+@pytest.mark.parametrize("layout,heads,d,ready", [
+    ("bhsd", 4, 64, True),
+    ("bhsd", 4, 104, True),   # 208-byte rows
+    ("bhsd", 4, 100, False),  # 200-byte rows
+    ("bshd", 16, 104, True),  # the ViT's projection view
+    ("bshd", 4, 100, False),  # a 200-byte head stride
+    ("bshd", 1, 100, False),  # one head: its rows are 200 bytes apart
+])
+def test_tma_ready_follows_strides(layout, heads, d, ready):
+    """TMA reads a (B, H, S, D) view in place when its base is 16-byte
+    aligned and its batch, head and row strides are whole 16-byte units."""
+    shape = (2, heads, 24, d) if layout == "bhsd" else (2, 24, heads, d)
+    t = torch.zeros(shape, dtype=torch.bfloat16)
+    view = t if layout == "bhsd" else t.transpose(1, 2)
+    assert port.tma_ready(view) is ready
+
+
+def test_tma_ready_refuses_offsets_and_broadcasts():
+    flat = torch.zeros(2 * 3 * 5 * 64 + 1, dtype=torch.bfloat16)
+    assert not port.tma_ready(flat[1:].view(2, 3, 5, 64))  # a 2-byte offset
+    assert port.tma_ready(flat[:-1].view(2, 3, 5, 64))
+    one_row = torch.zeros(1, 3, 1, 64, dtype=torch.bfloat16)
+    assert port.tma_ready(one_row.expand(1, 3, 1, 64))  # dims of size 1: any stride
+    assert not port.tma_ready(torch.zeros(1, 1, 5, 64, dtype=torch.bfloat16).expand(2, 3, 5, 64))
+
+
+def test_padded_copy_is_aligned_and_zero_padded():
+    t = torch.randn(2, 5, 3, 100).to(torch.bfloat16).transpose(1, 2)  # not ready
+    out = port.padded_copy(t, 104)
+    assert out.shape == (2, 3, 5, 104) and out.is_contiguous() and port.tma_ready(out)
+    assert torch.equal(out[..., :100], t) and torch.all(out[..., 100:] == 0)
+
+
+@pytest.mark.parametrize("q_start,kv_len", [(None, None), (0, 7), (np.int64(-2), None),
+                                            ([1, 2], [7, 3]), (None, torch.tensor([5, 6]))])
+def test_lengths_normalize_to_int32_rows(q_start, kv_len):
+    qs, kl = port._normalize_lens(2, 3, 7, q_start, kv_len, "cpu")
+    want_qs = np.broadcast_to(4 if q_start is None else np.asarray(q_start), (2,))
+    want_kl = np.broadcast_to(7 if kv_len is None else np.asarray(kv_len), (2,))
+    for got, want in ((qs, want_qs), (kl, want_kl)):
+        assert got.dtype == torch.int32 and got.shape == (2,) and got.is_contiguous()
+        np.testing.assert_array_equal(got.numpy(), want)

@@ -1,0 +1,214 @@
+"""The port's own copies of the JAX package's framework-free data modules
+(``seed_story_torch/data``, ``seed_story_torch/utils/config.py``) against
+the originals, on a pico jsonl + jpg workspace; and the ``_target_``
+mapping that lets the port read the unchanged ``configs/`` YAMLs."""
+
+from __future__ import annotations
+
+import json
+import pathlib
+
+import numpy as np
+import pytest
+from PIL import Image
+
+from seed_story_torch.data import builders as port_builders
+from seed_story_torch.data import datapipes as port_datapipes
+from seed_story_torch.data import story_telling as port_story
+from seed_story_torch.data import tokenizer as port_tok
+from seed_story_torch.data import transforms as port_transforms
+from seed_story_torch.utils import config as port_config
+from seed_story_tpu.data import builders as ref_builders
+from seed_story_tpu.data import story_telling as ref_story
+from seed_story_tpu.data import tokenizer as ref_tok
+from seed_story_tpu.data import transforms as ref_transforms
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+
+
+@pytest.fixture(scope="module")
+def workspace(tmp_path_factory):
+    """Three stories of 5 jpgs each (one too small to pass the filter) and
+    their captions in two jsonl shards."""
+    root = tmp_path_factory.mktemp("data_ws")
+    (root / "images").mkdir()
+    (root / "data").mkdir()
+    rng = np.random.RandomState(0)
+    for shard in range(2):
+        with open(root / "data" / f"part{shard}.jsonl", "w") as f:
+            for s in range(3):
+                names = []
+                for i in range(5):
+                    name = f"p{shard}_s{s}_{i}.jpg"
+                    side = 40 if (shard, s) == (1, 2) else 96 + 16 * i
+                    pixels = rng.randint(0, 256, size=(side, side + 8 * s, 3)).astype(np.uint8)
+                    Image.fromarray(pixels).save(root / "images" / name)
+                    names.append(name)
+                f.write(json.dumps({"images": names, "captions": [
+                    f"shard {shard} story {s} scene {i}: the dog's walk, part {i}!"
+                    for i in range(5)]}) + "\n")
+            f.write("not json\n")
+    return root
+
+
+def _pipe_kwargs(root, **more):
+    kwargs = dict(data_dir=str(root / "data"), image_dir=str(root / "images"), story_len=5,
+                  max_length=200, batch_size=2, min_resolution=64, min_aspect_ratio=0.2,
+                  num_img_in_tokens=4, num_img_out_tokens=4, cycle_count=3, seed=7)
+    return {**kwargs, **more}
+
+
+def _assert_same_batches(got, want):
+    assert len(got) == len(want) and got
+    for g, w in zip(got, want):
+        assert g.keys() == w.keys()
+        for key in w:
+            assert g[key].dtype == w[key].dtype and g[key].shape == w[key].shape, key
+            np.testing.assert_array_equal(g[key], w[key], err_msg=key)
+
+
+@pytest.mark.parametrize("text", [
+    "george the monkey went to the park",
+    "[INST] a caption <img><img_00000><img_00063></img> [/INST] don't stop!",
+    "",
+])
+def test_tiny_tokenizer_matches_the_jax_package(text):
+    port, ref = port_tok.TinyTokenizer(), ref_tok.TinyTokenizer()
+    for special in (False, True):
+        ids = port.encode(text, add_special_tokens=special)
+        assert ids == ref.encode(text, add_special_tokens=special)
+        for skip in (False, True):
+            assert port.decode(ids, skip_special_tokens=skip) == ref.decode(
+                ids, skip_special_tokens=skip)
+    assert len(port) == len(ref)
+
+
+def test_token_constants_match_the_jax_package():
+    for name in ("BOI_TOKEN", "EOI_TOKEN", "IMG_TOKEN", "LLAMA_VOCAB_SIZE", "NUM_IMG_TOKENS",
+                 "MULTIMODAL_VOCAB_SIZE", "BOI_TOKEN_ID", "EOI_TOKEN_ID", "FIRST_IMG_TOKEN_ID"):
+        assert getattr(port_tok, name) == getattr(ref_tok, name), name
+    assert port_tok.special_tokens() == ref_tok.special_tokens()
+    for n in (4, 64):
+        assert port_tok.image_comprehension_string(n) == ref_tok.image_comprehension_string(n)
+
+
+@pytest.mark.parametrize("kind,keep_ratio", [("clip", False), ("clip", True), ("clipa", True),
+                                             ("sd", True), ("sd", False)])
+def test_image_transform_matches_the_jax_package(kind, keep_ratio):
+    pixels = np.random.RandomState(1).randint(0, 256, size=(50, 70, 3)).astype(np.uint8)
+    img = Image.fromarray(pixels)
+    got = port_transforms.get_transform(kind, keep_ratio, 28)(img)
+    want = ref_transforms.get_transform(kind, keep_ratio, 28)(img)
+    assert got.dtype == want.dtype and got.shape == want.shape == (3, 28, 28)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("keep_ratio", [False, True])
+def test_long_story_datapipe_matches_the_jax_package(workspace, keep_ratio):
+    """The long-story datapipe with the ViT's transform gives the same
+    batches, in the same order, as the JAX package's."""
+    def batches(builders, tok, transforms, n=6):
+        pipe = builders.build_long_story_datapipe(
+            tokenizer=tok.TinyTokenizer(),
+            image_transform=transforms.get_transform("clip", keep_ratio, 28),
+            **_pipe_kwargs(workspace))
+        it = iter(pipe)
+        return [next(it) for _ in range(n)]
+
+    _assert_same_batches(batches(port_builders, port_tok, port_transforms),
+                         batches(ref_builders, ref_tok, ref_transforms))
+
+
+def test_collate_and_flatten_images_match_the_jax_package(workspace):
+    pipe = port_builders.build_long_story_datapipe(
+        tokenizer=port_tok.TinyTokenizer(), **_pipe_kwargs(workspace, batch_size=None))
+    it = iter(pipe)
+    samples = [next(it) for _ in range(3)]
+    got = port_story.collate(samples)
+    _assert_same_batches([got], [ref_story.collate(samples)])
+    flat = port_story.flatten_images(got)
+    _assert_same_batches([flat], [ref_story.flatten_images(got)])
+    assert flat["images"].shape == (3 * 5, 3, 448, 448)
+
+
+def test_multi_datapipe_resumes_where_it_stopped(workspace):
+    """``build_multi_datapipes`` from a data YAML, through the port's
+    ``instantiate``: the JAX package's batches, and a restored state
+    continues the stream exactly."""
+    cfg = {"_target_": "seed_story_tpu.data.builders.build_multi_datapipes",
+           "_recursive_": False, "sample_weights": [1.0, 2.0],
+           "datapipes": [{"_target_": "seed_story_tpu.data.builders.build_long_story_datapipe",
+                          **_pipe_kwargs(workspace)},
+                         {"_target_": "seed_story_tpu.data.builders.build_long_story_datapipe",
+                          **_pipe_kwargs(workspace, seed=8)}]}
+    pipe = port_config.instantiate(cfg, tokenizer=port_tok.TinyTokenizer())
+    assert isinstance(pipe, port_builders.MultiStoryDataPipe)
+    it = iter(pipe)
+    first = [next(it) for _ in range(3)]
+    state = pipe.state()
+    rest = [next(it) for _ in range(3)]
+
+    ref = ref_builders.build_multi_datapipes(
+        [ref_builders.build_long_story_datapipe(tokenizer=ref_tok.TinyTokenizer(),
+                                                **_pipe_kwargs(workspace, seed=s))
+         for s in (7, 8)], sample_weights=[1.0, 2.0])
+    ref_it = iter(ref)
+    _assert_same_batches(first + rest, [next(ref_it) for _ in range(6)])
+
+    again = port_config.instantiate(cfg, tokenizer=port_tok.TinyTokenizer())
+    again.set_state(json.loads(json.dumps(state)))
+    again_it = iter(again)
+    _assert_same_batches([next(again_it) for _ in range(3)], rest)
+
+
+def test_threaded_loader_carries_the_state_of_each_batch():
+    counter = {"n": 0}
+
+    def produce():
+        for i in range(5):
+            counter["n"] = i + 1
+            yield {"x": np.full(2, i)}
+
+    loader = port_datapipes.ThreadedLoader(produce, prefetch=2,
+                                           device_put_fn=lambda b: {"x": b["x"] * 10},
+                                           state_fn=lambda: dict(counter))
+    seen = []
+    for batch in loader:
+        seen.append((int(batch["x"][0]), loader.current_state["n"]))
+    assert seen == [(10 * i, i + 1) for i in range(5)]
+
+
+@pytest.mark.parametrize("target,want", [
+    ("seed_story_tpu.data.tokenizer.TinyTokenizer", port_tok.TinyTokenizer),
+    ("seed_story_tpu.data.transforms.get_transform", port_transforms.get_transform),
+    ("seed_story_tpu.data.builders.build_long_story_datapipe",
+     port_builders.build_long_story_datapipe),
+    ("seed_story_tpu.data.builders.build_multi_datapipes", port_builders.build_multi_datapipes),
+    ("seed_story_tpu.data.tokenizer.load_llama_tokenizer", port_tok.load_llama_tokenizer),
+    ("seed_story_tpu.utils.config.resolve_target", port_config.resolve_target),
+    ("seed_story_tpu.data.datapipes.ThreadedLoader", port_datapipes.ThreadedLoader),
+    ("seed_story_tpu.data.story_telling.flatten_images", port_story.flatten_images),
+    ("numpy.float32", np.float32),
+])
+def test_targets_resolve_to_the_port(target, want):
+    assert port_config.resolve_target(target) is want
+
+
+@pytest.mark.parametrize("target", [
+    "seed_story_tpu.parallel.mesh.MeshConfig",
+    "seed_story_tpu.models.vit.ViTConfig",
+    "seed_story_tpu.ops.attention.mha",
+])
+def test_other_jax_package_targets_are_refused(target):
+    with pytest.raises(ValueError, match="names the JAX package"):
+        port_config.resolve_target(target)
+    with pytest.raises(ValueError, match="names the JAX package"):
+        port_config.instantiate({"_target_": target})
+
+
+@pytest.mark.parametrize("path", ["configs/tokenizer/tiny_tokenizer.yaml",
+                                  "configs/processer/qwen_448_transform.yaml",
+                                  "configs/processer/sd_transform_1024.yaml"])
+def test_shipped_yamls_instantiate_the_port(path):
+    obj = port_config.instantiate(port_config.load_config(str(REPO / path)))
+    assert type(obj).__module__.startswith("seed_story_torch.data.")

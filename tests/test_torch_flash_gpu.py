@@ -60,6 +60,79 @@ def test_kernel_matches_plain_on_gpu(causal, sq, skv, hq, hkv, d, q_start, kv_le
     assert torch.all(out[empty] == 0)
 
 
+# The forward's edges: (causal, b, sq, skv, hq, hkv, d, q_start, kv_len,
+# layout). Sq and Skv off the 128-row tiles and Sq <= 64 (one warpgroup),
+# every head dim the models use and the TMA zero-fill pads (80, 100, 104),
+# GQA, q_start < 0, kv_len = 0, and the (B, S, H, D) projection views.
+EDGE_CASES = [
+    (False, 2, 200, 333, 4, 4, 64, None, None, "bshd"),
+    (True, 2, 129, 257, 8, 2, 128, [128, -5], [257, 100], "bshd"),
+    (False, 3, 64, 256, 4, 4, 128, None, None, "bshd"),
+    (False, 1, 17, 1000, 2, 1, 80, None, [1000], "bhsd"),
+    (True, 2, 300, 300, 4, 4, 80, [0, -40], [300, 0], "bshd"),
+    (False, 2, 77, 150, 4, 4, 104, None, [150, 91], "bshd"),
+    (True, 2, 256, 64, 4, 2, 104, [-192, -100], [64, 64], "bhsd"),
+    (False, 2, 1024, 64, 2, 2, 64, None, None, "bshd"),
+    (False, 1, 130, 70, 2, 2, 100, None, None, "bshd"),
+]
+
+
+def _layout(t, layout):
+    """(B, H, S, D) data as the given layout's view: "bshd" is a (B, S, H, D)
+    tensor transposed, as the models pass their projections."""
+    return t.transpose(1, 2).contiguous().transpose(1, 2) if layout == "bshd" else t
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal,b,sq,skv,hq,hkv,d,q_start,kv_len,layout", EDGE_CASES)
+def test_forward_edges_match_plain_on_gpu(causal, b, sq, skv, hq, hkv, d, q_start, kv_len,
+                                          layout):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the flash kernel has no CPU mode)")
+    gen = torch.Generator(device="cuda").manual_seed(sq * 7 + d)
+    q = _layout(torch.randn(b, hq, sq, d, generator=gen, device="cuda").to(torch.bfloat16),
+                layout)
+    k, v = (_layout(torch.randn(b, hkv, skv, d, generator=gen, device="cuda")
+                    .to(torch.bfloat16), layout) for _ in range(2))
+    kw = dict(causal=causal, q_start=q_start, kv_len=kv_len, with_lse=True)
+    # d=100 has 200-byte rows: TMA takes (B, S, H, D) views only when H * D
+    # and D are multiples of 8 elements, so those go through aligned copies
+    copies = 0 if all(t.stride(1) % 8 == 0 and t.stride(2) % 8 == 0 for t in (q, k, v)) else 3
+    before = flash_fwd.launches, flash_fwd.padded_copies
+    out, lse = mha(q, k, v, implementation="kernel", **kw)
+    torch.cuda.synchronize()
+    assert (flash_fwd.launches, flash_fwd.padded_copies) == (before[0] + 1, before[1] + copies)
+    want, want_lse = mha_reference_lse(q.float(), k.float(), v.float(), causal=causal,
+                                       q_start=q_start, kv_len=kv_len)
+    assert out.dtype == torch.bfloat16 and out.shape == want.shape and out.is_contiguous()
+    err = (out.float() - want.float()).abs()
+    assert float(err.max()) <= 2e-2 and float(err.mean()) <= 2e-3
+    assert torch.equal(torch.isinf(lse), torch.isinf(want_lse))
+    finite = torch.isfinite(want_lse)
+    if finite.any():
+        assert float((lse - want_lse)[finite].abs().max()) <= 1e-3
+    assert torch.all(out[torch.isinf(want_lse[..., 0])] == 0)
+
+
+@pytest.mark.gpu
+def test_misaligned_inputs_go_through_aligned_copies_on_gpu():
+    """A base off the 16-byte grid: the wrapper copies q, k and v into aligned
+    buffers, counts the copies, and the same kernel gives the same result."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the flash kernel has no CPU mode)")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    flat = torch.randn(3 * 2 * 4 * 150 * 64 + 1, generator=gen, device="cuda").to(torch.bfloat16)
+    q, k, v = flat[1:].view(3, 2, 4, 150, 64).unbind(0)  # 2-byte offset
+    assert q.data_ptr() % 16 != 0
+    before = flash_fwd.padded_copies
+    out = mha(q, k, v, causal=True, implementation="kernel")
+    torch.cuda.synchronize()
+    assert flash_fwd.padded_copies == before + 3
+    aligned = mha(*(t.clone() for t in (q, k, v)), causal=True, implementation="kernel")
+    assert flash_fwd.padded_copies == before + 3
+    assert torch.equal(out, aligned)
+
+
 def _inputs(causal, sq, skv, hq, hkv, d, q_start, kv_len, seed):
     gen = torch.Generator(device="cuda").manual_seed(seed)
     b = 2

@@ -159,10 +159,15 @@ def test_port_imports_no_jax_flax_yaml_or_pil():
     names = [m.name for m in pkgutil.walk_packages(seed_story_torch.__path__, "seed_story_torch.")]
     assert "seed_story_torch.inference.common" in names
     assert {f"seed_story_torch.train.{m}" for m in (
-        "trainer", "stage2", "checkpoint", "metrics", "runner", "scheduler")} <= set(names)
+        "trainer", "stage2", "checkpoint", "metrics", "runner", "scheduler",
+        "train_clm_sft")} <= set(names)
+    assert {f"seed_story_torch.data.{m}" for m in (
+        "tokenizer", "story_telling", "datapipes", "builders", "transforms")} <= set(names)
+    # the port keeps its own copies of the JAX package's framework-free modules
     code = ("import importlib, sys\n"
             f"for name in {names!r}:\n"
             "    importlib.import_module(name)\n"
-            "bad = [m for m in ('jax', 'flax', 'yaml', 'PIL') if m in sys.modules]\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+            "       ('jax', 'flax', 'yaml', 'PIL', 'seed_story_tpu')]\n"
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
