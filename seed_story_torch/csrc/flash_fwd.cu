@@ -53,19 +53,16 @@
 // products; overlapping one tile's softmax with the next tile's QK^T (two S
 // register sets) and persistent blocks are left for later.
 
-#include <cuda.h>  // CUtensorMap and the encoder's types; the encoder is looked up at run time
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "flash_common.cuh"
 
 namespace {
 
+using namespace flash;
+
 constexpr int BLOCK_N = 128;  // keys per K / V tile
 constexpr int STAGES = 3;     // depth of the K / V ring
-constexpr int BOX_COLS = 64;  // head-dim columns per TMA box: 128 bytes, the swizzle's span
-constexpr int ROW_BYTES = BOX_COLS * 2;
-constexpr float LN2 = 0.6931471805599453f;
 
 struct Params {
   __nv_bfloat16* o;
@@ -97,142 +94,6 @@ struct Smem {
   static_assert(BYTES <= 232448, "more shared memory than a block can have");
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-__device__ __forceinline__ float fast_exp2(float x) {  // exp2(-inf) = 0
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ int pick(int which, int row, int head, int batch) {
-  return which == 0 ? row : (which == 1 ? head : batch);
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading and
-// stride byte offsets, all in 16-byte units.
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
-         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-
-// Ties registers read or written by in-flight wgmma to the point after the
-// wait, so the compiler neither reads them early nor reuses them.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-#define F8(a, i)                                                                          \
-  "+f"(a[i]), "+f"(a[i + 1]), "+f"(a[i + 2]), "+f"(a[i + 3]), "+f"(a[i + 4]), "+f"(a[i + 5]), \
-      "+f"(a[i + 6]), "+f"(a[i + 7])
-#define F32(a) F8(a, 0), F8(a, 8), F8(a, 16), F8(a, 24)
-#define F64(a) F32(a), F8(a, 32), F8(a, 40), F8(a, 48), F8(a, 56)
-#define R32                                                                                 \
-  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, " \
-  "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-#define R64                                                                                   \
-  R32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, " \
-      "%49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-
-// D(64 x 128) (+)= A(64 x 16) B(16 x 128)^T, A and B K-major in shared memory.
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
-                                              int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" R64 "}, %64, %65, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : F64(d)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// D(64 x N) += A(64 x 16, registers) B(16 x N), B MN-major in shared memory.
-__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" R64
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
-      "}\n"
-      : F64(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" R32
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
-      "}\n"
-      : F32(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 template <int DP, int NWG>
 __global__ void __launch_bounds__(128 * NWG + 32, 1)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -245,9 +106,8 @@ __global__ void __launch_bounds__(128 * NWG + 32, 1)
   constexpr uint32_t KV_BYTES = L::STAGE;
 
   extern __shared__ unsigned char smem_raw[];
-  const uint32_t raw = smem_u32(smem_raw);
-  const uint32_t base = (raw + 1023) & ~1023u;
-  unsigned char* smem = smem_raw + (base - raw);
+  uint32_t base;
+  unsigned char* smem = aligned_smem(smem_raw, base);
   const uint32_t bar_q = base + L::BAR;
   const uint32_t bar_full = bar_q + 8;                 // + 8 * stage
   const uint32_t bar_empty = bar_q + 8 * (1 + STAGES);  // + 8 * stage
@@ -271,17 +131,10 @@ __global__ void __launch_bounds__(128 * NWG + 32, 1)
   auto load_kv = [&](int t) {
     const int s = t % STAGES;
     const uint32_t dst = base + L::K + s * L::STAGE;
-    const int row = t * BLOCK_N;
     mbar_expect_tx(bar_full + 8 * s, KV_BYTES);
-#pragma unroll
-    for (int kb = 0; kb < L::KBOX; ++kb) {
-      tma_load(dst + kb * L::KV_BOX, &tm_k, bar_full + 8 * s, kb * BOX_COLS,
-               pick(p.perm_k[0], row, hk, b), pick(p.perm_k[1], row, hk, b),
-               pick(p.perm_k[2], row, hk, b));
-      tma_load(dst + L::V_OFF + kb * L::KV_BOX, &tm_v, bar_full + 8 * s, kb * BOX_COLS,
-               pick(p.perm_v[0], row, hk, b), pick(p.perm_v[1], row, hk, b),
-               pick(p.perm_v[2], row, hk, b));
-    }
+    tma_load_tile(dst, &tm_k, bar_full + 8 * s, p.perm_k, L::KBOX, L::KV_BOX, t * BLOCK_N, hk, b);
+    tma_load_tile(dst + L::V_OFF, &tm_v, bar_full + 8 * s, p.perm_v, L::KBOX, L::KV_BOX,
+                  t * BLOCK_N, hk, b);
   };
 
   if (tid == 0 && n_tiles > 0) {
@@ -299,12 +152,7 @@ __global__ void __launch_bounds__(128 * NWG + 32, 1)
   if (warp == 0 && wg == NWG) {
     if (lane == 0 && n_tiles > 0) {
       mbar_expect_tx(bar_q, Q_BYTES);
-#pragma unroll
-      for (int kb = 0; kb < L::KBOX; ++kb) {
-        tma_load(base + L::Q + kb * L::Q_BOX, &tm_q, bar_q, kb * BOX_COLS,
-                 pick(p.perm_q[0], q0, h, b), pick(p.perm_q[1], q0, h, b),
-                 pick(p.perm_q[2], q0, h, b));
-      }
+      tma_load_tile(base + L::Q, &tm_q, bar_q, p.perm_q, L::KBOX, L::Q_BOX, q0, h, b);
       for (int t = 0; t < n_tiles; ++t) {
         if (t >= STAGES) mbar_wait(bar_empty + 8 * (t % STAGES), (t / STAGES - 1) & 1);
         load_kv(t);
@@ -351,8 +199,8 @@ __global__ void __launch_bounds__(128 * NWG + 32, 1)
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk) {
       const uint32_t col = (kk % 4) * 32;  // bytes into the 128-byte row of box kk / 4
-      wgmma_ss_n128(sc, make_desc(q_smem + (kk / 4) * L::Q_BOX + col, 16, 1024),
-                    make_desc(k_smem + (kk / 4) * L::KV_BOX + col, 16, 1024), kk > 0);
+      wgmma_ss(sc, make_desc(q_smem + (kk / 4) * L::Q_BOX + col, 16, 1024),
+               make_desc(k_smem + (kk / 4) * L::KV_BOX + col, 16, 1024), kk > 0);
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -400,13 +248,7 @@ __global__ void __launch_bounds__(128 * NWG + 32, 1)
 
     // P in bf16 as wgmma A fragments: 16 keys (two 8-key blocks) a step.
     uint32_t pa[32];
-#pragma unroll
-    for (int kb = 0; kb < 8; ++kb) {
-      pa[kb * 4 + 0] = pack_bf16(sc[kb * 8 + 0], sc[kb * 8 + 1]);
-      pa[kb * 4 + 1] = pack_bf16(sc[kb * 8 + 2], sc[kb * 8 + 3]);
-      pa[kb * 4 + 2] = pack_bf16(sc[kb * 8 + 4], sc[kb * 8 + 5]);
-      pa[kb * 4 + 3] = pack_bf16(sc[kb * 8 + 6], sc[kb * 8 + 7]);
-    }
+    pack_a(sc, pa);
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
 #pragma unroll
@@ -451,113 +293,21 @@ __global__ void __launch_bounds__(128 * NWG + 32, 1)
     }
   }
   unsigned char* stage_o = smem + L::Q;
-#pragma unroll
-  for (int n = 0; n < NT; ++n) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = row_in_block + 8 * r;
-      const int byte = (n / 8) * L::Q_BOX + row * ROW_BYTES + (((n % 8) ^ (row % 8)) * 16) +
-                       4 * (lane % 4);
-      *reinterpret_cast<uint32_t*>(stage_o + byte) =
-          pack_bf16(o[n * 4 + r * 2] * inv[r], o[n * 4 + r * 2 + 1] * inv[r]);
-    }
-  }
+  stage_rows<NT>(stage_o, L::Q_BOX, o, inv, row_in_block, lane);
   asm volatile("bar.sync %0, 128;" ::"r"(wg + 1) : "memory");
-  for (int idx = tid % 128; idx < 64 * NT; idx += 128) {
-    const int row = wg * 64 + idx / NT;
-    const int chunk = idx % NT;
-    const int col = chunk * 8;
-    if (q0 + row >= p.sq || col >= p.d) continue;
-    const unsigned char* src =
-        stage_o + (chunk / 8) * L::Q_BOX + row * ROW_BYTES + (((chunk % 8) ^ (row % 8)) * 16);
-    __nv_bfloat16* dst = p.o + (out_row0 + row) * p.d + col;
-    if (p.d % 8 == 0) {
-      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
-    } else {
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(src);
-      for (int c = 0; c < 8 && col + c < p.d; ++c) dst[c] = e[c];
-    }
-  }
+  store_rows<NT>(stage_o, L::Q_BOX, wg * 64, p.o + out_row0 * p.d, p.sq - q0, p.d, tid % 128);
 }
 
 template <int DP, int NWG>
 cudaError_t launch(const CUtensorMap& q, const CUtensorMap& k, const CUtensorMap& v,
                    const Params& p, int batch, cudaStream_t stream) {
   constexpr int bytes = Smem<DP, NWG>::BYTES;
-  static unsigned long long configured = 0;  // a bit per device: the attribute is set
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
+  static unsigned long long configured = 0;
+  const cudaError_t err = allow_smem(flash_fwd_kernel<DP, NWG>, bytes, configured);
   if (err != cudaSuccess) return err;
-  if (device >= 64 || !(configured >> device & 1)) {
-    err = cudaFuncSetAttribute(flash_fwd_kernel<DP, NWG>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return err;
-    if (device < 64) configured |= 1ull << device;
-  }
   const dim3 grid((p.sq + 64 * NWG - 1) / (64 * NWG), p.hq, batch);
   flash_fwd_kernel<DP, NWG><<<grid, 128 * NWG + 32, bytes, stream>>>(q, k, v, p);
   return cudaGetLastError();
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found) ==
-            cudaSuccess &&
-        found == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-    }
-  }
-  return fn;
-}
-
-// A 4-D map of a (B, H, S, cols) bf16 view (strides in elements, unit-stride
-// columns): dim 0 the columns in boxes of 64, dims 1..3 (S, H, B) sorted by
-// stride, the S box `rows` long. A dim of size 1 gets a stride past the
-// tensor's extent. perm[i] says which of (S, H, B) dim i + 1 is.
-CUresult encode_map(CUtensorMap* map, const void* ptr, int cols, int s, int h, int b,
-                    long long ss, long long sh, long long sb, int rows, int perm[3]) {
-  struct Dim {
-    unsigned long long size, stride;
-    int which;
-  } dims[3] = {{static_cast<unsigned long long>(s), static_cast<unsigned long long>(ss) * 2, 0},
-               {static_cast<unsigned long long>(h), static_cast<unsigned long long>(sh) * 2, 1},
-               {static_cast<unsigned long long>(b), static_cast<unsigned long long>(sb) * 2, 2}};
-  unsigned long long extent = static_cast<unsigned long long>(cols) * 2;
-  for (auto& dim : dims) {
-    if (dim.size > 1 && dim.stride * dim.size > extent) extent = dim.stride * dim.size;
-  }
-  extent = (extent + 15) / 16 * 16;
-  for (auto& dim : dims) {
-    if (dim.size == 1) dim.stride = extent;
-  }
-  for (int i = 1; i < 3; ++i) {  // insertion sort by stride, stable
-    for (int j = i; j > 0 && dims[j].stride < dims[j - 1].stride; --j) {
-      const Dim tmp = dims[j];
-      dims[j] = dims[j - 1];
-      dims[j - 1] = tmp;
-    }
-  }
-  const cuuint64_t gdim[4] = {static_cast<cuuint64_t>(cols), dims[0].size, dims[1].size,
-                              dims[2].size};
-  const cuuint64_t gstride[3] = {dims[0].stride, dims[1].stride, dims[2].stride};
-  cuuint32_t box[4] = {BOX_COLS, 1, 1, 1};
-  const cuuint32_t estride[4] = {1, 1, 1, 1};
-  for (int i = 0; i < 3; ++i) {
-    perm[i] = dims[i].which;
-    if (dims[i].which == 0) box[i + 1] = rows;
-  }
-  return encoder()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), gdim,
-                   gstride, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                   CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
 }  // namespace
@@ -590,7 +340,7 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v, void*
   p.sq = sq;
   p.skv = skv;
   p.d = d;
-  p.scale_log2 = scale * 1.4426950408889634f;
+  p.scale_log2 = scale * LOG2E;
   p.causal = causal;
   CUtensorMap tq, tk, tv;
   CUresult r = encode_map(&tq, q, d_in, sq, hq, batch, q_ss, q_sh, q_sb, 64 * nwg, p.perm_q);

@@ -1,8 +1,8 @@
 """Multi-head attention: the mask contract of
 ``seed_story_tpu/ops/attention.py``, a plain PyTorch version of the forward
-and the backward, and the hand-written CUDA flash forward for Hopper
-(``csrc/flash_fwd.cu``: wgmma, TMA, mbarriers) and backward
-(``csrc/flash_bwd.cu``) behind one differentiable entry.
+and the backward, and the hand-written CUDA flash forward and backward for Hopper
+(``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``: wgmma, TMA, mbarriers)
+behind one differentiable entry.
 
 Masking rule for query row ``i`` (0-based within the call) and key ``j``:
 
@@ -182,14 +182,6 @@ def _check_kernel_inputs(kernel: str, q, k, v, q_start, kv_len, **more):
                              f"on {q.device}")
 
 
-def _strides_and_vec(*tensors):
-    """(batch, head, seq) strides of each tensor, and whether every pointer is
-    16-byte aligned and every stride a multiple of 8 (16-byte loads)."""
-    strides = [s for t in tensors for s in t.stride()[:3]]
-    vec = all(t.data_ptr() % 16 == 0 for t in tensors) and all(s % 8 == 0 for s in strides)
-    return strides, vec
-
-
 def tma_ready(t: torch.Tensor) -> bool:
     """Whether TMA reads ``t`` (B, H, S, D) in place: a 16-byte aligned base
     and (batch, head, seq) strides of whole 16-byte units, non-zero on every
@@ -197,6 +189,15 @@ def tma_ready(t: torch.Tensor) -> bool:
     return t.data_ptr() % 16 == 0 and all(
         size == 1 or (stride > 0 and stride % 8 == 0)
         for size, stride in zip(t.shape[:3], t.stride()[:3]))
+
+
+def _check_launch(kernel: str, err: int):
+    """Raises on a C entry point's non-zero return: a CUDA error code, or
+    1000 + the CUresult of a tensor map that could not be encoded."""
+    if err != 0:
+        what = (f"tensor map encode failed with CUresult {err - 1000}" if err >= 1000
+                else f"CUDA error {err}")
+        raise RuntimeError(f"{kernel} launch failed: {what}")
 
 
 def padded_copy(t: torch.Tensor, cols: int) -> torch.Tensor:
@@ -260,10 +261,7 @@ class FlashForward:
                      lse.data_ptr(), q_start.data_ptr(), kv_len.data_ptr(),
                      b, hq, hkv, sq, skv, d, d_in, *strides, float(scale),
                      int(causal), stream)
-        if err != 0:
-            what = (f"tensor map encode failed with CUresult {err - 1000}" if err >= 1000
-                    else f"CUDA error {err}")
-            raise RuntimeError(f"flash_fwd launch failed: {what}")
+        _check_launch("flash_fwd", err)
         self.launches += 1
         return o, lse
 
@@ -271,21 +269,23 @@ class FlashForward:
 class FlashBackward:
     """Wrapper of the two CUDA flash backward kernels (``csrc/flash_bwd.cu``).
     ``dq_launches`` and ``dkv_launches`` count the launches of each, made
-    through it; nothing else touches the counts."""
+    through it; nothing else touches the counts. ``padded_copies`` counts
+    the inputs it copied first because TMA cannot read them in place (see
+    :func:`tma_ready`)."""
 
     def __init__(self):
         self.dq_launches = 0
         self.dkv_launches = 0
+        self.padded_copies = 0
         self._built: Optional[BuiltLibrary] = None
 
     def build(self) -> BuiltLibrary:
         if self._built is None:
             built = BuiltLibrary("flash_bwd")
             for fn in (built.lib.flash_bwd_dq_bf16, built.lib.flash_bwd_dkv_bf16):
-                fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
-                               + [ctypes.c_longlong] * 12
-                               + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                                  ctypes.c_void_p])
+                fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
+                               + [ctypes.c_longlong] * 15
+                               + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
                 fn.restype = ctypes.c_int
             self._built = built
         return self._built
@@ -293,11 +293,14 @@ class FlashBackward:
     def __call__(self, q, k, v, o, lse, do, q_start: torch.Tensor, kv_len: torch.Tensor,
                  causal: bool, scale: float):
         """q, o, do: (B, Hq, Sq, D), k/v: (B, Hkv, Skv, D) bf16 CUDA tensors
-        with a unit-stride head dim; lse: the forward's (B, Hq, Sq, 1) f32;
-        q_start, kv_len: (B,) int32. Returns dq, dk, dv (bf16, contiguous).
-        delta = rowsum(dO * O) is computed in f32 outside the kernels, as in
-        the JAX package."""
+        with a unit-stride head dim (other strides are free); lse: the
+        forward's (B, Hq, Sq, 1) f32; q_start, kv_len: (B,) int32. Returns dq,
+        dk, dv (bf16, contiguous). delta = rowsum(dO * O) is computed in f32
+        by the dq kernel, which writes it for the dk/dv kernel. Inputs that
+        TMA cannot read in place are copied as in :class:`FlashForward`."""
         _check_kernel_inputs("flash_bwd", q, k, v, q_start, kv_len, o=o, do=do)
+        if not scale > 0:
+            raise ValueError(f"flash_bwd takes a positive scale, got {scale}")
         b, hq, sq, d = q.shape
         _, hkv, skv, _ = k.shape
         if o.shape != q.shape or do.shape != q.shape:
@@ -313,22 +316,23 @@ class FlashBackward:
             for t in (dq, dk, dv):
                 t.zero_()
             return dq, dk, dv
-        delta = (do.float() * o.float()).sum(dim=-1).contiguous()
-        strides, vec = _strides_and_vec(q, k, v, do)
-        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                q_start.data_ptr(), kv_len.data_ptr(), b, hq, hkv, sq, skv, d,
-                *strides, float(scale), int(causal), int(vec))
+        delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+        inputs, d_in = (q, k, v, o, do), d
+        if not all(tma_ready(t) for t in inputs):
+            d_in = -(-d // 8) * 8
+            inputs = tuple(padded_copy(t, d_in) for t in inputs)
+            self.padded_copies += len(inputs)
+        strides = [s for t in inputs for s in t.stride()[:3]]
+        args = (*(t.data_ptr() for t in inputs), lse.data_ptr(), delta.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), q_start.data_ptr(),
+                kv_len.data_ptr(), b, hq, hkv, sq, skv, d, d_in, *strides, float(scale),
+                int(causal))
         lib = self.build().lib
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream(q.device).cuda_stream
-            err = lib.flash_bwd_dq_bf16(*args, stream)
-            if err != 0:
-                raise RuntimeError(f"flash_bwd dq launch failed with CUDA error {err}")
+            _check_launch("flash_bwd dq", lib.flash_bwd_dq_bf16(*args, stream))
             self.dq_launches += 1
-            err = lib.flash_bwd_dkv_bf16(*args, stream)
-            if err != 0:
-                raise RuntimeError(f"flash_bwd dkv launch failed with CUDA error {err}")
+            _check_launch("flash_bwd dkv", lib.flash_bwd_dkv_bf16(*args, stream))
             self.dkv_launches += 1
         return dq, dk, dv
 

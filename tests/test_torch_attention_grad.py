@@ -3,7 +3,9 @@ plain version of the CUDA backward kernels) against the JAX package's Pallas
 backward ``_flash_bwd`` run in interpret mode, and against ``jax.vjp`` of
 ``mha_reference``, on the cases of ``tests/test_torch_attention.py`` (causal
 and full, GQA, ragged ``kv_len``, bottom-right ``q_start``, rows with no
-visible key, head dims 64 / 104 / 128). Tolerance: 1e-4 max abs in f32 on
+visible key, head dims 64 / 104 / 128) and the CUDA backward's tile edges
+from ``tests/test_torch_flash_gpu.py`` (Sq 63 / 65 / 129, Skv 65 / 127, GQA
+group 4 at d=128, causal with q_start < 0). Tolerance: 1e-4 max abs in f32 on
 unit-normal inputs (measured <= 4e-6).
 
 Also the wiring that makes ``mha`` differentiable: on CPU tensors the
@@ -21,6 +23,7 @@ import torch
 from seed_story_torch.ops import attention as port
 from seed_story_tpu.ops import attention as ref
 from test_torch_attention import CASES
+from test_torch_flash_gpu import BWD_EDGE_CASES
 
 TOL = 1e-4
 
@@ -40,7 +43,7 @@ def _t(*arrays):
     return [torch.from_numpy(np.array(a)) for a in arrays]
 
 
-@pytest.mark.parametrize("causal,sq,skv,hq,hkv,d,q_start,kv_len", CASES)
+@pytest.mark.parametrize("causal,sq,skv,hq,hkv,d,q_start,kv_len", CASES + BWD_EDGE_CASES)
 def test_plain_backward_matches_pallas_backward(causal, sq, skv, hq, hkv, d, q_start, kv_len):
     q, k, v, do, q_start, kv_len = _case_arrays(causal, sq, skv, hq, hkv, d, q_start, kv_len)
     scale = float(1.0 / np.sqrt(d))
@@ -58,7 +61,7 @@ def test_plain_backward_matches_pallas_backward(causal, sq, skv, hq, hkv, d, q_s
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=TOL, err_msg=name)
 
 
-@pytest.mark.parametrize("causal,sq,skv,hq,hkv,d,q_start,kv_len", CASES)
+@pytest.mark.parametrize("causal,sq,skv,hq,hkv,d,q_start,kv_len", CASES + BWD_EDGE_CASES)
 def test_plain_backward_matches_jax_grad(causal, sq, skv, hq, hkv, d, q_start, kv_len):
     q, k, v, do, q_start, kv_len = _case_arrays(causal, sq, skv, hq, hkv, d, q_start, kv_len)
     lens = dict(q_start=jnp.asarray(q_start), kv_len=jnp.asarray(kv_len))

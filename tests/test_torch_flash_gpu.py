@@ -146,6 +146,25 @@ def _inputs(causal, sq, skv, hq, hkv, d, q_start, kv_len, seed):
     return q, k, v, do, q_start, kv_len
 
 
+# The backward's tile edges: Sq and Skv one off the 64-row tiles and the
+# 128-row blocks, GQA group 4 at d=128, causal with q_start < 0.
+BWD_EDGE_CASES = [
+    (True, 63, 127, 8, 2, 128, None, None),
+    (False, 65, 65, 4, 1, 64, None, [65, 30]),
+    (True, 129, 65, 4, 4, 128, [-20, -70], [65, 40]),
+    (True, 129, 127, 8, 2, 128, [-5, 0], None),
+]
+
+
+# Grids of 128-row blocks that fill an H100's 132 multiprocessors, so both
+# kernels run their two-warpgroup instances (smaller grids take 64-row
+# blocks): d=128 causal with GQA and ragged lengths, and d=64 full.
+BWD_FULL_GRID_CASES = [
+    (True, 200, 333, 48, 24, 128, [133, 50], [333, 170]),
+    (False, 130, 260, 34, 34, 64, None, None),
+]
+
+
 def _assert_grads_close(got, want):
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.dtype == torch.bfloat16 and g.shape == w.shape, name
@@ -156,7 +175,8 @@ def _assert_grads_close(got, want):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("causal,sq,skv,hq,hkv,d,q_start,kv_len", CASES)
+@pytest.mark.parametrize("causal,sq,skv,hq,hkv,d,q_start,kv_len",
+                         CASES + BWD_EDGE_CASES + BWD_FULL_GRID_CASES)
 def test_backward_kernels_match_plain_on_gpu(causal, sq, skv, hq, hkv, d, q_start, kv_len):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the flash kernels have no CPU mode)")
@@ -173,6 +193,44 @@ def test_backward_kernels_match_plain_on_gpu(causal, sq, skv, hq, hkv, d, q_star
     _assert_grads_close(got, want)
     empty = torch.isinf(lse[..., 0])
     assert torch.all(got[0][empty] == 0)
+    for i, n in enumerate(kv_len.tolist()):  # keys past kv_len get exactly zero
+        assert torch.all(got[1][i, :, max(n, 0):] == 0) and torch.all(got[2][i, :, max(n, 0):] == 0)
+
+
+@pytest.mark.gpu
+def test_backward_is_bitwise_repeatable_on_gpu():
+    """Every dQ row is written by one block and every dK / dV row by one
+    block, with no atomics: two calls give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the flash kernels have no CPU mode)")
+    causal, sq, skv, hq, hkv, d, q_start, kv_len = BWD_FULL_GRID_CASES[0]
+    q, k, v, do, q_start, kv_len = _inputs(causal, sq, skv, hq, hkv, d, q_start, kv_len, 11)
+    o, lse = mha(q, k, v, causal=causal, q_start=q_start, kv_len=kv_len,
+                 implementation="kernel", with_lse=True)
+    first = flash_bwd(q, k, v, o, lse, do, q_start, kv_len, causal, d ** -0.5)
+    second = flash_bwd(q, k, v, o, lse, do, q_start, kv_len, causal, d ** -0.5)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_backward_misaligned_inputs_go_through_aligned_copies_on_gpu():
+    """d=100 in (B, S, H, D) views: 200-byte head strides that TMA cannot
+    read, so the wrapper copies q, k, v, o and dO into aligned buffers with
+    D padded to 104, counts the copies, and matches the plain backward."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the flash kernels have no CPU mode)")
+    q, k, v, do, q_start, kv_len = _inputs(False, 77, 150, 4, 4, 100, None, None, 5)
+    q, k, v, do = (_layout(t, "bshd") for t in (q, k, v, do))
+    kw = dict(causal=False, q_start=q_start, kv_len=kv_len)
+    o, lse = mha(q, k, v, implementation="kernel", with_lse=True, **kw)
+    before = flash_bwd.padded_copies
+    got = flash_bwd(q, k, v, o, lse, do, q_start, kv_len, False, 100 ** -0.5)
+    torch.cuda.synchronize()
+    assert flash_bwd.padded_copies == before + 5
+    want = mha_backward_reference(q.float(), k.float(), v.float(), o.float(), lse, do.float(),
+                                  scale=100 ** -0.5, **kw)
+    _assert_grads_close(got, want)
 
 
 @pytest.mark.gpu
