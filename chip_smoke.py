@@ -31,6 +31,20 @@ exits non-zero:
    kernels' launches per step and no input copied for TMA (by the forward
    or the backward wrapper) checked.
 
+Between 3 and 4, the decode kernels: the weight-only int8 product
+(``csrc/int8_linear.cu``) at the 7B projections' shapes (1 and 5 rows) and
+the small-query cache attention (``csrc/decode_attn.cu``, int8 and bf16
+caches, 1 and 5 queries, GQA and an empty row) against their plain
+versions, with device times, bounds and the library yardsticks (``F.linear``
+on a pre-dequantized bf16 weight; SDPA on a dequantized cache with a
+boolean mask). Between 4 and 5, the flagship phase on the story phase's
+stack: the agent quantized in place (int8 weights, int8 KV cache) and
+decoding with prompt-lookup speculation (K = 4) through ``run`` (3
+segments), a speculative-against-greedy token check, ``run_sink`` (4
+segments, window 2, two evictions) and the visualization flow (3
+ground-truth texts, window 2), with the kernels' launches per decode pass
+checked.
+
 The line before the last is the kernel report (JSON); the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -47,31 +61,41 @@ import tempfile
 import time
 import warnings
 from collections import defaultdict
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.nn.attention import SDPBackend, sdpa_kernel
 
-from seed_story_torch.inference.common import build_stack, fill_module
+from seed_story_torch.decode.generate import GenerateConfig, StoryGenerator
+from seed_story_torch.inference.common import build_stack, fill_module, quantize_agent_
 from seed_story_torch.models.agent import AgentConfig, ContinuousLVLM
 from seed_story_torch.models.llama import LlamaConfig, LoRADense, lora_trainable_mask
 from seed_story_torch.models.sdxl.adapter import SDXLAdapterConfig
 from seed_story_torch.models.sdxl.unet import SDXLUNetConfig
 from seed_story_torch.models.sdxl.vae import VAEConfig
 from seed_story_torch.models.vit import ViTConfig, VisionTransformerWithAttnPool
+from seed_story_torch.data.tokenizer import image_comprehension_string
 from seed_story_torch.ops.attention import (
     _normalize_lens,
     _visible,
+    decode_attention,
+    decode_attn,
     flash_bwd,
     flash_fwd,
     mha,
     mha_backward_reference,
     mha_reference_lse,
 )
+from seed_story_torch.ops.int8_linear import int8_linear, int8_linear_kernel
 from seed_story_torch.pipelines.story_generation import (
     StoryGenerationPipeline,
     StoryPipelineConfig,
+)
+from seed_story_torch.pipelines.story_visualization import (
+    StoryVisualizationPipeline,
+    VisPipelineConfig,
 )
 from seed_story_torch.train.runner import (LAUNCH_COUNTS, RunnerArgs, flash_launch_counts,
                                            run_training)
@@ -87,6 +111,11 @@ GRAD_MAX_REL, GRAD_MEAN_REL = 2e-2, 1e-2
 # One H100 SXM (NVIDIA's data sheet, dense): bf16 tensor cores, device memory.
 PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 989e12, 3.35e12
 SDPA_BACKENDS = ("FLASH_ATTENTION", "CUDNN_ATTENTION", "EFFICIENT_ATTENTION")
+# The int8 product against its plain version from the same inputs: the same
+# two bf16 roundings, f32 sums in another order.
+INT8_MAX_REL, INT8_MEAN_REL = 1e-2, 1e-3
+KERNELS = (("flash_fwd", flash_fwd), ("flash_bwd", flash_bwd),
+           ("int8_linear", int8_linear_kernel), ("decode_attn", decode_attn))
 
 
 def forbidden_imports() -> list:
@@ -110,11 +139,13 @@ def phase_device():
     print(label, flush=True)
     print(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()} "
           f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
-    for name, wrapper in (("flash_fwd", flash_fwd), ("flash_bwd", flash_bwd)):
-        t0 = time.perf_counter()
-        built = wrapper.build()
-        print(f"{name} build: {time.perf_counter() - t0:.3f} s "
-              f"(nvcc {built.build_seconds:.3f} s) -> {built.path.name}", flush=True)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(KERNELS)) as pool:  # one nvcc per source, all at once
+        builds = list(pool.map(lambda kernel: kernel[1].build(), KERNELS))
+    print(f"kernel builds: {time.perf_counter() - t0:.3f} s for {len(KERNELS)} sources "
+          f"in parallel", flush=True)
+    for (name, _), built in zip(KERNELS, builds):
+        print(f"{name} build: nvcc {built.build_seconds:.3f} s -> {built.path.name}", flush=True)
         for line in built.ptxas_log.splitlines():
             if any(w in line for w in ("entry", "registers", "spill", "smem", "arning")):
                 print(f"  ptxas: {line.strip()}", flush=True)
@@ -424,20 +455,154 @@ def phase_bwd_kernels(label: str):
     return rows
 
 
+# The int8 product at the 7B agent's projection shapes: (name, M, N, K);
+# M = 1 is a decode pass, M = 5 the K + 1 = 5 verify block. A decode pass
+# runs each shape this many times per layer.
+INT8_CASES = [(f"{name}_m{m}", m, n, k) for m in (1, 5)
+              for name, n, k in (("qkvo", 4096, 4096), ("gate_up", 11008, 4096),
+                                 ("down", 4096, 11008))]
+PER_LAYER = {"qkvo": 4, "gate_up": 2, "down": 1}
+
+
+def phase_int8_kernel(label: str):
+    """Kernel A against its plain version; device ms, bound (bytes: the int8
+    weight, x, the scales and y once each), the plain product, F.linear on a
+    pre-dequantized bf16 weight (cuBLAS), and the int8 -> bf16 conversion the
+    plain product pays (the prefill route)."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rows, failed = [], []
+    for name, m, n, k in INT8_CASES:
+        x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+        w = torch.randint(-127, 128, (n, k), generator=gen, device="cuda", dtype=torch.int8)
+        scale = torch.rand(n, generator=gen, device="cuda") / (127 * k ** 0.5)
+        y = int8_linear(x, w, scale, implementation="kernel")
+        torch.cuda.synchronize()
+        want = int8_linear(x, w, scale, implementation="plain").float()
+        err = (y.float() - want).abs()
+        row = dict(name=name, shape=[m, n, k], max_abs=float(err.max()),
+                   max_rel=float(err.max() / want.abs().max()),
+                   mean_rel=float(err.mean() / want.abs().mean()))
+        if row["max_rel"] > INT8_MAX_REL or row["mean_rel"] > INT8_MEAN_REL:
+            failed.append(name)
+        kernel = lambda: int8_linear(x, w, scale, implementation="kernel")  # noqa: E731
+        plain = lambda: int8_linear(x, w, scale, implementation="plain")  # noqa: E731
+        t = [_time_ms(fn, 50) for fn in (plain, kernel, kernel, plain)]
+        row["call_ms"], row["plain_ms"] = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+        row["ms"], row["recorded"] = _profiled_ms(kernel, 50, ("int8_linear_kernel",))[
+            "int8_linear_kernel"]
+        nbytes = n * k + 2 * m * k + 4 * n + 2 * m * n
+        row["bound_ms"], row["bound_by"] = bound(2 * m * n * k, nbytes)
+        row["roofline"] = row["bound_ms"] / row["ms"]
+        row["tb_per_s"] = nbytes / row["ms"] / 1e9
+        w_bf16 = w.to(torch.bfloat16)
+        row["library_ms"] = _profiled_ms(lambda: F.linear(x, w_bf16), 50)["all"][0]
+        row["dequant_ms"] = _profiled_ms(lambda: w.to(torch.bfloat16), 50)["all"][0]
+        print(f"int8_linear {name}: {json.dumps(row)} [{label}]", flush=True)
+        rows.append(row)
+    n_layers = LlamaConfig().num_hidden_layers
+    for m in (1, 5):
+        per = {r["name"].rpartition("_m")[0]: r for r in rows if r["shape"][0] == m}
+        total = {key: n_layers * sum(PER_LAYER[s] * r[key] for s, r in per.items())
+                 for key in ("ms", "bound_ms", "library_ms", "plain_ms", "dequant_ms")}
+        print(f"int8_linear per pass of {m} row(s): {7 * n_layers} launches, "
+              f"{json.dumps(total)} (dequant_ms: the int8 -> bf16 conversion of a prefill) "
+              f"[{label}]", flush=True)
+    if failed:
+        raise AssertionError(f"int8_linear disagrees with the plain version at {failed}")
+    return rows
+
+
+# The cache attention: (name, B, Hq, Hkv, S, C, int8 cache, kv_len). The
+# story phase's bf16 cache, the flagship phase's int8 cache at the smoke's
+# contexts and at the window-8 capacity (S = 1 decode, S = 5 verify), and
+# GQA 4 with an empty row.
+ATTN_CASES = [
+    ("bf16_s1_c400", 1, 32, 32, 1, 400, False, None),
+    ("bf16_s5_c400", 1, 32, 32, 5, 400, False, None),
+    ("int8_s1_c900", 1, 32, 32, 1, 900, True, None),
+    ("int8_s5_c900", 1, 32, 32, 5, 900, True, None),
+    ("int8_s1_c5248", 1, 32, 32, 1, 5248, True, None),
+    ("int8_s5_c5248", 1, 32, 32, 5, 5248, True, None),
+    ("gqa4_empty_row_int8", 2, 32, 8, 5, 1100, True, [1100, 0]),
+    ("gqa4_empty_row_bf16", 2, 32, 8, 1, 1100, False, [700, 0]),
+]
+
+
+def phase_decode_attn_kernel(label: str):
+    """Kernel B against its plain version on f32 copies of the inputs (the
+    int8 cache as it is); device ms of the split-KV kernel and its merge,
+    bound (bytes: the visible keys' K, V and scales, q and O once each), the
+    plain version on the kernel's own inputs, and SDPA on a dequantized bf16
+    cache with a boolean mask."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows, failed = [], []
+    for name, b, hq, hkv, s, c, int8, kv_len in ATTN_CASES:
+        q = torch.randn(b, hq, s, 128, generator=gen, device="cuda").to(torch.bfloat16)
+        k, v = (torch.randn(b, hkv, c, 128, generator=gen, device="cuda") for _ in range(2))
+        ks = vs = None
+        if int8:
+            ks, vs = k.abs().amax(-1) / 127, v.abs().amax(-1) / 127
+            k = torch.round(k / ks[..., None]).clamp(-127, 127).to(torch.int8)
+            v = torch.round(v / vs[..., None]).clamp(-127, 127).to(torch.int8)
+            kd = (k.float() * ks[..., None]).to(torch.bfloat16)
+            vd = (v.float() * vs[..., None]).to(torch.bfloat16)
+        else:
+            k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+            kd, vd = k, v
+        lens = torch.tensor(kv_len or [c] * b, dtype=torch.int32, device="cuda")
+        starts = (lens - s).clamp(min=0).to(torch.int32)
+        kw = dict(kv_len=lens, q_start=starts, k_scale=ks, v_scale=vs)
+        out = decode_attention(q, k, v, implementation="kernel", **kw)
+        torch.cuda.synchronize()
+        f32 = (lambda t: t) if int8 else (lambda t: t.float())
+        want = decode_attention(q.float(), f32(k), f32(v), implementation="plain", **kw)
+        err = (out.float() - want).abs()
+        row = dict(name=name, shape=[b, hq, hkv, s, c], int8=int8, o_max_abs=float(err.max()),
+                   o_mean_abs=float(err.mean()))
+        if row["o_max_abs"] > O_MAX_ABS or row["o_mean_abs"] > O_MEAN_ABS:
+            failed.append(name)
+        kernel = lambda: decode_attention(q, k, v, implementation="kernel", **kw)  # noqa: E731
+        plain = lambda: decode_attention(q, k, v, implementation="plain", **kw)  # noqa: E731
+        t = [_time_ms(fn, 50) for fn in (plain, kernel, kernel, plain)]
+        row["call_ms"], row["plain_ms"] = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+        row["ms"] = _profiled_ms(kernel, 50, ("decode_attn_chunk_kernel",))["all"][0]
+        row["chunks"] = decode_attn.chunking(q.device, b, hkv, c)[1]
+        work = attention_work(b, hq, hkv, s, c, 128, True, starts.cpu(), lens.cpu())
+        keys = work["kv"] // (2 * 128)  # (batch row, KV head, key) triples some row sees
+        nbytes = 2 * keys * 128 * k.element_size() + (8 * keys if int8 else 0) + 2 * work["q"]
+        row["bound_ms"], row["bound_by"] = bound(4 * 128 * work["pairs"], nbytes)
+        row["roofline"] = row["bound_ms"] / row["ms"]
+        row["library_ms"], row["library"] = time_library(q, kd, vd, 50, True, starts, lens)
+        print(f"decode_attn {name}: {json.dumps(row)} [{label}]", flush=True)
+        rows.append(row)
+    if failed:
+        raise AssertionError(f"decode_attn disagrees with the plain version at {failed}")
+    return rows
+
+
 # Cuts for time; widths and depths are the configs' own.
 SEGMENTS, WINDOW = 3, 8
 MAX_NEW = 160
 FORCE_BOI_AT = MAX_NEW - 64 - 8
 EULER_STEPS = 8
+PIXELS = np.random.RandomState(0).randn(1, 3, 448, 448).astype(np.float32)
+CAPTION = "george the monkey went to the park"
+
+
+# The launch counts of the wrappers, by kernel.
+LAUNCHES = {"flash_fwd": lambda: flash_fwd.launches,
+            "int8_linear": lambda: int8_linear_kernel.launches,
+            "decode_attn": lambda: decode_attn.launches}
 
 
 class StageClock:
     """Times module calls (host clock around synchronized work) and counts
-    the flash kernel's launches inside each, by stage name."""
+    the kernels' launches inside each, by stage name."""
 
     def __init__(self):
-        self.calls = defaultdict(list)  # stage -> [(seconds, kernel launches)]
+        self.calls = defaultdict(list)  # stage -> [(seconds, {kernel: launches})]
         self.last_inputs = {}  # stage -> (args, kwargs) of its last call, where kept
+        self.handles = []
 
     def watch(self, module, stage_of, keep_inputs: bool = False):
         """Times ``module``'s calls; with ``keep_inputs`` it holds on to the
@@ -448,18 +613,27 @@ class StageClock:
             torch.cuda.synchronize()
             if keep_inputs:
                 self.last_inputs[stage_of(args, kwargs)] = (args, kwargs)
-            start["t"], start["n"] = time.perf_counter(), flash_fwd.launches
+            start["t"] = time.perf_counter()
+            start["n"] = {k: count() for k, count in LAUNCHES.items()}
 
         def after(mod, args, kwargs, out):
             torch.cuda.synchronize()
             self.calls[stage_of(args, kwargs)].append(
-                (time.perf_counter() - start["t"], flash_fwd.launches - start["n"]))
+                (time.perf_counter() - start["t"],
+                 {k: count() - start["n"][k] for k, count in LAUNCHES.items()}))
 
-        module.register_forward_pre_hook(before, with_kwargs=True)
-        module.register_forward_hook(after, with_kwargs=True)
+        self.handles += [module.register_forward_pre_hook(before, with_kwargs=True),
+                         module.register_forward_hook(after, with_kwargs=True)]
 
-    def launches(self, stage: str) -> int:
-        return sum(n for _, n in self.calls[stage])
+    def close(self):
+        for handle in self.handles:
+            handle.remove()
+
+    def launches(self, stage: str, kernel: str = "flash_fwd") -> int:
+        return sum(n[kernel] for _, n in self.calls[stage])
+
+    def total_s(self, stage: str) -> float:
+        return sum(t for t, _ in self.calls[stage])
 
     def mean_ms(self, stage: str) -> float:
         return 1e3 * float(np.mean([t for t, _ in self.calls[stage]]))
@@ -522,17 +696,18 @@ def phase_story(label: str):
                                    stack.detokenize, StoryPipelineConfig(
                                        story_len=SEGMENTS + 1, window_size=WINDOW,
                                        num_img_in_tokens=agent_cfg.num_img_in_tokens))
-    pixels = np.random.RandomState(0).randn(1, 3, 448, 448).astype(np.float32)
     torch.cuda.reset_peak_memory_stats()  # the story's own peak, not the kernel phases'
-    flash_fwd.launches = flash_fwd.padded_copies = 0
+    flash_fwd.launches = flash_fwd.padded_copies = decode_attn.launches = 0
     segments, seg_s = [], []
     t_prev = time.perf_counter()
-    for seg in pipe.run(pixels, "george the monkey went to the park"):
+    for seg in pipe.run(PIXELS, CAPTION):
         torch.cuda.synchronize()
         seg_s.append(time.perf_counter() - t_prev)
         segments.append(seg)
         t_prev = time.perf_counter()
     launches, copies = flash_fwd.launches, flash_fwd.padded_copies
+    attn_launches = decode_attn.launches
+    clock.close()
 
     failures = []
     if copies:
@@ -555,23 +730,208 @@ def phase_story(label: str):
             failures.append(f"flash kernel not launched during {stage}")
     if launches == 0:
         failures.append("flash kernel not launched on the main path")
+    n_layers = llm_cfg.num_hidden_layers
+    if clock.launches("decode_token", "decode_attn") != n_layers * len(clock.calls["decode_token"]):
+        failures.append(f"{clock.launches('decode_token', 'decode_attn')} decode attention "
+                        f"launches in {len(clock.calls['decode_token'])} decode steps, expected "
+                        f"{n_layers} a step")
     failures += forbidden_imports()
 
     for stage in ("vit_encode", "prefill", "decode_token", "unet_cfg_step", "vae_decode"):
         print(f"stage {stage}: {clock.mean_ms(stage):.3f} ms mean over "
-              f"{len(clock.calls[stage])} calls, flash launches {clock.launches(stage)} "
-              f"[{label}]", flush=True)
+              f"{len(clock.calls[stage])} calls, flash launches {clock.launches(stage)}, "
+              f"decode_attn launches {clock.launches(stage, 'decode_attn')} [{label}]",
+              flush=True)
     print(f"stage segment: {np.mean(seg_s):.3f} s/segment mean "
           f"({', '.join(f'{s:.3f}' for s in seg_s)}) [{label}]", flush=True)
-    print(f"main path: {launches} flash launches, {copies} padded copies, peak "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{label}]", flush=True)
+    print(f"main path: {launches} flash launches, {attn_launches} decode_attn launches, "
+          f"{copies} padded copies, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          f"[{label}]", flush=True)
     # after the counts are read: one more UNet CFG step, profiled (the
     # profiler's own overhead is in its wall time)
     unet = profile_call(stack.image_pipe.adapter.unet, *clock.last_inputs["unet_cfg_step"])
     print(f"unet_cfg_step profiled: {json.dumps(unet)} [{label}]", flush=True)
     if failures:
         raise AssertionError(f"story phase failed: {failures}")
-    return launches
+    return {"flash_fwd": launches, "decode_attn": attn_launches}, stack
+
+
+# The flagship phase: the JAX package's full preset decodes with int8
+# weights, an int8 KV cache and prompt-lookup speculation (K = 4). Cuts as
+# the story phase's, plus: run_sink for 4 segments and the visualization
+# flow for 3 texts, both with window 2 so that images are evicted.
+FLAGSHIP_K, FLAGSHIP_CAPACITY = 4, 1536
+SINK_SEGMENTS, SINK_WINDOW = 4, 2
+VIS_TEXTS = ("george found a red balloon in the park",
+             "the balloon floated up over the tall trees",
+             "george chased it all the way back home")
+SINK_GROWTH_MAX = 28  # the first-4 block plus 12 + 12 tokens around the evicted image
+
+
+def bf16_quantum(x: float) -> float:
+    """The spacing of bf16 values at |x| (8 significant bits)."""
+    return 2.0 ** (np.floor(np.log2(abs(x))) - 7) if x else 2.0 ** -133
+
+
+def drive(label: str, name: str, segments, agent, clocks: list, expect: int, images: bool):
+    """Runs one flow to its end under a clock on the LLaMA (prefill: calls of
+    more than 8 tokens; decode pass: the rest), checks its segments and
+    prints its stage numbers. Every generate of the phase decodes MAX_NEW
+    tokens (EOS banned), the first from its prefill."""
+    clock = StageClock()
+    clock.watch(agent.llm, lambda a, k: "prefill" if k["inputs_embeds"].shape[1] > 8
+                else "decode_pass")
+    clocks.append(clock)
+    segs, seg_s = [], []
+    t_prev = time.perf_counter()
+    for seg in segments:
+        torch.cuda.synchronize()
+        seg_s.append(time.perf_counter() - t_prev)
+        segs.append(seg)
+        t_prev = time.perf_counter()
+    clock.close()
+    failures = [] if len(segs) == expect else [f"{name}: {len(segs)} segments, expected {expect}"]
+    for seg in segs:
+        if seg.image_features is None or not bool(torch.isfinite(seg.image_features).all()):
+            failures.append(f"{name} segment {seg.index}: features missing or not finite")
+        img = seg.image
+        if images and (img is None or img.shape != (1024, 1024, 3) or img.min() == img.max()):
+            failures.append(f"{name} segment {seg.index}: image missing or constant")
+    passes, prefills = len(clock.calls["decode_pass"]), len(clock.calls["prefill"])
+    tokens = prefills * (MAX_NEW - 1)
+    stats = {"segments": len(segs), "s_per_segment": float(np.mean(seg_s)),
+             "segment_s": seg_s, "prefill_ms": clock.mean_ms("prefill"), "prefills": prefills,
+             "decode_passes": passes, "tokens_per_pass": tokens / passes,
+             "decode_ms_per_token": 1e3 * clock.total_s("decode_pass") / tokens,
+             "decode_ms_per_pass": clock.mean_ms("decode_pass"),
+             "context_tokens": [seg.context_tokens for seg in segs]}
+    print(f"flagship {name}: {json.dumps(stats)} [{label}]", flush=True)
+    return segs, stats, failures
+
+
+def phase_flagship(label: str, stack):
+    """The flagship decode configuration on the story phase's stack: the
+    agent quantized in place (quantize_agent_: int8 weights, int8 KV cache),
+    speculate_k = 4, through run, a speculative-against-greedy check, run_sink
+    and the visualization flow. Kernel A must launch 224 times and kernel B
+    32 times per decode pass, the flash forward in every prefill, with no
+    input copied for TMA."""
+    agent = stack.agent
+    n_layers = agent.cfg.llm.num_hidden_layers
+    t0 = time.perf_counter()
+    quantize_agent_(agent, base=True, kv=True)
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    n_int8 = sum(p.numel() for p in agent.parameters() if p.dtype == torch.int8)
+    print(f"flagship: quantize_agent_ {time.perf_counter() - t0:.3f} s, {n_int8 / 1e9:.3f} B "
+          f"int8 weights, {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated; "
+          f"speculate_k={FLAGSHIP_K}, cache_capacity={FLAGSHIP_CAPACITY} [{label}]", flush=True)
+    gcfg = dict(max_new_tokens=MAX_NEW, num_img_gen_tokens=agent.cfg.num_img_out_tokens,
+                eos_token_id=-1, cache_capacity=FLAGSHIP_CAPACITY, force_boi_at=FORCE_BOI_AT)
+    spec = StoryGenerator(agent, GenerateConfig(speculate_k=FLAGSHIP_K, **gcfg))
+    n_in = agent.cfg.num_img_in_tokens
+    story_cfg = dict(num_img_in_tokens=n_in)
+
+    torch.cuda.reset_peak_memory_stats()
+    for kernel in (flash_fwd, int8_linear_kernel, decode_attn):
+        kernel.launches = 0
+    flash_fwd.padded_copies = 0
+    clocks, failures, stats = [], [], {}
+
+    pipe = StoryGenerationPipeline(stack.tokenizer, spec, stack.visual_encode, stack.detokenize,
+                                   StoryPipelineConfig(story_len=SEGMENTS + 1, window_size=WINDOW,
+                                                       **story_cfg))
+    _, stats["run"], fail = drive(label, "run", pipe.run(PIXELS, CAPTION), agent, clocks,
+                                  SEGMENTS, images=True)
+    failures += fail
+
+    # speculation against plain greedy on the first segment's prompt
+    prompt = CAPTION + image_comprehension_string(n_in)
+    ids = np.asarray([stack.tokenizer.bos_token_id]
+                     + stack.tokenizer.encode(prompt, add_special_tokens=False))
+    ids_cmp = np.zeros(len(ids), bool)
+    ids_cmp[-n_in - 1:-1] = True
+    feats = stack.visual_encode(PIXELS)
+    greedy = StoryGenerator(agent, GenerateConfig(speculate_k=0, **gcfg))
+    plain_logits = []
+    hook = agent.llm.register_forward_hook(
+        lambda mod, args, kwargs, out: plain_logits.append(out["logits"][0, -1].float()),
+        with_kwargs=True)
+    clock = StageClock()
+    clock.watch(agent.llm, lambda a, k: "prefill" if k["inputs_embeds"].shape[1] > 8
+                else "decode_pass")
+    clocks.append(clock)
+    want = greedy.generate(ids, feats, np.ones((1,), bool), ids_cmp)["generate_ids"]
+    hook.remove()
+    greedy_ms = clock.mean_ms("decode_pass")
+    greedy_passes = len(clock.calls["decode_pass"])
+    got = spec.generate(ids, feats, np.ones((1,), bool), ids_cmp)["generate_ids"]
+    clock.close()
+    diff = np.flatnonzero(got != want)
+    check = {"identical": not len(diff), "greedy_decode_ms_per_token": greedy_ms,
+             "tokens": len(want)}
+    if len(diff):
+        i = int(diff[0])
+        prev = torch.tensor([int(want[i - 1]) if i else int(ids[-1])], device=feats.device)
+        top = torch.topk(greedy.automaton(prev, plain_logits[i][None])[0], 2).values.tolist()
+        check.update(first_divergence=i, top2=top, gap=top[0] - top[1],
+                     bf16_quantum=bf16_quantum(top[0]))
+        if not check["gap"] <= check["bf16_quantum"]:
+            failures.append(f"speculation diverged from greedy at step {i} with a top-2 gap "
+                            f"{check['gap']} above one bf16 quantum {check['bf16_quantum']}")
+    print(f"flagship spec_vs_greedy: {json.dumps(check)} [{label}]", flush=True)
+    stats["spec_vs_greedy"] = check
+    del plain_logits
+
+    sink_pipe = StoryGenerationPipeline(
+        stack.tokenizer, spec, stack.visual_encode, stack.detokenize,
+        StoryPipelineConfig(story_len=SINK_SEGMENTS + 1, window_size=SINK_WINDOW, **story_cfg))
+    segs, stats["run_sink"], fail = drive(label, "run_sink", sink_pipe.run_sink(PIXELS, CAPTION),
+                                          agent, clocks, SINK_SEGMENTS, images=True)
+    failures += fail
+    vis_pipe = StoryVisualizationPipeline(
+        stack.tokenizer, spec, stack.visual_encode, None,
+        VisPipelineConfig(window_size=SINK_WINDOW, **story_cfg))
+    vis_segs, stats["visualization"], fail = drive(
+        label, "visualization", vis_pipe.run(PIXELS, CAPTION, list(VIS_TEXTS)), agent, clocks,
+        len(VIS_TEXTS), images=False)
+    failures += fail
+    for name, mgr, at_least, flow_segs in (("run_sink", sink_pipe.sink, 2, segs),
+                                           ("visualization", vis_pipe.sink, 1, vis_segs)):
+        growth = np.diff([0] + mgr.sink_history).tolist()
+        print(f"flagship {name} sink: {len(mgr.sink_history)} evictions, sink_len after each "
+              f"{mgr.sink_history}, growth {growth} [{label}]", flush=True)
+        if len(mgr.sink_history) < at_least:
+            failures.append(f"{name}: {len(mgr.sink_history)} evictions, expected >= {at_least}")
+        if any(g > SINK_GROWTH_MAX for g in growth):
+            failures.append(f"{name}: sink grew by {growth} tokens per eviction")
+        if max(seg.context_tokens for seg in flow_segs) > FLAGSHIP_CAPACITY:
+            failures.append(f"{name}: context above the cache capacity")
+
+    launches = {k: count() for k, count in LAUNCHES.items()}
+    passes = sum(len(c.calls["decode_pass"]) for c in clocks)
+    prefill_flash = sum(c.launches("prefill") for c in clocks)
+    print(f"flagship launches: {json.dumps(launches)} in {passes} decode passes "
+          f"({passes - greedy_passes} verify passes of {FLAGSHIP_K + 1} tokens, {greedy_passes} "
+          f"greedy passes of 1); prefill flash launches {prefill_flash}, "
+          f"{flash_fwd.padded_copies} padded copies, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{label}]", flush=True)
+    if launches["int8_linear"] != 7 * n_layers * passes:
+        failures.append(f"{launches['int8_linear']} int8_linear launches in {passes} decode "
+                        f"passes, expected {7 * n_layers} a pass")
+    if launches["decode_attn"] != n_layers * passes:
+        failures.append(f"{launches['decode_attn']} decode_attn launches in {passes} decode "
+                        f"passes, expected {n_layers} a pass")
+    if prefill_flash == 0:
+        failures.append("flash kernel not launched in prefill")
+    if flash_fwd.padded_copies:
+        failures.append(f"{flash_fwd.padded_copies} inputs copied for TMA")
+    failures += forbidden_imports()
+    if failures:
+        raise AssertionError(f"flagship phase failed: {failures}")
+    stats["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return launches, stats
 
 
 # Stage 2 at full width: configs/clm_models/llama2chat7b_lora.yaml with the
@@ -686,7 +1046,8 @@ def phase_train(label: str):
         failures.append("a frozen base projection weight changed")
     vit_calls = vit_clock.calls["vit_encode"]
     for i, m in enumerate(steps):
-        vit_s, vit_fwd = vit_calls[i]
+        vit_s, vit_launches = vit_calls[i]
+        vit_fwd = vit_launches["flash_fwd"]
         sec = m["step_seconds"]
         fwd, dq, dkv = (int(m[k]) for k in LAUNCH_COUNTS)
         print(f"train step {i + 1}: {sec:.3f} s, loss {losses[i]:.4f}, vit_encode "
@@ -717,18 +1078,27 @@ def main():
     label = phase_device()
     rows = phase_kernels(label)
     bwd_rows = phase_bwd_kernels(label)
-    story_launches = phase_story(label)
+    int8_rows = phase_int8_kernel(label)
+    attn_rows = phase_decode_attn_kernel(label)
+    story_launches, stack = phase_story(label)
+    flagship_launches, _ = phase_flagship(label, stack)
+    del stack
     gc.collect()  # the story stack is gone; give its memory back before training
     torch.cuda.empty_cache()
     train_fwd, train_dq, train_dkv = phase_train(label)
     at = next(r for r in rows if r["name"] == "unet_self_64x64")
     bat = next(r for r in bwd_rows if r["name"] == "llama_train_causal")
+    a_at = next(r for r in int8_rows if r["name"] == "gate_up_m5")
+    b_at = next(r for r in attn_rows if r["name"] == "int8_s5_c900")
+    flash_paths = {"story": story_launches["flash_fwd"],
+                   "flagship": flagship_launches["flash_fwd"], "train": train_fwd}
+    attn_paths = {"story": story_launches["decode_attn"],
+                  "flagship": flagship_launches["decode_attn"]}
     print(label, flush=True)
     print(json.dumps({"kernels": [
         {"name": "flash_fwd", "route": "cuda", "source": "seed_story_torch/csrc/flash_fwd.cu",
          "replaces": "seed_story_tpu/ops/attention.py:180",
-         "launches": story_launches + train_fwd,
-         "launches_by_path": {"story": story_launches, "train": train_fwd},
+         "launches": sum(flash_paths.values()), "launches_by_path": flash_paths,
          "max_abs_err": max(r["o_max_abs"] for r in rows + bwd_rows), "ms": at["ms"],
          "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
          "library_ms": at["library_ms"], "library": at["library"], "at": at["name"]},
@@ -741,8 +1111,23 @@ def main():
            "library_ms": bat["library_ms"], "library": f"{bat['library']}: dq, dk and dv",
            "at": bat["name"]}
           for kname, line, n, grads in (("dq", 398, train_dq, ("dq",)),
-                                        ("dkv", 453, train_dkv, ("dk", "dv"))))]}),
-          flush=True)
+                                        ("dkv", 453, train_dkv, ("dk", "dv")))),
+        {"name": "int8_linear", "route": "cuda", "source": "seed_story_torch/csrc/int8_linear.cu",
+         "replaces": "seed_story_tpu/models/llama.py:294 (XLA-fused, no Pallas kernel)",
+         "launches": flagship_launches["int8_linear"],
+         "launches_by_path": {"flagship": flagship_launches["int8_linear"]},
+         "max_abs_err": max(r["max_abs"] for r in int8_rows), "ms": a_at["ms"],
+         "plain_ms": a_at["plain_ms"], "bound_ms": a_at["bound_ms"],
+         "bound_by": a_at["bound_by"], "library_ms": a_at["library_ms"],
+         "library": "F.linear on a pre-dequantized bf16 weight", "at": a_at["name"]},
+        {"name": "decode_attn", "route": "cuda", "source": "seed_story_torch/csrc/decode_attn.cu",
+         "replaces": "seed_story_tpu/ops/attention.py:105 (XLA, no Pallas kernel)",
+         "launches": sum(attn_paths.values()), "launches_by_path": attn_paths,
+         "max_abs_err": max(r["o_max_abs"] for r in attn_rows), "ms": b_at["ms"],
+         "plain_ms": b_at["plain_ms"], "bound_ms": b_at["bound_ms"],
+         "bound_by": b_at["bound_by"], "library_ms": b_at["library_ms"],
+         "library": f"SDPA on a dequantized cache: {b_at['library']}", "at": b_at["name"]},
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

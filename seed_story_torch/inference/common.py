@@ -5,7 +5,10 @@ from config dataclasses and a weights source; counterpart of
 Weights come either from seeded random initialisation on the device
 (``weights=None``), or from the JAX package's parameter trees
 (``weights={"vit": ..., "agent": ..., "adapter": ..., "vae": ...}``).
-The de-tokenizer returns uint8 (H, W, 3) arrays.
+The de-tokenizer returns uint8 (H, W, 3) arrays. The flagship decode
+configuration is ``quantize_base`` (the float agent is quantized in place
+after it is filled), ``quantize_kv`` and ``speculate_k``; ``sink`` keeps the
+KV cache for the sink flows (``run_sink``, the visualization pipeline).
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from ..data.tokenizer import TinyTokenizer
 from .. import weights as W
 from ..decode.generate import GenerateConfig, StoryGenerator
 from ..models.agent import AgentConfig, ContinuousLVLM
+from ..models.llama import quantize_llama_
 from ..models.sdxl.adapter import SDXLAdapter, SDXLAdapterConfig
 from ..models.sdxl.vae import AutoencoderKL, VAEConfig
 from ..models.vit import ViTConfig, VisionTransformerWithAttnPool
@@ -57,6 +61,21 @@ def _build(cls, cfg, device, seed: int, params, to_state_dict) -> torch.nn.Modul
     return fill_module(cls, cfg, device, seed, params, to_state_dict).eval().requires_grad_(False)
 
 
+def quantize_agent_(agent: ContinuousLVLM, *, base: bool = True,
+                    kv: bool = True) -> ContinuousLVLM:
+    """In place: with ``base`` the agent's seven LLaMA projections become
+    int8 (``quantize_llama_``, one projection at a time, so the transient
+    peak is one projection's f32 copy); ``kv`` sets ``quantize_kv`` in the
+    agent's configuration, which the generator reads for its caches."""
+    if base:
+        quantize_llama_(agent.llm)
+    llm_cfg = dataclasses.replace(agent.cfg.llm, quantize_kv=kv,
+                                  quantize_base=agent.cfg.llm.quantize_base or base)
+    agent.cfg = dataclasses.replace(agent.cfg, llm=llm_cfg)
+    agent.llm.cfg = agent.llm.model.cfg = llm_cfg
+    return agent
+
+
 def build_stack(vit_cfg: ViTConfig, agent_cfg: AgentConfig,
                 adapter_cfg: Optional[SDXLAdapterConfig] = None,
                 vae_cfg: Optional[VAEConfig] = None, *, tokenizer=None,
@@ -64,11 +83,16 @@ def build_stack(vit_cfg: ViTConfig, agent_cfg: AgentConfig,
                 device="cuda", max_new_tokens: int = 500, cache_capacity: int = 4096,
                 num_inference_steps: int = 50, image_size: int = 1024,
                 force_boi_at: Optional[int] = None,
-                eos_token_id: int = 2) -> InferenceStack:
-    """The gen_george stack. ``weights``: None for seeded random weights, or
-    the JAX param trees by family. ``eos_token_id=-1`` bans EOS (every
-    segment decodes ``max_new_tokens``). Every image starts from the same
-    noise (seed 42, the JAX pipeline's default)."""
+                eos_token_id: int = 2, quantize_base: bool = False,
+                quantize_kv: bool = False, speculate_k: int = 0,
+                temperature: float = 0.0, top_p: float = 1.0,
+                sink: bool = False) -> InferenceStack:
+    """The gen_george stack (and, with ``sink``, the sink flows'). ``weights``:
+    None for seeded random weights, or the JAX param trees by family.
+    ``eos_token_id=-1`` bans EOS (every segment decodes ``max_new_tokens``).
+    ``quantize_base`` quantizes the filled float agent in place,
+    ``quantize_kv`` gives its caches int8 rows. Every image starts from the
+    same noise (seed 42, the JAX pipeline's default)."""
     weights = weights or {}
     tokenizer = tokenizer or TinyTokenizer()
     device = torch.device(device)
@@ -82,9 +106,12 @@ def build_stack(vit_cfg: ViTConfig, agent_cfg: AgentConfig,
 
     agent = _build(ContinuousLVLM, agent_cfg, device, seed + 1, weights.get("agent"),
                    W.agent_state_dict)
+    if quantize_base or quantize_kv:
+        quantize_agent_(agent, base=quantize_base, kv=quantize_kv)
     generator = StoryGenerator(agent, GenerateConfig(
         max_new_tokens=max_new_tokens, num_img_gen_tokens=agent_cfg.num_img_out_tokens,
-        eos_token_id=eos_token_id, cache_capacity=cache_capacity, force_boi_at=force_boi_at))
+        eos_token_id=eos_token_id, cache_capacity=cache_capacity, force_boi_at=force_boi_at,
+        temperature=temperature, top_p=top_p, speculate_k=speculate_k, return_cache=sink))
 
     stack = InferenceStack(tokenizer=tokenizer, visual_encode=visual_encode,
                            generator=generator, detokenize=None,

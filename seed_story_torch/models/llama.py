@@ -9,6 +9,14 @@ this model. Prefill and training attention go through ``ops.attention.mha``
 (s <= 8) through ``decode_attention``. The embedding and lm_head keep the
 padded vocab rows; logits past ``vocab_size`` are masked to -1e9.
 
+int8 surface (inference): ``quantize_base`` stores the seven projection
+weights as int8 with per-output-channel scales (``quantize_llama_``
+converts a float model in place); the base product goes through
+``ops.int8_linear``. ``quantize_kv`` keeps the KV cache as int8 rows with
+per-(batch, head, token) scales: decode applies them after the products
+(``decode_attention``), prefill dequantizes the cache's valid prefix once
+and runs ``mha``.
+
 Training surface: LoRA dropout on the adapter input with masks drawn from
 (step seed, layer, projection), so a rematerialized layer draws the same
 masks again; per-layer ``remat``; ``hidden_states`` + ``chunked_loss``
@@ -28,6 +36,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import decode_attention, mha
+from ..ops.int8_linear import int8_linear
 from ..ops.rope import apply_rope, rope_frequencies
 
 
@@ -55,6 +64,11 @@ class LlamaConfig:
     remat: bool = False
     # training CE in sequence chunks of this size (0 = the whole sequence)
     ce_chunk_size: int = 0
+    # weight-only int8 for the 7 projections (per-output-channel scales);
+    # LoRA, norms, embeddings and lm_head stay in param_dtype
+    quantize_base: bool = False
+    # int8 KV cache with per-(batch, head, token) scales
+    quantize_kv: bool = False
     dtype: torch.dtype = torch.bfloat16  # compute dtype
     param_dtype: torch.dtype = torch.float32  # projection / embedding storage
 
@@ -84,29 +98,67 @@ class LlamaConfig:
 @dataclasses.dataclass
 class KVCache:
     """Fixed-capacity KV cache: one (B, kv_heads, capacity, head_dim) pair of
-    buffers per layer, plus each row's fill level as host integers.
+    buffers per layer, plus each row's fill level as host integers. In int8
+    mode (``quantized``) k/v hold int8 rows and ``k_scale`` / ``v_scale``
+    one f32 (B, kv_heads, capacity) buffer per layer.
 
     Unlike the JAX cache (an immutable pytree returned anew by every call),
     the forward writes the new keys and values into these buffers IN PLACE
-    and advances ``length``; the buffers are allocated once per generate
-    call."""
+    and advances ``length``; the buffers are allocated once per cache."""
 
     k: List[torch.Tensor]
     v: List[torch.Tensor]
     length: List[int]
+    k_scale: Optional[List[torch.Tensor]] = None
+    v_scale: Optional[List[torch.Tensor]] = None
 
     @classmethod
     def create(cls, cfg: LlamaConfig, batch: int, capacity: int,
-               dtype: torch.dtype = torch.bfloat16, device=None) -> "KVCache":
+               dtype: torch.dtype = torch.bfloat16, device=None,
+               quantized: Optional[bool] = None) -> "KVCache":
+        """``quantized`` None follows ``cfg.quantize_kv``."""
+        if quantized is None:
+            quantized = cfg.quantize_kv
         shape = (batch, cfg.kv_heads, capacity, cfg.head_dim)
-        n = cfg.num_hidden_layers
-        return cls(k=[torch.zeros(shape, dtype=dtype, device=device) for _ in range(n)],
-                   v=[torch.zeros(shape, dtype=dtype, device=device) for _ in range(n)],
-                   length=[0] * batch)
+
+        def buffers(shape, dtype):
+            return [torch.zeros(shape, dtype=dtype, device=device)
+                    for _ in range(cfg.num_hidden_layers)]
+
+        if not quantized:
+            return cls(k=buffers(shape, dtype), v=buffers(shape, dtype), length=[0] * batch)
+        return cls(k=buffers(shape, torch.int8), v=buffers(shape, torch.int8),
+                   length=[0] * batch, k_scale=buffers(shape[:3], torch.float32),
+                   v_scale=buffers(shape[:3], torch.float32))
 
     @property
     def capacity(self) -> int:
         return self.k[0].shape[2]
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
+
+def quantize_kv_rows(x: torch.Tensor):
+    """(..., D) -> int8 rows and the per-row symmetric scale max|x| / 127
+    (f32); the division uses the scale floored at 1e-8, the returned scale
+    is not floored (as the JAX ``quantize_kv_rows``)."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1) / 127.0
+    safe = scale.clamp_min(1e-8)
+    q = torch.round(xf / safe[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, scale
+
+
+def quantize_weight(w: torch.Tensor):
+    """(out, in) float weight -> int8 weight and per-output-channel f32
+    scale max|w| / 127 floored at 1e-8 (the JAX ``quantize_llama_params``
+    on the transposed flax kernel)."""
+    wf = w.float()
+    scale = (wf.abs().amax(dim=1) / 127.0).clamp_min(1e-8)
+    q = torch.round(wf / scale[:, None]).clamp(-127, 127).to(torch.int8)
+    return q, scale
 
 
 class RMSNorm(nn.Module):
@@ -144,14 +196,25 @@ class LoRADense(nn.Module):
     ``lora_A`` (r, in) and ``lora_B`` (out, r). Dropout acts on the adapter's
     input only, in training mode with a ``dropout_seed``; its mask comes from
     (dropout_seed, ``dropout_key``), and ``LlamaModel`` names each projection's
-    key by layer and module path."""
+    key by layer and module path.
+
+    With ``quantize`` (or after :meth:`quantize_`) ``weight`` is int8 (out,
+    in) with a per-output-channel f32 ``weight_scale``, both frozen, and the
+    base product is ``int8_linear``: y = bf16(x W^T) * bf16(scale) in
+    ``dtype``, then the bias, then the LoRA term (the JAX rounding order)."""
 
     def __init__(self, in_features: int, out_features: int, *, bias: bool = False,
                  lora_rank: int = 0, lora_alpha: float = 32.0, lora_dropout: float = 0.0,
-                 dtype=torch.bfloat16, param_dtype=torch.float32):
+                 quantize: bool = False, dtype=torch.bfloat16, param_dtype=torch.float32):
         super().__init__()
         self.dtype = dtype
-        self.weight = nn.Parameter(torch.empty(out_features, in_features, dtype=param_dtype))
+        if quantize:
+            self.weight = nn.Parameter(torch.zeros(out_features, in_features, dtype=torch.int8),
+                                       requires_grad=False)
+            self.weight_scale = nn.Parameter(torch.ones(out_features, dtype=torch.float32),
+                                             requires_grad=False)
+        else:
+            self.weight = nn.Parameter(torch.empty(out_features, in_features, dtype=param_dtype))
         self.bias = (nn.Parameter(torch.zeros(out_features, dtype=param_dtype))
                      if bias else None)
         self.lora_rank = lora_rank
@@ -162,10 +225,29 @@ class LoRADense(nn.Module):
             self.lora_A = nn.Linear(in_features, lora_rank, bias=False, dtype=param_dtype)
             self.lora_B = nn.Linear(lora_rank, out_features, bias=False, dtype=param_dtype)
 
+    @property
+    def quantized(self) -> bool:
+        return self.weight.dtype == torch.int8
+
+    @torch.no_grad()
+    def quantize_(self) -> "LoRADense":
+        """In place: the float weight becomes int8 with per-output-channel
+        scales (:func:`quantize_weight`); the float copy is freed."""
+        if not self.quantized:
+            q, scale = quantize_weight(self.weight)
+            self.weight = nn.Parameter(q, requires_grad=False)
+            self.weight_scale = nn.Parameter(scale, requires_grad=False)
+        return self
+
     def forward(self, x, dropout_seed: Optional[int] = None):
         dt = self.dtype
         bias = None if self.bias is None else self.bias.to(dt)
-        y = F.linear(x, self.weight.to(dt), bias)
+        if self.quantized:
+            y = int8_linear(x, self.weight, self.weight_scale)
+            if bias is not None:
+                y = y + bias
+        else:
+            y = F.linear(x, self.weight.to(dt), bias)
         if self.lora_rank > 0:
             xl = x
             if self.training and self.lora_dropout > 0 and dropout_seed is not None:
@@ -178,8 +260,8 @@ class LoRADense(nn.Module):
 
 def _proj(cfg: LlamaConfig, n_in: int, n_out: int) -> LoRADense:
     return LoRADense(n_in, n_out, lora_rank=cfg.lora_rank, lora_alpha=cfg.lora_alpha,
-                     lora_dropout=cfg.lora_dropout, dtype=cfg.dtype,
-                     param_dtype=cfg.param_dtype)
+                     lora_dropout=cfg.lora_dropout, quantize=cfg.quantize_base,
+                     dtype=cfg.dtype, param_dtype=cfg.param_dtype)
 
 
 class LlamaAttention(nn.Module):
@@ -209,17 +291,30 @@ class LlamaAttention(nn.Module):
             out = mha(q, k, v, causal=True, q_start=0, kv_len=kv_len)
         else:
             k_buf, v_buf = cache.k[layer_idx], cache.v[layer_idx]
+            ks_buf = vs_buf = None
+            if cache.quantized:
+                ks_buf, vs_buf = cache.k_scale[layer_idx], cache.v_scale[layer_idx]
+                (k, k_sc), (v, v_sc) = quantize_kv_rows(k), quantize_kv_rows(v)
+                writes = ((k_buf, k), (v_buf, v), (ks_buf, k_sc), (vs_buf, v_sc))
+            else:
+                writes = ((k_buf, k), (v_buf, v))
             for row, st in enumerate(cache.length):
-                k_buf[row, :, st:st + s] = k[row]
-                v_buf[row, :, st:st + s] = v[row]
+                for buf, new in writes:
+                    buf[row, :, st:st + s] = new[row]
             end = start + s
             q = q.to(cfg.dtype)
+            limit = max(cache.length) + s  # attention reads the valid prefix only
+            k_buf, v_buf = k_buf[:, :, :limit], v_buf[:, :, :limit]
+            if cache.quantized:
+                ks_buf, vs_buf = ks_buf[:, :, :limit], vs_buf[:, :, :limit]
             if s <= 8:
-                # short query block: plain matvecs over the valid prefix only
-                limit = max(cache.length) + s
-                out = decode_attention(q, k_buf[:, :, :limit], v_buf[:, :, :limit],
-                                       kv_len=end, q_start=start)
+                # short query block: the int8 scales apply after the products
+                out = decode_attention(q, k_buf, v_buf, kv_len=end, q_start=start,
+                                       k_scale=ks_buf, v_scale=vs_buf)
             else:
+                if cache.quantized:  # prefill dequantizes the prefix once
+                    k_buf = k_buf.to(cfg.dtype) * ks_buf[..., None].to(cfg.dtype)
+                    v_buf = v_buf.to(cfg.dtype) * vs_buf[..., None].to(cfg.dtype)
                 out = mha(q, k_buf.to(cfg.dtype), v_buf.to(cfg.dtype), causal=True,
                           q_start=start, kv_len=end)
         out = out.transpose(1, 2).reshape(b, s, h * hd)
@@ -393,3 +488,20 @@ def lora_trainable_mask(module: nn.Module) -> Dict[str, bool]:
                "embed_tokens", "lm_head"}
     return {name: bool(trained.intersection(name.split(".")))
             for name, _ in module.named_parameters()}
+
+
+QUANT_MODULES = frozenset(("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj",
+                           "down_proj"))
+
+
+def quantize_llama_(module: nn.Module) -> nn.Module:
+    """In place, the counterpart of the JAX ``quantize_llama_params``: every
+    ``LoRADense`` named like one of the seven projections (``QUANT_MODULES``)
+    gets an int8 weight with per-output-channel scales. LoRA, norms,
+    embeddings, ``lm_head`` and the resamplers (none of whose modules bears
+    such a name) stay as they are. One projection is converted at a time, so
+    the transient peak is one projection's f32 copy."""
+    for name, m in module.named_modules():
+        if isinstance(m, LoRADense) and name.rpartition(".")[2] in QUANT_MODULES:
+            m.quantize_()
+    return module

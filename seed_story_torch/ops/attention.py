@@ -2,7 +2,9 @@
 ``seed_story_tpu/ops/attention.py``, a plain PyTorch version of the forward
 and the backward, and the hand-written CUDA flash forward and backward for Hopper
 (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``: wgmma, TMA, mbarriers)
-behind one differentiable entry.
+behind one differentiable entry; and the small-query attention of the
+decode path over a bf16 or int8 KV cache (``decode_attention``: a plain
+version and the CUDA kernel ``csrc/decode_attn.cu``).
 
 Masking rule for query row ``i`` (0-based within the call) and key ``j``:
 
@@ -25,7 +27,7 @@ from typing import Optional, Tuple, Union
 
 import torch
 
-from .cuda_lib import BuiltLibrary
+from .cuda_lib import BuiltLibrary, check_launch
 
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
@@ -90,18 +92,19 @@ def mha_reference(q, k, v, *, causal: bool = True, q_start: Lens = None,
                              kv_len=kv_len, scale=scale)[0]
 
 
-def decode_attention(q, k, v, *, kv_len: torch.Tensor,
-                     q_start: Optional[torch.Tensor] = None,
-                     scale: Optional[float] = None):
-    """Small-query attention for the decode path (plain PyTorch; XLA in the
-    JAX package). GQA folds the group into the query rows, the scores are
-    f32, and the probabilities are cast to the value dtype for the PV
-    product with f32 accumulation, as the JAX version does.
-
-    q: (B, Hq, S, D) with small S; k/v: (B, Hkv, C, D); kv_len: (B,) valid
-    prefix. For S > 1, ``q_start`` (B,) is the cache position of query 0.
-    Returns (B, Hq, S, D).
-    """
+def decode_attention_reference(q, k, v, *, kv_len: torch.Tensor,
+                               q_start: Optional[torch.Tensor] = None,
+                               scale: Optional[float] = None,
+                               k_scale: Optional[torch.Tensor] = None,
+                               v_scale: Optional[torch.Tensor] = None):
+    """The plain version of :func:`decode_attention`, the JAX formula in
+    PyTorch: K and V are read in their stored dtype (an int8 cache is
+    converted to the query dtype, as the JAX ``astype``; a cache in the
+    query dtype is used as it is, with no f32 copy), the products run in the
+    query dtype, the scores and the softmax are f32, the int8 scales multiply
+    the (C,) score and probability vectors after the products, and the
+    probabilities are cast to the query dtype for PV. On f32 inputs (the CPU
+    tests, the smoke's reference) every product is exact f32."""
     b, hq, sq, d = q.shape
     _, hkv, c, _ = k.shape
     if sq > 1 and q_start is None:
@@ -110,7 +113,10 @@ def decode_attention(q, k, v, *, kv_len: torch.Tensor,
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     qg = q.reshape(b, hkv, group * sq, d)
-    logits = (qg.float() @ k.float().transpose(-1, -2)) * scale  # (B, Hkv, G*S, C)
+    kd = k if k.dtype == q.dtype else k.to(q.dtype)
+    logits = (qg @ kd.transpose(-1, -2)).float() * scale  # (B, Hkv, G*S, C)
+    if k_scale is not None:
+        logits = logits * k_scale[:, :, None, :].float()
     pos = torch.arange(c, device=q.device)[None, None, None, :]
     if sq == 1:
         mask = pos < kv_len[:, None, None, None]
@@ -121,8 +127,164 @@ def decode_attention(q, k, v, *, kv_len: torch.Tensor,
     logits = torch.where(mask, logits, DEFAULT_MASK_VALUE)
     probs = torch.softmax(logits, dim=-1)
     probs = torch.where(mask.any(dim=-1, keepdim=True), probs, 0.0)
-    out = probs.to(q.dtype) @ v.to(q.dtype)
+    if v_scale is not None:
+        probs = probs * v_scale[:, :, None, :].float()
+    vd = v if v.dtype == q.dtype else v.to(q.dtype)
+    out = probs.to(q.dtype) @ vd
     return out.reshape(b, hq, sq, d)
+
+
+def _aligned_16(t: torch.Tensor) -> bool:
+    """A 16-byte aligned base and (batch, head, position) strides of whole
+    16-byte units (dims of size 1 excepted)."""
+    size = t.element_size()
+    return t.data_ptr() % 16 == 0 and all(
+        n == 1 or (st * size) % 16 == 0 for n, st in zip(t.shape[:3], t.stride()[:3]))
+
+
+class DecodeAttention:
+    """Wrapper of the CUDA small-query cache attention
+    (``csrc/decode_attn.cu``: a split-KV kernel and the merge of its
+    chunks, one launch of the wrapper). ``launches`` counts the calls that
+    launched it; nothing else touches the count."""
+
+    MAX_CHUNK = 512
+
+    def __init__(self):
+        self.launches = 0
+        self._built: Optional[BuiltLibrary] = None
+        self._sms = {}
+
+    def build(self) -> BuiltLibrary:
+        if self._built is None:
+            built = BuiltLibrary("decode_attn")
+            fn = built.lib.decode_attn
+            fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+                           + [ctypes.c_longlong] * 9 + [ctypes.c_float, ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+            self._built = built
+        return self._built
+
+    def chunking(self, device, b: int, hkv: int, c: int) -> Tuple[int, int]:
+        """(keys per chunk, chunks): about two blocks per multiprocessor."""
+        if device not in self._sms:
+            self._sms[device] = torch.cuda.get_device_properties(device).multi_processor_count
+        want = max(1, -(-2 * self._sms[device] // (b * hkv)))
+        per_chunk = -(-c // want)
+        chunk = min(self.MAX_CHUNK, max(64, (per_chunk + 63) // 64 * 64))
+        return chunk, -(-c // chunk)
+
+    def __call__(self, q, k, v, kv_len: torch.Tensor, q_start: Optional[torch.Tensor],
+                 scale: float, k_scale: Optional[torch.Tensor] = None,
+                 v_scale: Optional[torch.Tensor] = None):
+        """q (B, Hq, S, 128) bf16 with S <= 8; k, v (B, Hkv, C, 128), both
+        int8 with f32 (B, Hkv, C) scales or both bf16 without, with equal
+        strides, a unit-stride head dim and 16-byte aligned rows; kv_len and
+        (for S > 1) q_start (B,) int32; all on one CUDA device. Returns
+        (B, Hq, S, 128) bf16."""
+        b, hq, sq, d = q.shape
+        _, hkv, c, _ = k.shape
+        if not (q.is_cuda and k.device == q.device and v.device == q.device):
+            raise ValueError(f"decode_attn: q, k, v must be on one CUDA device, got "
+                             f"{q.device}, {k.device}, {v.device}")
+        if q.dtype != torch.bfloat16:
+            raise TypeError(f"decode_attn takes a bfloat16 q, got {q.dtype}")
+        if k.dtype != v.dtype or k.dtype not in (torch.int8, torch.bfloat16):
+            raise TypeError(f"decode_attn takes int8 or bfloat16 K/V, got {k.dtype}/{v.dtype}")
+        if d != 128 or k.shape != v.shape or k.shape[0] != b or k.shape[3] != d or hq % hkv:
+            raise ValueError(f"decode_attn takes d = 128 and matching shapes, got "
+                             f"q={tuple(q.shape)} k={tuple(k.shape)} v={tuple(v.shape)}")
+        if not 1 <= sq <= 8:
+            raise ValueError(f"decode_attn takes 1..8 queries, got {sq}")
+        if (k.stride() != v.stride() or k.stride(-1) != 1 or q.stride(-1) != 1
+                or not _aligned_16(k) or not _aligned_16(v)):
+            raise ValueError("decode_attn: k and v need equal strides, a unit-stride head "
+                             "dim and 16-byte aligned rows")
+        quantized = k.dtype == torch.int8
+        if quantized != (k_scale is not None and v_scale is not None) or (
+                not quantized and (k_scale is not None or v_scale is not None)):
+            raise ValueError("decode_attn: an int8 cache needs k_scale and v_scale, a bf16 "
+                             "cache takes neither")
+        if quantized:
+            for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+                if (t.dtype != torch.float32 or t.shape != (b, hkv, c) or t.device != q.device
+                        or t.stride() != k_scale.stride()):
+                    raise ValueError(f"decode_attn: {name} must be f32 {(b, hkv, c)} on "
+                                     f"{q.device} with k_scale's strides")
+        if q_start is None:
+            if sq > 1:
+                raise ValueError("q_start is required for multi-query decode attention")
+            q_start = kv_len
+        for name, t in (("kv_len", kv_len), ("q_start", q_start)):
+            if (t.dtype != torch.int32 or t.device != q.device or t.shape != (b,)
+                    or not t.is_contiguous()):
+                raise ValueError(f"decode_attn: {name} must be contiguous int32 ({b},) "
+                                 f"on {q.device}")
+        out = torch.empty((b, hq, sq, d), dtype=torch.bfloat16, device=q.device)
+        if b == 0 or hq == 0:
+            return out
+        if c == 0:
+            return out.zero_()
+        chunk, n_chunks = self.chunking(q.device, b, hkv, c)
+        rows = (hq // hkv) * sq
+        part_o = part_ml = None
+        if n_chunks > 1:
+            part_o = torch.empty((b * hkv * n_chunks * rows, d), dtype=torch.float32,
+                                 device=q.device)
+            part_ml = torch.empty((b * hkv * n_chunks * rows, 2), dtype=torch.float32,
+                                  device=q.device)
+        ks_strides = list(k_scale.stride()) if quantized else [0, 0, 0]
+        fn = self.build().lib.decode_attn
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     k_scale.data_ptr() if quantized else None,
+                     v_scale.data_ptr() if quantized else None,
+                     q_start.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
+                     None if part_o is None else part_o.data_ptr(),
+                     None if part_ml is None else part_ml.data_ptr(),
+                     b, hq, hkv, sq, c, chunk, n_chunks, int(quantized),
+                     *q.stride()[:3], *k.stride()[:3], *ks_strides, float(scale), stream)
+        check_launch("decode_attn", err)
+        self.launches += 1
+        return out
+
+
+decode_attn = DecodeAttention()
+
+
+def decode_attention(q, k, v, *, kv_len: torch.Tensor,
+                     q_start: Optional[torch.Tensor] = None,
+                     scale: Optional[float] = None,
+                     k_scale: Optional[torch.Tensor] = None,
+                     v_scale: Optional[torch.Tensor] = None,
+                     implementation: str = "auto"):
+    """Small-query attention for the decode path (single-token decode and
+    short speculative-verify blocks); the counterpart of the JAX
+    ``decode_attention`` (XLA there). GQA folds the group into the query
+    rows; with an int8 cache, ``k_scale`` / ``v_scale`` (B, Hkv, C) apply to
+    the score and probability vectors after the products, so no dequantized
+    copy of the cache exists.
+
+    q: (B, Hq, S, D) with small S; k/v: (B, Hkv, C, D); kv_len: (B,) valid
+    prefix. For S > 1, ``q_start`` (B,) is the cache position of query 0:
+    query i sees keys < min(q_start + i + 1, kv_len). Returns (B, Hq, S, D).
+
+    implementation: 'auto' (the plain version for CPU tensors, the CUDA
+    kernel ``csrc/decode_attn.cu`` for CUDA tensors), 'kernel' or 'plain'.
+    """
+    if implementation == "auto":
+        implementation = "kernel" if q.is_cuda else "plain"
+    if implementation == "plain":
+        return decode_attention_reference(q, k, v, kv_len=kv_len, q_start=q_start, scale=scale,
+                                          k_scale=k_scale, v_scale=v_scale)
+    if implementation != "kernel":
+        raise ValueError(f"unknown implementation {implementation!r}")
+    if not q.is_cuda:
+        raise ValueError("implementation='kernel' needs CUDA tensors")
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    return decode_attn(q, k, v, kv_len, q_start, scale, k_scale, v_scale)
 
 
 def mha_backward_reference(q, k, v, o, lse, do, *, causal: bool = True, q_start: Lens = None,
@@ -191,15 +353,6 @@ def tma_ready(t: torch.Tensor) -> bool:
         for size, stride in zip(t.shape[:3], t.stride()[:3]))
 
 
-def _check_launch(kernel: str, err: int):
-    """Raises on a C entry point's non-zero return: a CUDA error code, or
-    1000 + the CUresult of a tensor map that could not be encoded."""
-    if err != 0:
-        what = (f"tensor map encode failed with CUresult {err - 1000}" if err >= 1000
-                else f"CUDA error {err}")
-        raise RuntimeError(f"{kernel} launch failed: {what}")
-
-
 def padded_copy(t: torch.Tensor, cols: int) -> torch.Tensor:
     """A contiguous copy of ``t`` (B, H, S, D) with D zero-padded to ``cols``."""
     out = t.new_zeros((*t.shape[:3], cols))
@@ -261,7 +414,7 @@ class FlashForward:
                      lse.data_ptr(), q_start.data_ptr(), kv_len.data_ptr(),
                      b, hq, hkv, sq, skv, d, d_in, *strides, float(scale),
                      int(causal), stream)
-        _check_launch("flash_fwd", err)
+        check_launch("flash_fwd", err)
         self.launches += 1
         return o, lse
 
@@ -330,9 +483,9 @@ class FlashBackward:
         lib = self.build().lib
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream(q.device).cuda_stream
-            _check_launch("flash_bwd dq", lib.flash_bwd_dq_bf16(*args, stream))
+            check_launch("flash_bwd dq", lib.flash_bwd_dq_bf16(*args, stream))
             self.dq_launches += 1
-            _check_launch("flash_bwd dkv", lib.flash_bwd_dkv_bf16(*args, stream))
+            check_launch("flash_bwd dkv", lib.flash_bwd_dkv_bf16(*args, stream))
             self.dkv_launches += 1
         return dq, dk, dv
 

@@ -39,6 +39,15 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def check_launch(kernel: str, err: int):
+    """Raises on a C entry point's non-zero return: a CUDA error code, or
+    1000 + the CUresult of a tensor map that could not be encoded."""
+    if err != 0:
+        what = (f"tensor map encode failed with CUresult {err - 1000}" if err >= 1000
+                else f"CUDA error {err}")
+        raise RuntimeError(f"{kernel} launch failed: {what}")
+
+
 class BuiltLibrary:
     """One compiled source: the loaded library plus how its build went."""
 

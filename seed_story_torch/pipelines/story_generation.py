@@ -1,11 +1,17 @@
 """Story generation pipeline (the gen_george flow) in PyTorch; counterpart
-of ``StoryGenerationPipeline.run`` in
+of ``StoryGenerationPipeline.run`` and ``run_sink`` in
 ``seed_story_tpu/pipelines/story_generation.py``.
 
-Seed with (image, caption); repeatedly: generate text and a forced image
-block -> de-tokenize the regressed image features -> feed the GENERATED
-features back as context -> while more than ``window_size`` images, strip
-the oldest "...</img>[INST]" span from the prompt and drop its features.
+``run``: seed with (image, caption); repeatedly: generate text and a forced
+image block -> de-tokenize the regressed image features -> feed the
+GENERATED features back as context -> while more than ``window_size``
+images, strip the oldest "...</img>[INST]" span from the prompt and drop its
+features; every segment re-prefills the window's prompt.
+
+``run_sink``: the same story with the KV cache threaded across segments:
+each segment prefills only the new image's comprehension block, and old
+segments leave through the attention-sink eviction policy
+(``decode/sink_cache.py``).
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ import torch
 
 from ..data.tokenizer import BOI_TOKEN, EOI_TOKEN, image_comprehension_string
 from ..decode.generate import StoryGenerator
+from ..decode.sink_cache import SinkKVCacheManager
 
 TAG_RE = re.compile(r"\s*<[^>]*>\s*")
 
@@ -29,6 +36,9 @@ class StoryPipelineConfig:
     window_size: int = 8
     num_img_in_tokens: int = 64
     instruction_prompt: str = "{instruction}"
+    # run_sink only: cap on retained sink tokens (None = the reference's
+    # policy, which grows ~24-28 tokens per evicted image forever)
+    sink_max_tokens: Optional[int] = None
 
 
 @dataclasses.dataclass
@@ -104,3 +114,88 @@ class StoryGenerationPipeline:
 
         if not out["has_img_output"]:
             yield StorySegment(text_id, text, None, None, len(ids))
+
+    def run_sink(self, image_pixels: np.ndarray, caption: str) -> Iterator[StorySegment]:
+        """Long-story generation with the multimodal attention-sink KV cache
+        threaded ACROSS segments (the JAX ``run_sink``). Per segment only the
+        just-generated image's comprehension block is prefilled; the
+        generated text tokens' KV is kept from decode time; the generated
+        image block's KV is dropped (it was written with generation-query
+        embeddings, and the story feeds the image back through the
+        comprehension block). Old segments leave through the sink eviction
+        policy. Context differs from ``run`` in two documented ways: it
+        follows the sink policy, not the verbatim window prompt, and the
+        generated text stays as raw decoded tokens. A guard refuses a
+        segment that could overflow the cache, with the JAX package's rule
+        (the prompt padded to ``prompt_bucket``, K + 1 slack for
+        speculation), so that both packages refuse the same story. Needs a
+        generator built with ``return_cache=True``. ``self.sink`` is the
+        run's ``SinkKVCacheManager``."""
+        cfg = self.cfg
+        gen = self.generator
+        if not gen.cfg.return_cache:
+            raise ValueError("run_sink threads the KV cache across segments; build the "
+                             "StoryGenerator with return_cache=True")
+        image_tokens = image_comprehension_string(cfg.num_img_in_tokens)
+        suffix_ids = np.asarray(self.tokenizer.encode(image_tokens, add_special_tokens=False),
+                                np.int64)
+        suffix_cmp = np.zeros(len(suffix_ids), bool)
+        sb = int(np.flatnonzero(suffix_ids == self._boi_id)[0])
+        se = int(np.flatnonzero(suffix_ids == self._eoi_id)[0])
+        suffix_cmp[sb + 1:se] = True
+
+        prompt = cfg.instruction_prompt.format_map({"instruction": caption + image_tokens})
+        live_ids, ids_cmp = self._ids_and_masks(prompt, 1)
+        sink = self.sink = SinkKVCacheManager(capacity=gen.cfg.cache_capacity,
+                                              max_sink=cfg.sink_max_tokens)
+        bucket = gen.cfg.prompt_bucket
+        slack = gen.cfg.speculate_k + 1 if gen.cfg.speculate_k > 0 else 0
+
+        def guard_capacity(committed: int, prefill_len: int):
+            padded = -(-prefill_len // bucket) * bucket
+            need = committed + padded + gen.cfg.max_new_tokens + slack
+            if need > gen.cfg.cache_capacity:
+                raise ValueError(
+                    f"run_sink: segment needs {need} cache slots ({committed} committed "
+                    f"sink+live, {padded} padded prefill, {gen.cfg.max_new_tokens}+{slack} "
+                    f"decode) but cache_capacity={gen.cfg.cache_capacity}. Size the capacity "
+                    ">= prompt + window live tokens + max_new + ~28 x (story_len - "
+                    "window_size), or set StoryPipelineConfig.sink_max_tokens.")
+
+        guard_capacity(0, len(live_ids))
+        out = gen.generate(live_ids, self.visual_encode(image_pixels), np.ones((1,), bool),
+                           ids_cmp)
+        n_images, text_id = 1, 1
+        while True:
+            gen_ids = np.asarray(out["generate_ids"], np.int64)
+            text = self._clean(gen_ids)
+            if not out["has_img_output"]:
+                yield StorySegment(0 if text_id == 1 else text_id, text, None, None,
+                                   sink.sink_len + len(live_ids))
+                return
+            feats = out["img_gen_feat"]
+            image = self.detokenize(feats) if self.detokenize is not None else None
+            yield StorySegment(text_id, text, image, feats,
+                               sink.sink_len + len(live_ids) + len(gen_ids))
+            if text_id >= cfg.story_len - 1:
+                return
+            text_id += 1
+
+            # keep the generated TEXT tokens' KV, drop the image block's
+            boi_pos = np.flatnonzero(gen_ids == self._boi_id)
+            n_text = int(boi_pos[0]) if len(boi_pos) else len(gen_ids)
+            live_ids = np.concatenate([live_ids, gen_ids[:n_text]])
+            cache = sink.truncate(out["cache"], sink.sink_len + len(live_ids))
+
+            n_images += 1  # the new image below
+            while n_images > cfg.window_size:
+                boi = int(np.flatnonzero(live_ids == self._boi_id)[0])
+                eoi = int(np.flatnonzero(live_ids == self._eoi_id)[0])
+                cache, dropped = sink.evict_image_span(cache, boi, eoi, live_len=len(live_ids))
+                live_ids = live_ids[dropped:]
+                n_images -= 1
+
+            # prefill ONLY the comprehension block of the new image
+            guard_capacity(sink.sink_len + len(live_ids), len(suffix_ids))
+            out = gen.generate(suffix_ids, feats, np.ones((1,), bool), suffix_cmp, cache=cache)
+            live_ids = np.concatenate([live_ids, suffix_ids])

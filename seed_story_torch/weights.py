@@ -8,8 +8,10 @@ One function per family: :func:`vit_state_dict`, :func:`agent_state_dict`
 port module's own state-dict keys, finds the flax leaf each one came from,
 and undoes the layout change ``seed_story_tpu/tools/convert_torch_weights.py``
 makes: flax Dense kernels (in, out) become Linear weights (out, in), flax
-Conv kernels HWIO become OIHW, norm ``scale`` becomes ``weight``. Padded
-vocab rows stay padded. Every flax leaf must be used exactly once.
+Conv kernels HWIO become OIHW, norm ``scale`` becomes ``weight``; an int8
+projection's ``kernel`` (int8, (in, out)) and ``kernel_scale`` become its
+``weight`` (transposed) and ``weight_scale``. Padded vocab rows stay
+padded. Every flax leaf must be used exactly once.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from torch import nn
 
 from .models.agent import ContinuousLVLM
 from .models.ipa_resampler import AttentionPool2d, ResamplerXLV2
-from .models.llama import LoRADense, RMSNorm
+from .models.llama import LoRADense, RMSNorm, quantize_weight
 from .models.resampler import MultiheadAttention, Resampler
 from .models.vit import VisionTransformerWithAttnPool, VisualAttention, VisualMLP
 from .ops.groupnorm import FastGroupNorm
@@ -56,6 +58,8 @@ def _leaf(module: nn.Module, key: str) -> Tuple[str, Callable[[np.ndarray], np.n
             return "scale", lambda w: w
         if isinstance(owner, nn.Embedding):
             return "embedding", lambda w: w
+    if name == "weight_scale" and isinstance(owner, LoRADense):  # int8 projection
+        return "kernel_scale", lambda w: w
     return name, lambda w: w
 
 
@@ -203,7 +207,14 @@ def init_random_(model: nn.Module, seed: int) -> nn.Module:
     gen = torch.Generator(device=device).manual_seed(seed)
     for m in reversed(list(model.modules())):
         if isinstance(m, (nn.Linear, nn.Conv2d, LoRADense)):
-            _lecun_(m.weight, gen)
+            if isinstance(m, LoRADense) and m.quantized:  # drawn in f32, then quantized
+                w = torch.empty(m.weight.shape, dtype=torch.float32, device=device)
+                _lecun_(w, gen)
+                q, scale = quantize_weight(w)
+                m.weight.copy_(q)
+                m.weight_scale.copy_(scale)
+            else:
+                _lecun_(m.weight, gen)
             if m.bias is not None:
                 m.bias.zero_()
         if isinstance(m, LoRADense) and m.lora_rank > 0:
