@@ -43,7 +43,14 @@ decoding with prompt-lookup speculation (K = 4) through ``run`` (3
 segments), a speculative-against-greedy token check, ``run_sink`` (4
 segments, window 2, two evictions) and the visualization flow (3
 ground-truth texts, window 2), with the kernels' launches per decode pass
-checked.
+checked, then one verify pass of ``run`` profiled (device time of the
+int8 products, the cache attention and the rest, and its wall time).
+
+    python3 chip_smoke.py --baseline LOG
+
+also prints each decode kernel's device time beside the one that LOG (an
+earlier run of this script, e.g. the parent commit's on the same card)
+holds for the same shape.
 
 The line before the last is the kernel report (JSON); the last line is
 ``{"ok": true, "device": {...}}``.
@@ -51,6 +58,7 @@ The line before the last is the kernel report (JSON); the last line is
 
 from __future__ import annotations
 
+import argparse
 import gc
 import json
 import os
@@ -566,7 +574,9 @@ def phase_decode_attn_kernel(label: str):
         t = [_time_ms(fn, 50) for fn in (plain, kernel, kernel, plain)]
         row["call_ms"], row["plain_ms"] = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
         row["ms"] = _profiled_ms(kernel, 50, ("decode_attn_chunk_kernel",))["all"][0]
-        row["chunks"] = decode_attn.chunking(q.device, b, hkv, c)[1]
+        q_rows = (hq // hkv) * s
+        row["chunks"] = decode_attn.chunking(q.device, b, hkv, c,
+                                             -(-q_rows // decode_attn.ROW_TILE))[1]
         work = attention_work(b, hq, hkv, s, c, 128, True, starts.cpu(), lens.cpu())
         keys = work["kv"] // (2 * 128)  # (batch row, KV head, key) triples some row sees
         nbytes = 2 * keys * 128 * k.element_size() + (8 * keys if int8 else 0) + 2 * work["q"]
@@ -640,9 +650,11 @@ class StageClock:
 
 
 def profile_call(module, args, kwargs) -> dict:
-    """One more call of ``module`` on the inputs it last saw, under
-    torch.profiler: wall ms (synchronized), device ms of everything it
-    launched, and device ms and launches of the flash forward."""
+    """One more call of ``module`` on the inputs it last saw: its wall ms
+    (synchronized), then, in a second call under torch.profiler, device ms
+    of everything it launched, device ms and launches of the flash forward,
+    and that call's wall ms (``profiled_wall_ms``, the profiler's overhead
+    included)."""
     wall = []
 
     def run():
@@ -652,11 +664,10 @@ def profile_call(module, args, kwargs) -> dict:
         wall.append(time.perf_counter() - t0)
 
     with torch.inference_mode():
-        module(*args, **kwargs)
-        torch.cuda.synchronize()
+        run()
         events = profiled(run, ("flash_fwd_kernel",))
     flash = [e for e in device_events(events) if "flash_fwd_kernel" in e.key]
-    return {"wall_ms": 1e3 * wall[-1],
+    return {"wall_ms": 1e3 * wall[0], "profiled_wall_ms": 1e3 * wall[-1],
             "device_ms": sum(e.self_device_time_total for e in device_events(events)) / 1e3,
             "flash_ms": sum(e.self_device_time_total for e in flash) / 1e3,
             "flash_launches": sum(e.count for e in flash)}
@@ -842,8 +853,16 @@ def phase_flagship(label: str, stack):
     pipe = StoryGenerationPipeline(stack.tokenizer, spec, stack.visual_encode, stack.detokenize,
                                    StoryPipelineConfig(story_len=SEGMENTS + 1, window_size=WINDOW,
                                                        **story_cfg))
+    verify = []  # the last verify pass of run: its inputs and the cache lengths before it
+
+    def keep_verify(mod, args, kwargs):
+        if kwargs["inputs_embeds"].shape[1] == FLAGSHIP_K + 1:
+            verify[:] = [args, kwargs, list(kwargs["cache"].length)]
+
+    hook = agent.llm.register_forward_pre_hook(keep_verify, with_kwargs=True)
     _, stats["run"], fail = drive(label, "run", pipe.run(PIXELS, CAPTION), agent, clocks,
                                   SEGMENTS, images=True)
+    hook.remove()
     failures += fail
 
     # speculation against plain greedy on the first segment's prompt
@@ -928,10 +947,51 @@ def phase_flagship(label: str, stack):
     if flash_fwd.padded_copies:
         failures.append(f"{flash_fwd.padded_copies} inputs copied for TMA")
     failures += forbidden_imports()
+    stats["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    # after the counts are read: run's last verify pass once more, profiled
+    stats["verify_pass"] = profile_verify_pass(agent, *verify)
+    print(f"flagship verify_pass profiled: {json.dumps(stats['verify_pass'])} [{label}]",
+          flush=True)
+    if (stats["verify_pass"]["int8_linear_launches"] != 7 * n_layers
+            or stats["verify_pass"]["decode_attn_launches"] != n_layers):
+        failures.append(f"profiled verify pass: {stats['verify_pass']}")
     if failures:
         raise AssertionError(f"flagship phase failed: {failures}")
-    stats["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     return launches, stats
+
+
+def profile_verify_pass(agent, args, kwargs, lengths) -> dict:
+    """One more verify pass of the LLaMA on the inputs it last saw, written
+    at the cache position it had then: its wall ms without the profiler
+    (synchronized), then, in a second run under torch.profiler, its device
+    ms split into kernel A, kernel B and the rest, with their launches, and
+    that run's wall ms (``profiled_wall_ms``, the profiler's overhead
+    included). The busy share is device ms over the unprofiled wall. The
+    cache's lengths are put back afterwards."""
+    cache = kwargs["cache"]
+    after, wall = list(cache.length), []
+
+    def run():
+        cache.length = list(lengths)
+        t0 = time.perf_counter()
+        agent.llm(*args, **kwargs)
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+
+    names = {"int8_linear": "int8_linear_kernel", "decode_attn": "decode_attn_chunk_kernel"}
+    with torch.inference_mode():
+        run()
+        events = device_events(profiled(run, tuple(names.values())))
+    cache.length = after
+    out = {"wall_ms": 1e3 * wall[0], "profiled_wall_ms": 1e3 * wall[-1],
+           "device_ms": sum(e.self_device_time_total for e in events) / 1e3}
+    for name, kernel in names.items():
+        mine = [e for e in events if kernel in e.key]
+        out[f"{name}_ms"] = sum(e.self_device_time_total for e in mine) / 1e3
+        out[f"{name}_launches"] = sum(e.count for e in mine)
+    out["rest_ms"] = out["device_ms"] - out["int8_linear_ms"] - out["decode_attn_ms"]
+    out["device_busy_share"] = out["device_ms"] / out["wall_ms"]
+    return out
 
 
 # Stage 2 at full width: configs/clm_models/llama2chat7b_lora.yaml with the
@@ -1074,12 +1134,37 @@ def phase_train(label: str):
     return launches
 
 
+def compare_with_baseline(path: str, int8_rows: list, attn_rows: list):
+    """Prints each decode kernel's device ms beside the one an earlier run
+    logged at the same shape (that run's own "int8_linear <name>: {...}" and
+    "decode_attn <name>: {...}" lines, e.g. the parent commit's smoke in the
+    same call)."""
+    with open(path) as f:
+        logged = {(m.group(1), m.group(2)): json.loads(m.group(3)) for m in re.finditer(
+            r"^(int8_linear|decode_attn) (\S+): (\{.*\}) \[", f.read(), re.M)}
+    for kernel, rows in (("int8_linear", int8_rows), ("decode_attn", attn_rows)):
+        for row in rows:
+            old = logged.get((kernel, row["name"]))
+            if old is None:
+                print(f"baseline {kernel} {row['name']}: not in {path}", flush=True)
+                continue
+            print(f"baseline {kernel} {row['name']}: ms {row['ms']:.5f} against "
+                  f"{old['ms']:.5f} ({row['ms'] / old['ms']:.3f}x), roofline "
+                  f"{row['roofline']:.3f} against {old['roofline']:.3f}", flush=True)
+
+
 def main():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--baseline", help="log of an earlier run of this script (or of the "
+                        "parent commit's) whose decode kernel times to print beside these")
+    args = parser.parse_args()
     label = phase_device()
     rows = phase_kernels(label)
     bwd_rows = phase_bwd_kernels(label)
     int8_rows = phase_int8_kernel(label)
     attn_rows = phase_decode_attn_kernel(label)
+    if args.baseline:
+        compare_with_baseline(args.baseline, int8_rows, attn_rows)
     story_launches, stack = phase_story(label)
     flagship_launches, _ = phase_flagship(label, stack)
     del stack

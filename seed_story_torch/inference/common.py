@@ -66,10 +66,12 @@ def quantize_agent_(agent: ContinuousLVLM, *, base: bool = True,
     """In place: with ``base`` the agent's seven LLaMA projections become
     int8 (``quantize_llama_``, one projection at a time, so the transient
     peak is one projection's f32 copy); ``kv`` sets ``quantize_kv`` in the
-    agent's configuration, which the generator reads for its caches."""
+    agent's configuration, which the generator reads for its caches. Both
+    flags only switch on: a configuration that already asks for int8
+    weights or an int8 cache keeps it."""
     if base:
         quantize_llama_(agent.llm)
-    llm_cfg = dataclasses.replace(agent.cfg.llm, quantize_kv=kv,
+    llm_cfg = dataclasses.replace(agent.cfg.llm, quantize_kv=agent.cfg.llm.quantize_kv or kv,
                                   quantize_base=agent.cfg.llm.quantize_base or base)
     agent.cfg = dataclasses.replace(agent.cfg, llm=llm_cfg)
     agent.llm.cfg = agent.llm.model.cfg = llm_cfg

@@ -98,13 +98,14 @@ def decode_attention_reference(q, k, v, *, kv_len: torch.Tensor,
                                k_scale: Optional[torch.Tensor] = None,
                                v_scale: Optional[torch.Tensor] = None):
     """The plain version of :func:`decode_attention`, the JAX formula in
-    PyTorch: K and V are read in their stored dtype (an int8 cache is
-    converted to the query dtype, as the JAX ``astype``; a cache in the
-    query dtype is used as it is, with no f32 copy), the products run in the
-    query dtype, the scores and the softmax are f32, the int8 scales multiply
-    the (C,) score and probability vectors after the products, and the
-    probabilities are cast to the query dtype for PV. On f32 inputs (the CPU
-    tests, the smoke's reference) every product is exact f32."""
+    PyTorch: an int8 cache is converted to the query dtype (the JAX
+    ``astype``); the scores ``q K^T`` are f32 products of those values (the
+    JAX ``preferred_element_type=float32``: a product of two bf16 values is
+    exact in f32); the softmax is f32; the int8 scales multiply the (C,)
+    score and probability vectors after the products; the probabilities are
+    cast to the query dtype for PV, a product in the query dtype with one
+    rounding of its result. On f32 inputs (the CPU tests, the smoke's
+    reference) every product is exact f32."""
     b, hq, sq, d = q.shape
     _, hkv, c, _ = k.shape
     if sq > 1 and q_start is None:
@@ -114,7 +115,7 @@ def decode_attention_reference(q, k, v, *, kv_len: torch.Tensor,
         scale = 1.0 / math.sqrt(d)
     qg = q.reshape(b, hkv, group * sq, d)
     kd = k if k.dtype == q.dtype else k.to(q.dtype)
-    logits = (qg @ kd.transpose(-1, -2)).float() * scale  # (B, Hkv, G*S, C)
+    logits = (qg.float() @ kd.float().transpose(-1, -2)) * scale  # (B, Hkv, G*S, C), f32
     if k_scale is not None:
         logits = logits * k_scale[:, :, None, :].float()
     pos = torch.arange(c, device=q.device)[None, None, None, :]
@@ -144,11 +145,13 @@ def _aligned_16(t: torch.Tensor) -> bool:
 
 class DecodeAttention:
     """Wrapper of the CUDA small-query cache attention
-    (``csrc/decode_attn.cu``: a split-KV kernel and the merge of its
-    chunks, one launch of the wrapper). ``launches`` counts the calls that
-    launched it; nothing else touches the count."""
+    (``csrc/decode_attn.cu``: split-KV on tensor cores, the chunks of a head
+    merged inside their thread block cluster). ``launches`` counts the calls
+    that launched it (one a call); nothing else touches the count."""
 
-    MAX_CHUNK = 512
+    ROW_TILE = 16    # query rows (group x S) of a block
+    MAX_CHUNKS = 16  # the blocks of a cluster (Hopper's non-portable limit)
+    BLOCKS_PER_SM = 2
 
     def __init__(self):
         self.launches = 0
@@ -159,19 +162,22 @@ class DecodeAttention:
         if self._built is None:
             built = BuiltLibrary("decode_attn")
             fn = built.lib.decode_attn
-            fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+            fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
                            + [ctypes.c_longlong] * 9 + [ctypes.c_float, ctypes.c_void_p])
             fn.restype = ctypes.c_int
             self._built = built
         return self._built
 
-    def chunking(self, device, b: int, hkv: int, c: int) -> Tuple[int, int]:
-        """(keys per chunk, chunks): about two blocks per multiprocessor."""
+    def chunking(self, device, b: int, hkv: int, c: int, row_tiles: int = 1) -> Tuple[int, int]:
+        """(keys per chunk, chunks): about two blocks per multiprocessor and
+        at most 16 chunks, a chunk a multiple of 64 keys (16 for each of a
+        block's 4 warps)."""
         if device not in self._sms:
             self._sms[device] = torch.cuda.get_device_properties(device).multi_processor_count
-        want = max(1, -(-2 * self._sms[device] // (b * hkv)))
+        want = min(self.MAX_CHUNKS, max(1, -(-self.BLOCKS_PER_SM * self._sms[device]
+                                             // (b * hkv * row_tiles))))
         per_chunk = -(-c // want)
-        chunk = min(self.MAX_CHUNK, max(64, (per_chunk + 63) // 64 * 64))
+        chunk = max(64, (per_chunk + 63) // 64 * 64)
         return chunk, -(-c // chunk)
 
     def __call__(self, q, k, v, kv_len: torch.Tensor, q_start: Optional[torch.Tensor],
@@ -225,14 +231,8 @@ class DecodeAttention:
             return out
         if c == 0:
             return out.zero_()
-        chunk, n_chunks = self.chunking(q.device, b, hkv, c)
         rows = (hq // hkv) * sq
-        part_o = part_ml = None
-        if n_chunks > 1:
-            part_o = torch.empty((b * hkv * n_chunks * rows, d), dtype=torch.float32,
-                                 device=q.device)
-            part_ml = torch.empty((b * hkv * n_chunks * rows, 2), dtype=torch.float32,
-                                  device=q.device)
+        chunk, n_chunks = self.chunking(q.device, b, hkv, c, -(-rows // self.ROW_TILE))
         ks_strides = list(k_scale.stride()) if quantized else [0, 0, 0]
         fn = self.build().lib.decode_attn
         with torch.cuda.device(q.device):
@@ -241,8 +241,6 @@ class DecodeAttention:
                      k_scale.data_ptr() if quantized else None,
                      v_scale.data_ptr() if quantized else None,
                      q_start.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
-                     None if part_o is None else part_o.data_ptr(),
-                     None if part_ml is None else part_ml.data_ptr(),
                      b, hq, hkv, sq, c, chunk, n_chunks, int(quantized),
                      *q.stride()[:3], *k.stride()[:3], *ks_strides, float(scale), stream)
         check_launch("decode_attn", err)

@@ -9,17 +9,18 @@ package's ``jnp.dot(x, kernel.astype(dtype)) * scale.astype(dtype)``
 
 ``int8_linear(implementation="auto")`` takes the plain version for CPU
 tensors. On CUDA tensors with at most 8 rows (decode and the K + 1 verify
-block) it launches the hand-written kernel ``csrc/int8_linear.cu``, which
-streams the int8 bytes once; with more rows (prefill, compute-bound) it
-runs the plain expression, a large product that the JAX package leaves to
-XLA too. There is no fallback: a CUDA input the kernel does not take
-raises, and so does a failed build or launch.
+block) it launches the hand-written kernel ``csrc/int8_linear.cu`` (tensor
+cores, a cp.async ring, K split across the blocks of a cluster; one row
+takes a CUDA-core kernel), which streams the int8 bytes once; with more
+rows (prefill, compute-bound) it runs the plain expression, a large product
+that the JAX package leaves to XLA too. There is no fallback: a CUDA input
+the kernel does not take raises, and so does a failed build or launch.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -38,18 +39,37 @@ class Int8Linear:
     """Wrapper of the CUDA weight-only int8 product. ``launches`` counts the
     kernel launches made through it; nothing else touches the count."""
 
+    ROWS = 64          # output channels of a block of the mma kernel
+    STAGE_K = 256      # columns of a stage; a K slice is a multiple of it
+    MAX_SLICES = 8     # a K slice a block of one thread block cluster
+    BLOCKS_PER_SM = 2
+    GEMV_MAX_ROWS = 1  # rows that take the CUDA-core kernel (see csrc/int8_linear.cu)
+
     def __init__(self):
         self.launches = 0
         self._built: Optional[BuiltLibrary] = None
+        self._sms = {}
 
     def build(self) -> BuiltLibrary:
         if self._built is None:
             built = BuiltLibrary("int8_linear")
             fn = built.lib.int8_linear_bf16
-            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
             self._built = built
         return self._built
+
+    def k_slices(self, device, n: int, k: int) -> Tuple[int, int]:
+        """(columns per K slice, slices): about 2 blocks per multiprocessor,
+        at most 8 slices."""
+        if device not in self._sms:
+            self._sms[device] = torch.cuda.get_device_properties(device).multi_processor_count
+        groups = -(-n // self.ROWS)
+        stages = -(-k // self.STAGE_K)
+        want = min(stages, self.MAX_SLICES,
+                   max(1, round(self.BLOCKS_PER_SM * self._sms[device] / groups)))
+        k_range = -(-stages // want) * self.STAGE_K
+        return k_range, -(-k // k_range)
 
     def __call__(self, x: torch.Tensor, weight: torch.Tensor, scale: torch.Tensor):
         """x (..., K) bf16 with at most 8 rows, weight (N, K) int8, scale (N,)
@@ -74,10 +94,12 @@ class Int8Linear:
             raise ValueError(f"int8_linear takes K a multiple of 16, got {k}")
         y = torch.empty((*x.shape[:-1], n), dtype=torch.bfloat16, device=x.device)
         fn = self.build().lib.int8_linear_bf16
+        k_range = self.k_slices(x.device, n, k)[0]
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
             check_launch("int8_linear", fn(x.data_ptr(), weight.data_ptr(), scale.data_ptr(),
-                                           y.data_ptr(), m, n, k, stream))
+                                           y.data_ptr(), m, n, k, k_range,
+                                           int(m <= self.GEMV_MAX_ROWS), stream))
         self.launches += 1
         return y
 

@@ -33,12 +33,17 @@ def _int8_inputs(m, n, k, seed):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m", [1, 3, 5, 8])
-@pytest.mark.parametrize("n,k", [(4096, 4096), (11008, 4096), (4096, 11008), (4096, 1040)])
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize("n,k", [(4096, 4096), (11008, 4096), (4096, 11008), (4096, 1040),
+                                 (4100, 1040)])
 def test_int8_linear_kernel_matches_plain(m, n, k):
-    """K = 11008 and 1040 are not multiples of the kernel's 2048-column tile."""
+    """Every row count of the n8 tile; K = 1040 is not a multiple of the
+    kernel's 256-column stage, and its last K slice of the cluster is 16
+    columns; N = 4100 is not a multiple of its 64-channel block. Every row
+    of x differs."""
     _card()
     x, w, scale = _int8_inputs(m, n, k, seed=m + n + k)
+    x = x * torch.arange(1, m + 1, device="cuda", dtype=torch.bfloat16)[:, None]
     before = int8_linear_kernel.launches
     y = int8_linear(x, w, scale)
     torch.cuda.synchronize()
@@ -48,6 +53,15 @@ def test_int8_linear_kernel_matches_plain(m, n, k):
     err = (y.float() - want.float()).abs()
     assert float(err.max()) <= 1e-2 * float(want.float().abs().max())
     assert float(err.mean()) <= 1e-3 * float(want.float().abs().mean())
+
+
+@pytest.mark.gpu
+def test_int8_linear_kernel_is_bitwise_repeatable():
+    """The K slices' sums (two slices of a cluster at this shape) are added
+    in slice order, whichever block finishes first."""
+    _card()
+    x, w, scale = _int8_inputs(5, 11008, 4096, seed=7)
+    assert torch.equal(int8_linear(x, w, scale), int8_linear(x, w, scale))
 
 
 @pytest.mark.gpu
@@ -89,15 +103,23 @@ def _attention_inputs(b, hq, hkv, s, c, int8, seed):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("int8", [True, False])
-@pytest.mark.parametrize("s", [1, 5])
-@pytest.mark.parametrize("hq,hkv,c", [(32, 32, 900), (8, 2, 1100), (4, 4, 5248)])
+@pytest.mark.parametrize("s", [1, 3, 5, 8])
+@pytest.mark.parametrize("hq,hkv,c", [(32, 32, 900), (8, 2, 1100), (16, 4, 1), (16, 4, 63),
+                                     (16, 4, 5248), (4, 4, 5248)])
 def test_decode_attention_kernel_matches_plain(int8, s, hq, hkv, c):
-    """Ragged kv_len with an empty row; C is not a multiple of the chunk."""
+    """Ragged kv_len with an empty row; C is not a multiple of the 16-key
+    tile or the chunk; in batch row 2 fewer than S queries are new (q_start
+    + S > kv_len); GQA 4 with S = 8 gives 32 rows, two tiles of 16, whose
+    keys (C = 1100, 5248) are split over several chunks of a cluster."""
     _card()
+    if c > 64:
+        rows = (hq // hkv) * s
+        assert decode_attn.chunking(torch.device("cuda"), 3, hkv, c, -(-rows // 16))[1] > 1
     b = 3
     q, k, v, ks, vs = _attention_inputs(b, hq, hkv, s, c, int8, seed=c + s + hq)
     kv_len = torch.tensor([c, 0, c // 3], dtype=torch.int32, device="cuda")
     q_start = (kv_len - s).clamp(min=0).to(torch.int32)
+    q_start[2] = max(0, c // 3 - s + 2)
     kw = dict(kv_len=kv_len, q_start=q_start, k_scale=ks, v_scale=vs)
     before = decode_attn.launches
     out = decode_attention(q, k, v, **kw)
@@ -126,6 +148,21 @@ def test_decode_attention_kernel_reads_a_strided_cache_prefix():
     want = decode_attention(q.float(), k[:, :, :limit], v[:, :, :limit], k_scale=ks[:, :, :limit],
                             v_scale=vs[:, :, :limit], implementation="plain", **kw)
     assert float((out.float() - want).abs().max()) <= 2e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("int8", [True, False])
+def test_decode_attention_kernel_is_bitwise_repeatable(int8):
+    """The chunks are merged in chunk order, whichever block finishes last."""
+    _card()
+    q, k, v, ks, vs = _attention_inputs(1, 32, 8, 5, 5248, int8, seed=11)
+    kw = dict(kv_len=torch.tensor([5248], dtype=torch.int32, device="cuda"),
+              q_start=torch.tensor([5243], dtype=torch.int32, device="cuda"),
+              k_scale=ks, v_scale=vs)
+    first = decode_attention(q, k, v, **kw)
+    assert decode_attn.chunking(q.device, 1, 8, 5248, 2)[1] > 1
+    for _ in range(3):
+        assert torch.equal(decode_attention(q, k, v, **kw), first)
 
 
 @pytest.mark.gpu

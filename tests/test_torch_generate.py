@@ -150,6 +150,23 @@ def test_generate_threads_the_cache_like_jax():
                                    rtol=0, atol=1e-3)
 
 
+def test_quantize_agent_keeps_a_configured_int8_cache():
+    """``quantize_agent_`` only switches the flags on: an agent whose LLaMA
+    configuration asks for an int8 cache keeps it when only the weights are
+    quantized, as the JAX cache follows the LLaMA configuration's own flag."""
+    cfg = AgentConfig.tiny()
+    cfg = dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm, quantize_kv=True))
+    agent = W.init_random_(ContinuousLVLM(cfg), seed=4).eval()
+    quantize_agent_(agent, base=True, kv=False)
+    assert agent.cfg.llm.quantize_kv and agent.cfg.llm.quantize_base
+    assert agent.llm.cfg.quantize_kv and agent.llm.model.cfg.quantize_kv
+    jcfg = ref_agent.AgentConfig.tiny()
+    gen = port_gen.StoryGenerator(agent, port_gen.GenerateConfig(
+        max_new_tokens=2, num_img_gen_tokens=jcfg.num_img_out_tokens, cache_capacity=64))
+    cache = gen.generate(*_story_inputs(jcfg))["cache"]
+    assert cache.quantized and cache.k[0].dtype == torch.int8
+
+
 def test_speculate_k_above_7_is_refused():
     with pytest.raises(ValueError, match="speculate_k"):
         port_gen.GenerateConfig(speculate_k=8)

@@ -159,6 +159,43 @@ def test_decode_attention_with_scales_matches_jax(sq, hq, hkv):
                          implementation="kernel")
 
 
+@pytest.mark.parametrize("sq", [1, 5])
+@pytest.mark.parametrize("int8", [False, True])
+def test_decode_attention_in_bf16_keeps_f32_scores_like_jax(int8, sq):
+    """bf16 q over a bf16 or int8 cache (GQA 2), both in bf16: the scores are
+    f32 products in both (the JAX ``preferred_element_type``), so the outputs
+    differ only where an f32 sum in another order flips a bf16 rounding. The
+    limit: at most one bf16 spacing per element, on at most 1% of them.
+    Scores rounded to bf16 before ``.float()`` change over half of the
+    outputs, by up to 50 spacings."""
+    rng = np.random.RandomState(11 + sq + int8)
+    b, hq, hkv, c, d = 2, 8, 4, 96, 64
+    q = torch.from_numpy(rng.randn(b, hq, sq, d).astype(np.float32)).to(torch.bfloat16)
+    kf, vf = (torch.from_numpy(rng.randn(b, hkv, c, d).astype(np.float32)) for _ in range(2))
+    if int8:
+        (k, ks), (v, vs) = port.quantize_kv_rows(kf), port.quantize_kv_rows(vf)
+    else:
+        k, v, ks, vs = kf.to(torch.bfloat16), vf.to(torch.bfloat16), None, None
+    q_start = np.asarray([c - sq - 7, c - sq], np.int32)
+    kv_len = q_start + sq
+
+    def jx(t):
+        if t is None or t.dtype != torch.bfloat16:
+            return None if t is None else jnp.asarray(t.numpy())
+        return jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+
+    want = ref_decode_attention(jx(q), jx(k), jx(v), kv_len=jnp.asarray(kv_len),
+                                q_start=jnp.asarray(q_start), k_scale=jx(ks), v_scale=jx(vs))
+    want = np.asarray(want.astype(jnp.float32))
+    got = decode_attention(q, k, v, kv_len=torch.from_numpy(kv_len),
+                           q_start=torch.from_numpy(q_start), k_scale=ks, v_scale=vs)
+    assert got.dtype == torch.bfloat16
+    got = got.float().numpy()
+    spacing = np.maximum(np.abs(want), 2.0 ** -126) * 2.0 ** -7
+    assert np.all(np.abs(got - want) <= spacing)
+    assert np.mean(got != want) <= 0.01
+
+
 def test_int8_weight_and_kv_prefill_decode_match_jax():
     """quantize_base + quantize_kv: a 10-token prefill (dequantized cache
     through ``mha``), two single tokens and a 3-token block (``decode_attention``
