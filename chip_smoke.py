@@ -44,7 +44,21 @@ segments), a speculative-against-greedy token check, ``run_sink`` (4
 segments, window 2, two evictions) and the visualization flow (3
 ground-truth texts, window 2), with the kernels' launches per decode pass
 checked, then one verify pass of ``run`` profiled (device time of the
-int8 products, the cache attention and the rest, and its wall time).
+int8 products, the cache attention and the rest, and its wall time). After
+the flagship phase, on the same stack: the lockstep phase (B = 4 stories
+with different seeds through ``run_batch`` for 2 rounds, kernel A taking the
+(4, 5) verify block as 20 rows; each story's tokens against the same story
+alone on the same inputs, which may part only at a near tie: each pass's
+pick in the other's top 8, within two bf16 quanta of its top; ms per
+pass, tokens per pass per row, stories x segments per minute beside the
+one-story runs, peak GiB) and the serving phase (the
+same 4 seeds through ``PipelinedStoryServer`` with one de-tokenizer replica
+on the same card on its own CUDA stream: texts identical to ``run_batch``'s,
+images within 2/255, segments in per-story order, the serve wall against the
+inline wall and the pool's busy seconds). The decode kernels' rows cover the
+lockstep shapes too: kernel A at 4, 10, 20 and 32 rows (and rows of a
+20-row call bit-equal to those of 5-row calls), kernel B over 4 rows of
+unequal lengths.
 
     python3 chip_smoke.py --baseline LOG
 
@@ -97,6 +111,7 @@ from seed_story_torch.ops.attention import (
     mha_reference_lse,
 )
 from seed_story_torch.ops.int8_linear import int8_linear, int8_linear_kernel
+from seed_story_torch.pipelines.serving import DetokenizerPool, PipelinedStoryServer
 from seed_story_torch.pipelines.story_generation import (
     StoryGenerationPipeline,
     StoryPipelineConfig,
@@ -464,19 +479,36 @@ def phase_bwd_kernels(label: str):
 
 
 # The int8 product at the 7B agent's projection shapes: (name, M, N, K);
-# M = 1 is a decode pass, M = 5 the K + 1 = 5 verify block. A decode pass
-# runs each shape this many times per layer.
-INT8_CASES = [(f"{name}_m{m}", m, n, k) for m in (1, 5)
+# M = 1 is a decode pass, M = 5 the K + 1 = 5 verify block, M = 4 a lockstep
+# decode token of 4 stories, M = 10 / 20 the verify block of 2 / 4 stories in
+# lockstep, M = 32 the kernel's most rows. A decode pass runs each shape this
+# many times per layer.
+INT8_ROWS = (1, 4, 5, 10, 20, 32)
+INT8_CASES = [(f"{name}_m{m}", m, n, k) for m in INT8_ROWS
               for name, n, k in (("qkvo", 4096, 4096), ("gate_up", 11008, 4096),
                                  ("down", 4096, 11008))]
 PER_LAYER = {"qkvo": 4, "gate_up": 2, "down": 1}
+
+
+def exact_plain_int8(x, w, scale):
+    """The plain int8 product as it is defined, its f32 sums rounded to bf16
+    once: cuBLAS may otherwise add split-K partial sums in bf16
+    (``allow_bf16_reduced_precision_reduction``, on by default)."""
+    matmul = torch.backends.cuda.matmul
+    flag = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        return int8_linear(x, w, scale, implementation="plain")
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = flag
 
 
 def phase_int8_kernel(label: str):
     """Kernel A against its plain version; device ms, bound (bytes: the int8
     weight, x, the scales and y once each), the plain product, F.linear on a
     pre-dequantized bf16 weight (cuBLAS), and the int8 -> bf16 conversion the
-    plain product pays (the prefill route)."""
+    plain product pays (the prefill route). Then, per shape, the rows of a
+    20-row call against the same rows in four 5-row calls, bit for bit."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     rows, failed = [], []
     for name, m, n, k in INT8_CASES:
@@ -485,7 +517,7 @@ def phase_int8_kernel(label: str):
         scale = torch.rand(n, generator=gen, device="cuda") / (127 * k ** 0.5)
         y = int8_linear(x, w, scale, implementation="kernel")
         torch.cuda.synchronize()
-        want = int8_linear(x, w, scale, implementation="plain").float()
+        want = exact_plain_int8(x, w, scale).float()
         err = (y.float() - want).abs()
         row = dict(name=name, shape=[m, n, k], max_abs=float(err.max()),
                    max_rel=float(err.max() / want.abs().max()),
@@ -508,13 +540,25 @@ def phase_int8_kernel(label: str):
         print(f"int8_linear {name}: {json.dumps(row)} [{label}]", flush=True)
         rows.append(row)
     n_layers = LlamaConfig().num_hidden_layers
-    for m in (1, 5):
+    for m in (1, 4, 5, 20):
         per = {r["name"].rpartition("_m")[0]: r for r in rows if r["shape"][0] == m}
         total = {key: n_layers * sum(PER_LAYER[s] * r[key] for s, r in per.items())
                  for key in ("ms", "bound_ms", "library_ms", "plain_ms", "dequant_ms")}
         print(f"int8_linear per pass of {m} row(s): {7 * n_layers} launches, "
               f"{json.dumps(total)} (dequant_ms: the int8 -> bf16 conversion of a prefill) "
               f"[{label}]", flush=True)
+    for name, n, k in (("qkvo", 4096, 4096), ("gate_up", 11008, 4096), ("down", 4096, 11008)):
+        x = torch.randn(20, k, generator=gen, device="cuda").to(torch.bfloat16)
+        w = torch.randint(-127, 128, (n, k), generator=gen, device="cuda", dtype=torch.int8)
+        scale = torch.rand(n, generator=gen, device="cuda") / (127 * k ** 0.5)
+        whole = int8_linear(x, w, scale, implementation="kernel")
+        parts = torch.cat([int8_linear(x[i:i + 5], w, scale, implementation="kernel")
+                           for i in range(0, 20, 5)])
+        equal = torch.equal(whole, parts)
+        print(f"int8_linear {name}: rows of one 20-row call bit-equal to four 5-row calls: "
+              f"{equal} [{label}]", flush=True)
+        if not equal:
+            failed.append(f"{name} (20 rows differ from 4 x 5 rows)")
     if failed:
         raise AssertionError(f"int8_linear disagrees with the plain version at {failed}")
     return rows
@@ -533,6 +577,8 @@ ATTN_CASES = [
     ("int8_s5_c5248", 1, 32, 32, 5, 5248, True, None),
     ("gqa4_empty_row_int8", 2, 32, 8, 5, 1100, True, [1100, 0]),
     ("gqa4_empty_row_bf16", 2, 32, 8, 1, 1100, False, [700, 0]),
+    # the verify pass of 4 stories in lockstep, their contexts apart
+    ("int8_s5_b4_unequal", 4, 32, 32, 5, 3600, True, [900, 1800, 2700, 3600]),
 ]
 
 
@@ -994,6 +1040,321 @@ def profile_verify_pass(agent, args, kwargs, lengths) -> dict:
     return out
 
 
+# The lockstep phase: B = 4 stories of the flagship configuration in
+# lockstep through run_batch for 2 rounds (story_len 3), each against the
+# same story run alone through run; then the serving phase on the same seeds.
+LOCKSTEP_CAPTIONS = ("george the monkey went to the park",
+                     "the man with the yellow hat baked a cake",
+                     "george found a red kite on the beach",
+                     "a parade marched through the city at night")
+LOCKSTEP_PIXELS = [np.random.RandomState(10 + r).randn(1, 3, 448, 448).astype(np.float32)
+                   for r in range(len(LOCKSTEP_CAPTIONS))]
+LOCKSTEP_ROUNDS = 2
+IMAGE_MAX_ABS = 2  # served images against inline ones, in uint8 steps
+# Where a lockstep story parts from the story alone, each pass's pick must be
+# among the other pass's TOP_K candidates and within TIE_QUANTA bf16 quanta
+# of that pass's top score. The two passes compute every row's products in
+# other orders (cuBLAS at 4 (K + 1) rows against K + 1, the cache attention's
+# chunks, the prefill at 4 prompts), and over 160 tokens those roundings
+# drift further than the one quantum of a single pass: the flagship's
+# speculative-against-greedy check keeps one.
+TOP_K, TIE_QUANTA = 8, 2
+
+
+class TopKRecorder:
+    """Stands in for a generator's automaton: returns the same scores and
+    keeps each call's previous tokens and the TOP_K scores and tokens of
+    every row (on the device; read after the run)."""
+
+    def __init__(self, automaton):
+        self.automaton, self.calls = automaton, []
+
+    def __getattr__(self, name):
+        return getattr(self.automaton, name)
+
+    def __call__(self, prev, scores):
+        out = self.automaton(prev, scores)
+        self.calls.append((prev, torch.topk(out, TOP_K)))
+        return out
+
+
+def recorded(generator, name: str, topk: TopKRecorder):
+    """Wraps ``generator.<name>`` to keep each call's arguments, results and
+    the automaton calls it made."""
+    calls, fn = [], getattr(generator, name)
+
+    def wrapped(*args, **kwargs):
+        first = len(topk.calls)
+        out = fn(*args, **kwargs)
+        calls.append((args, out, topk.calls[first:]))
+        return out
+
+    setattr(generator, name, wrapped)
+    return calls
+
+
+def step_topk(auto_calls, gen_ids, rows: int, row: int, k: int, max_new: int) -> dict:
+    """Decode step -> {token: score} of the TOP_K candidates of the pass that
+    committed it, for row ``row`` of a speculative generate: the first
+    automaton call is the prefill's pick (one row a story), each later one a
+    (rows, K + 1) verify pass whose commits follow from the drafts and the
+    tokens."""
+    def at(top, j):
+        return dict(zip(top.indices.view(-1, TOP_K)[j].tolist(),
+                        top.values.view(-1, TOP_K)[j].tolist()))
+
+    out = {0: at(auto_calls[0][1], row)}
+    idx = 1
+    for prev, top in auto_calls[1:]:
+        if idx >= len(gen_ids):
+            break
+        drafts = prev.view(rows, k + 1)[row, 1:].tolist()
+        accept = 0
+        while (accept < k and idx + accept < len(gen_ids)
+               and int(gen_ids[idx + accept]) == drafts[accept]):
+            accept += 1
+        for j in range(min(accept + 1, max_new - idx)):
+            out[idx + j] = at(top, row * (k + 1) + j)
+        idx += min(accept + 1, max_new - idx)
+    return out
+
+
+def lockstep_generator(agent):
+    return StoryGenerator(agent, GenerateConfig(
+        max_new_tokens=MAX_NEW, num_img_gen_tokens=agent.cfg.num_img_out_tokens, eos_token_id=-1,
+        cache_capacity=FLAGSHIP_CAPACITY, force_boi_at=FORCE_BOI_AT, speculate_k=FLAGSHIP_K,
+        return_cache=False))
+
+
+def phase_lockstep(label: str, stack):
+    """The flagship stack (int8 agent and cache, speculate_k = 4) serving 4
+    stories in lockstep through run_batch, against each story alone through
+    run. Kernel A must take every product of the (4, 5) verify pass (224
+    launches a pass), kernel B 32 a pass, and the flash forward the batched
+    prefill."""
+    agent = stack.agent
+    n_layers, b = agent.cfg.llm.num_hidden_layers, len(LOCKSTEP_CAPTIONS)
+    seeds = list(zip(LOCKSTEP_PIXELS, LOCKSTEP_CAPTIONS))
+    story_cfg = StoryPipelineConfig(story_len=LOCKSTEP_ROUNDS + 1, window_size=WINDOW,
+                                    num_img_in_tokens=agent.cfg.num_img_in_tokens)
+    failures, stats = [], {}
+
+    # each story alone (B = 1, the same generator configuration)
+    alone_gen = lockstep_generator(agent)
+    alone_topk = alone_gen.automaton = TopKRecorder(alone_gen.automaton)
+    alone_calls = recorded(alone_gen, "generate", alone_topk)
+    alone_pipe = StoryGenerationPipeline(stack.tokenizer, alone_gen, stack.visual_encode,
+                                         stack.detokenize, story_cfg)
+    clock = StageClock()
+    clock.watch(agent.llm, lambda a, k: "prefill" if k["inputs_embeds"].shape[1] > 8
+                else "decode_pass")
+    alone = []
+    t0 = time.perf_counter()
+    for pixels, caption in seeds:
+        alone.append(list(alone_pipe.run(pixels, caption)))
+    torch.cuda.synchronize()
+    alone_s = time.perf_counter() - t0
+    clock.close()
+    alone_passes = len(clock.calls["decode_pass"])
+    stats["alone"] = {"wall_s": alone_s, "segments": sum(map(len, alone)),
+                      "decode_passes": alone_passes,
+                      "decode_ms_per_pass": clock.mean_ms("decode_pass"),
+                      "tokens_per_pass": len(alone_calls) * (MAX_NEW - 1) / alone_passes,
+                      "prefill_ms": clock.mean_ms("prefill")}
+    stats["alone"]["stories_segments_per_min"] = 60 * stats["alone"]["segments"] / alone_s
+
+    # the 4 stories in lockstep, images inline
+    gen = lockstep_generator(agent)
+    topk = gen.automaton = TopKRecorder(gen.automaton)
+    batch_calls = recorded(gen, "generate_batch", topk)
+    pipe = StoryGenerationPipeline(stack.tokenizer, gen, stack.visual_encode, stack.detokenize,
+                                   story_cfg)
+    clock = StageClock()
+    clock.watch(agent.llm, lambda a, k: (
+        "prefill" if k["inputs_embeds"].shape[1] > 8
+        else f"decode_pass_{tuple(k['inputs_embeds'].shape[:2])}"))
+    torch.cuda.reset_peak_memory_stats()
+    for kernel in (flash_fwd, int8_linear_kernel, decode_attn):
+        kernel.launches = 0
+    rounds = []
+    t0 = time.perf_counter()
+    for round_segments in pipe.run_batch(seeds):
+        rounds.append(round_segments)
+    torch.cuda.synchronize()
+    lock_s = time.perf_counter() - t0
+    launches = {k: count() for k, count in LAUNCHES.items()}
+    clock.close()
+    pass_stages = [s for s in clock.calls if s.startswith("decode_pass")]
+    stage = f"decode_pass_{(b, FLAGSHIP_K + 1)}"
+    passes = len(clock.calls[stage])
+    segments = [[r[i] for r in rounds if r[i] is not None] for i in range(b)]
+    stats["lockstep"] = {
+        "wall_s": lock_s, "rounds": len(rounds), "segments": sum(map(len, segments)),
+        "decode_passes": passes, "decode_ms_per_pass": clock.mean_ms(stage),
+        "tokens_per_pass_per_row": len(batch_calls) * (MAX_NEW - 1) / passes,
+        "prefill_ms": clock.mean_ms("prefill"), "prefills": len(clock.calls["prefill"]),
+        "int8_linear_per_pass": clock.launches(stage, "int8_linear") / passes,
+        "decode_attn_per_pass": clock.launches(stage, "decode_attn") / passes,
+        "prefill_flash_launches": clock.launches("prefill"),
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    stats["lockstep"]["stories_segments_per_min"] = 60 * stats["lockstep"]["segments"] / lock_s
+    stats["lockstep"]["tokens_per_s"] = (len(batch_calls) * b * (MAX_NEW - 1)
+                                         / clock.total_s(stage))
+    stats["alone"]["tokens_per_s"] = (len(alone_calls) * (MAX_NEW - 1)
+                                      / (alone_passes * stats["alone"]["decode_ms_per_pass"] / 1e3))
+    print(f"lockstep: {json.dumps(stats)} [{label}]", flush=True)
+
+    if pass_stages != [stage]:
+        failures.append(f"decode passes of shapes {pass_stages}, expected only {stage}")
+    if stats["lockstep"]["int8_linear_per_pass"] != 7 * n_layers:
+        failures.append(f"{stats['lockstep']['int8_linear_per_pass']} int8_linear launches a "
+                        f"pass of {b * (FLAGSHIP_K + 1)} rows, expected {7 * n_layers} (every "
+                        f"int8 product of the pass)")
+    if stats["lockstep"]["decode_attn_per_pass"] != n_layers:
+        failures.append(f"{stats['lockstep']['decode_attn_per_pass']} decode_attn launches a "
+                        f"pass, expected {n_layers}")
+    if stats["lockstep"]["prefill_flash_launches"] == 0:
+        failures.append("flash kernel not launched in the batched prefill")
+    if len(batch_calls) != LOCKSTEP_ROUNDS or len(rounds) != LOCKSTEP_ROUNDS:
+        failures.append(f"{len(batch_calls)} generate_batch calls, {len(rounds)} rounds, "
+                        f"expected {LOCKSTEP_ROUNDS}")
+    for r, segs in enumerate(segments):
+        for seg in segs:
+            img = seg.image
+            if img is None or img.shape != (1024, 1024, 3) or img.min() == img.max():
+                failures.append(f"story {r} segment {seg.index}: image missing or constant")
+            if seg.image_features is None or not bool(torch.isfinite(seg.image_features).all()):
+                failures.append(f"story {r} segment {seg.index}: features missing or not finite")
+
+    # each story's tokens against the same story alone on the same inputs,
+    # round by round: round 0 is the story's first round through run; a
+    # later round's inputs hold the lockstep's own earlier features, so the
+    # story alone is one generate on them. They may part at a near tie
+    # (TOP_K, TIE_QUANTA); each pass's gap between the two picks is printed
+    # in bf16 quanta, and whether the whole story through run gave the same
+    # tokens.
+    checks = []
+    for r in range(b):
+        for t in range(LOCKSTEP_ROUNDS):
+            got = batch_calls[t][1][r]["generate_ids"]
+            run_out = alone_calls[r * LOCKSTEP_ROUNDS + t][1]
+            if t == 0:
+                want_out, want_auto = run_out, alone_calls[r * LOCKSTEP_ROUNDS][2]
+            else:
+                story = batch_calls[t][0][0][r]
+                alone_gen.generate(story["input_ids"], story["image_embeds"],
+                                   story["embeds_cmp_mask"], story["ids_cmp_mask"])
+                _, want_out, want_auto = alone_calls[-1]
+            want = want_out["generate_ids"]
+            feat_diff = float((batch_calls[t][1][r]["img_gen_feat"].float()
+                               - want_out["img_gen_feat"].float()).abs().max())
+            check = {"story": r, "round": t, "identical": bool(np.array_equal(got, want)),
+                     "feat_max_abs_diff": feat_diff,
+                     "identical_to_run": bool(np.array_equal(got, run_out["generate_ids"]))}
+            if not check["identical"]:
+                i = int(np.flatnonzero(got[:len(want)] != want[:len(got)])[0])
+                a, l = int(want[i]), int(got[i])  # the picks alone and in lockstep
+                alone = step_topk(want_auto, want, 1, 0, FLAGSHIP_K, MAX_NEW)[i]
+                lock = step_topk(batch_calls[t][2], got, b, r, FLAGSHIP_K, MAX_NEW)[i]
+                # each pass's gap between its own pick and the other's, in quanta
+                quanta = [float((s[x] - s[y]) / bf16_quantum(s[x])) if y in s else None
+                          for s, x, y in ((alone, a, l), (lock, l, a))]
+                check.update(first_divergence=i, picks=[a, l], scores=[
+                    [alone[a], alone.get(l)], [lock.get(a), lock[l]]], gap_quanta=quanta)
+                check["within_one_quantum"] = all(q is not None and q <= 1 for q in quanta)
+                if not all(q is not None and q <= TIE_QUANTA for q in quanta):
+                    failures.append(f"story {r} round {t}: lockstep parted from the story "
+                                    f"alone at step {i} (tokens {a} alone, {l} in lockstep) "
+                                    f"at gaps of {quanta} bf16 quanta, not a near tie")
+            checks.append(check)
+    print(f"lockstep vs alone: {json.dumps(checks)} [{label}]", flush=True)
+    texts_equal = sum(c["identical"] for c in checks)
+    run_equal = sum(c["identical_to_run"] for c in checks)
+    parted = [c for c in checks if not c["identical"]]
+    print(f"lockstep summary: {texts_equal} of {len(checks)} story rounds token-identical to the "
+          f"story alone on the same inputs ({run_equal} to the story through run); the others "
+          f"part at near ties of {[c['gap_quanta'] for c in parted]} bf16 quanta "
+          f"({sum(c['within_one_quantum'] for c in parted)} within one); "
+          f"{stats['lockstep']['decode_ms_per_pass']:.3f} ms a (4, 5) pass against "
+          f"{stats['alone']['decode_ms_per_pass']:.3f} ms a (1, 5) pass; "
+          f"{stats['lockstep']['stories_segments_per_min']:.3f} against "
+          f"{stats['alone']['stories_segments_per_min']:.3f} stories x segments per minute; peak "
+          f"{stats['lockstep']['peak_gib']:.2f} GiB [{label}]", flush=True)
+    failures += forbidden_imports()
+    if failures:
+        raise AssertionError(f"lockstep phase failed: {failures}")
+    return launches, stats, segments
+
+
+def phase_serving(label: str, stack, inline_segments, inline_s: float):
+    """The lockstep phase's 4 seeds through PipelinedStoryServer: decode on
+    the default stream, one de-tokenizer replica on the same card (the
+    stack's own UNet and VAE) on a CUDA stream of its own. Texts must equal
+    the inline run_batch's, images agree within 2/255, segments come out in
+    per-story order. Launches are totals over the phase (two threads
+    launch); decode passes are counted by a hook that does not synchronize."""
+    agent = stack.agent
+    n_layers, b = agent.cfg.llm.num_hidden_layers, len(LOCKSTEP_CAPTIONS)
+    pipe = StoryGenerationPipeline(
+        stack.tokenizer, lockstep_generator(agent), stack.visual_encode, None,
+        StoryPipelineConfig(story_len=LOCKSTEP_ROUNDS + 1, window_size=WINDOW,
+                            num_img_in_tokens=agent.cfg.num_img_in_tokens))
+    pool = DetokenizerPool(stack.detok_factory, [stack.device])
+    server = PipelinedStoryServer(pipe, pool)
+    passes = []
+    hook = agent.llm.register_forward_pre_hook(
+        lambda mod, args, kwargs: passes.append(kwargs["inputs_embeds"].shape[1] <= 8),
+        with_kwargs=True)
+    torch.cuda.synchronize()
+    for kernel in (flash_fwd, int8_linear_kernel, decode_attn):
+        kernel.launches = 0
+    order, t0 = [], time.perf_counter()
+    try:
+        for story_idx, seg in server.serve_stream(list(zip(LOCKSTEP_PIXELS, LOCKSTEP_CAPTIONS))):
+            order.append((story_idx, seg))
+        torch.cuda.synchronize()
+    finally:
+        hook.remove()
+        pool.shutdown()
+    serve_s = time.perf_counter() - t0
+    launches = {k: count() for k, count in LAUNCHES.items()}
+    n_passes = sum(passes)
+    stats = {"serve_wall_s": serve_s, "inline_wall_s": inline_s,
+             "speedup": inline_s / serve_s, **server.stats(),
+             "decode_passes": n_passes, "launches": launches}
+    print(f"serving: {json.dumps(stats)} [{label}]", flush=True)
+
+    failures = []
+    for r in range(b):
+        got = [seg for i, seg in order if i == r]
+        want = inline_segments[r]
+        if [s.index for s in got] != sorted(s.index for s in got):
+            failures.append(f"story {r}: segments out of order {[s.index for s in got]}")
+        if [s.text for s in got] != [s.text for s in want]:
+            failures.append(f"story {r}: served texts differ from run_batch's")
+        for g, w in zip(got, want):
+            if g.image is None or g.image.shape != w.image.shape:
+                failures.append(f"story {r} segment {g.index}: image missing")
+                continue
+            diff = int(np.abs(g.image.astype(np.int16) - w.image.astype(np.int16)).max())
+            print(f"serving story {r} segment {g.index}: image max abs diff {diff} [{label}]",
+                  flush=True)
+            if diff > IMAGE_MAX_ABS:
+                failures.append(f"story {r} segment {g.index}: image differs by {diff}")
+    if launches["int8_linear"] != 7 * n_layers * n_passes:
+        failures.append(f"{launches['int8_linear']} int8_linear launches in {n_passes} decode "
+                        f"passes, expected {7 * n_layers} a pass")
+    if launches["decode_attn"] != n_layers * n_passes:
+        failures.append(f"{launches['decode_attn']} decode_attn launches in {n_passes} decode "
+                        f"passes, expected {n_layers} a pass")
+    if launches["flash_fwd"] == 0:
+        failures.append("flash kernel not launched while serving")
+    failures += forbidden_imports()
+    if failures:
+        raise AssertionError(f"serving phase failed: {failures}")
+    return launches, stats
+
+
 # Stage 2 at full width: configs/clm_models/llama2chat7b_lora.yaml with the
 # one-chip recipe's remat, ce_chunk_size and bf16 parameters,
 # agent_7b_sft.yaml, qwen_vitg_448.yaml; the batch follows george_sft.yaml
@@ -1167,7 +1528,10 @@ def main():
         compare_with_baseline(args.baseline, int8_rows, attn_rows)
     story_launches, stack = phase_story(label)
     flagship_launches, _ = phase_flagship(label, stack)
-    del stack
+    lockstep_launches, lockstep_stats, lockstep_segments = phase_lockstep(label, stack)
+    serving_launches, _ = phase_serving(label, stack, lockstep_segments,
+                                        lockstep_stats["lockstep"]["wall_s"])
+    del stack, lockstep_segments
     gc.collect()  # the story stack is gone; give its memory back before training
     torch.cuda.empty_cache()
     train_fwd, train_dq, train_dkv = phase_train(label)
@@ -1176,9 +1540,16 @@ def main():
     a_at = next(r for r in int8_rows if r["name"] == "gate_up_m5")
     b_at = next(r for r in attn_rows if r["name"] == "int8_s5_c900")
     flash_paths = {"story": story_launches["flash_fwd"],
-                   "flagship": flagship_launches["flash_fwd"], "train": train_fwd}
+                   "flagship": flagship_launches["flash_fwd"],
+                   "lockstep": lockstep_launches["flash_fwd"],
+                   "serving": serving_launches["flash_fwd"], "train": train_fwd}
     attn_paths = {"story": story_launches["decode_attn"],
-                  "flagship": flagship_launches["decode_attn"]}
+                  "flagship": flagship_launches["decode_attn"],
+                  "lockstep": lockstep_launches["decode_attn"],
+                  "serving": serving_launches["decode_attn"]}
+    int8_paths = {"flagship": flagship_launches["int8_linear"],
+                  "lockstep": lockstep_launches["int8_linear"],
+                  "serving": serving_launches["int8_linear"]}
     print(label, flush=True)
     print(json.dumps({"kernels": [
         {"name": "flash_fwd", "route": "cuda", "source": "seed_story_torch/csrc/flash_fwd.cu",
@@ -1199,8 +1570,7 @@ def main():
                                         ("dkv", 453, train_dkv, ("dk", "dv")))),
         {"name": "int8_linear", "route": "cuda", "source": "seed_story_torch/csrc/int8_linear.cu",
          "replaces": "seed_story_tpu/models/llama.py:294 (XLA-fused, no Pallas kernel)",
-         "launches": flagship_launches["int8_linear"],
-         "launches_by_path": {"flagship": flagship_launches["int8_linear"]},
+         "launches": sum(int8_paths.values()), "launches_by_path": int8_paths,
          "max_abs_err": max(r["max_abs"] for r in int8_rows), "ms": a_at["ms"],
          "plain_ms": a_at["plain_ms"], "bound_ms": a_at["bound_ms"],
          "bound_by": a_at["bound_by"], "library_ms": a_at["library_ms"],

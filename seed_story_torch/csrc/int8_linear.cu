@@ -3,7 +3,7 @@
 //
 //   y (M, N) = bf16( bf16( sum_k x[m, k] * W[n, k] ) * bf16(scale[n]) )
 //
-// x (M, K) bf16 row-major with M <= 8, W (N, K) int8 row-major (PyTorch's
+// x (M, K) bf16 row-major with M <= 32, W (N, K) int8 row-major (PyTorch's
 // Linear layout), scale (N,) f32, y (M, N) bf16; sums in f32. The two bf16
 // roundings are those of the plain version, F.linear(x, W.to(bf16)) *
 // scale.to(bf16).
@@ -14,7 +14,7 @@
 // device reads each int8 weight byte once. Eager PyTorch has no such fusion:
 // the plain version writes and reads a bf16 copy of W on every call.
 //
-// What bounds it on an H100: with M <= 8 rows the product does 2 * M FLOPs
+// What bounds it on an H100: with M <= 32 rows the product does 2 * M FLOPs
 // per weight byte, far below the card's ridge; it is bound by streaming W
 // (N * K bytes) from device memory. At the 7B agent's shapes that is 16.8 MB
 // (q/k/v/o, 4096 x 4096) and 45.1 MB (gate/up 11008 x 4096, down
@@ -24,10 +24,15 @@
 //
 // Design:
 // - Tensor cores: mma.sync m16n8k16 bf16 -> f32 with 16 channels of W as
-//   the A operand and x^T as the B operand (n = 8 columns: any M <= 8 fits;
-//   lanes of columns >= M feed zeros). int8 -> bf16 is exact for |w| <= 127
-//   and bf16 x bf16 products are exact in f32, so the result differs from
-//   the plain version only in the order of the f32 sums.
+//   the A operand and x^T as the B operand, in NT = ceil(M / 8) n-tiles of 8
+//   columns (NT of 1, 2 or 4; lanes of columns >= M feed zeros): a
+//   speculative verify block of B stories in lockstep is B (K + 1) rows.
+//   Each W fragment is converted once and feeds every n-tile's mma, so W is
+//   still read and converted once a call. int8 -> bf16 is exact for
+//   |w| <= 127 and bf16 x bf16 products are exact in f32, so the result
+//   differs from the plain version only in the order of the f32 sums. That
+//   order depends on N and K only (the K split below), never on M: a row
+//   gets the same bits in a call of 2..32 rows.
 // - A permuted k: the sum over k does not care about order, so within each
 //   64-column slab the mma's k index i (lane t = (i % 8) / 2 of the
 //   fragment) is bound to column 16 t + 4 j + 2 (i / 8) + i % 2 in step
@@ -39,7 +44,8 @@
 //   and the high halves of two f32 values pack into one bf16x2 (prmt).
 // - The weight stream stays in flight: a block (4 warps, 64 channels, one
 //   16-channel mma tile a warp) keeps a ring of 3 stages in shared memory,
-//   each 256 columns of its 64 channels and of x (16 KB + at most 4 KB),
+//   each 256 columns of its 64 channels and of x (16 KB + 4 KB a n-tile;
+//   96 KB for NT = 4, so two blocks still fit an SM),
 //   filled by cp.async from every thread (each warp instruction copies two
 //   whole 256-byte row stretches; zero-filled past N and K) while the stage
 //   before is converted and multiplied; one block barrier a stage. x is
@@ -72,9 +78,15 @@ constexpr int kRows = 16 * kWarps;  // channels per block
 constexpr int kStageK = 256;        // columns per stage: four 64-column slabs
 constexpr int kStages = 3;
 constexpr int kWBytes = kRows * kStageK;              // 16 KB
-constexpr int kXBytes = 8 * kStageK * 2;              // 4 KB: x rows of a stage
-constexpr int kStageBytes = kWBytes + kXBytes;
-constexpr int kSmemBytes = kStages * kStageBytes;     // 60 KB
+constexpr int kMaxRows = 32;                          // x rows: 4 n-tiles of 8
+
+// The ring of a kernel with NT n-tiles: x rows of a stage 4 KB a n-tile.
+template <int NT>
+struct Ring {
+  static constexpr int kXBytes = 8 * NT * kStageK * 2;
+  static constexpr int kStageBytes = kWBytes + kXBytes;
+  static constexpr int kSmemBytes = kStages * kStageBytes;  // 60, 72 or 96 KB
+};
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -125,13 +137,16 @@ __device__ __forceinline__ void mma_bf16(float* c, uint32_t a0, uint32_t a1, uin
 }
 
 // Grid (channel groups of 64, K slices of k_range columns), launched with
-// clusters of (1, slices, 1).
+// clusters of (1, slices, 1); NT n-tiles of 8 rows of x (m <= 8 NT).
+template <int NT>
 __global__ void __launch_bounds__(kThreads) int8_linear_kernel(
     const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
     const float* __restrict__ scale, __nv_bfloat16* __restrict__ y, int m, int n, int k,
     int k_range) {
+  constexpr int kXBytes = Ring<NT>::kXBytes;
+  constexpr int kStageBytes = Ring<NT>::kStageBytes;
   extern __shared__ __align__(16) uint8_t smem[];
-  __shared__ float sums[kRows][8];  // this slice's sums: (channel, row of x)
+  __shared__ float sums[kRows][8 * NT];  // this slice's sums: (channel, row of x)
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;  // the mma fragment's row group and lane in it
   const int row0 = blockIdx.x * kRows;
@@ -168,10 +183,9 @@ __global__ void __launch_bounds__(kThreads) int8_linear_kernel(
     cp_async_commit();  // an empty group keeps the count uniform
   };
 
-  float acc[2][4] = {};  // two chains of mma: even and odd slabs
+  float acc[2][NT][4] = {};  // two chains of mma (even and odd slabs) a n-tile
 #pragma unroll
   for (int i = 0; i < kStages - 1; ++i) issue(i);
-  const bool x_row = g < m;
   const int wr = 16 * warp + g;  // this lane's rows in the block: wr, wr + 8
   for (int i = 0; i < n_stages; ++i) {
     cp_async_wait<kStages - 2>();
@@ -184,42 +198,59 @@ __global__ void __launch_bounds__(kThreads) int8_linear_kernel(
           slot + wr * kStageK + 16 * ((4 * s + t) ^ ((wr & 1) << 2)));
       const uint4 wb = *reinterpret_cast<const uint4*>(
           slot + (wr + 8) * kStageK + 16 * ((4 * s + t) ^ ((wr & 1) << 2)));
-      uint4 x0 = make_uint4(0u, 0u, 0u, 0u), x1 = x0;
-      if (x_row) {
-        const uint8_t* xr = slot + kWBytes + g * kStageK * 2;
-        x0 = *reinterpret_cast<const uint4*>(xr + 16 * ((8 * s + 2 * t) ^ (g & 1)));
-        x1 = *reinterpret_cast<const uint4*>(xr + 16 * ((8 * s + 2 * t + 1) ^ (g & 1)));
+      uint32_t xb[NT][8];  // x row 8 nt + g: columns 16 t .. + 15 of the slab
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        uint4 x0 = make_uint4(0u, 0u, 0u, 0u), x1 = x0;
+        if (8 * nt + g < m) {
+          const uint8_t* xr = slot + kWBytes + (8 * nt + g) * kStageK * 2;
+          x0 = *reinterpret_cast<const uint4*>(xr + 16 * ((8 * s + 2 * t) ^ (g & 1)));
+          x1 = *reinterpret_cast<const uint4*>(xr + 16 * ((8 * s + 2 * t + 1) ^ (g & 1)));
+        }
+        xb[nt][0] = x0.x, xb[nt][1] = x0.y, xb[nt][2] = x0.z, xb[nt][3] = x0.w;
+        xb[nt][4] = x1.x, xb[nt][5] = x1.y, xb[nt][6] = x1.z, xb[nt][7] = x1.w;
       }
       const uint32_t wa4[4] = {wa.x, wa.y, wa.z, wa.w}, wb4[4] = {wb.x, wb.y, wb.z, wb.w};
-      const uint32_t xb[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
 #pragma unroll
       for (int j = 0; j < 4; ++j) {  // mma step: columns 16 t + 4 j .. + 3 of the slab
-        uint32_t a0, a1, a2, a3;
+        uint32_t a0, a1, a2, a3;  // converted once, used by every n-tile
         int8x4_to_bf16x2(wa4[j], a0, a2);
         int8x4_to_bf16x2(wb4[j], a1, a3);
-        mma_bf16(acc[s % 2], a0, a1, a2, a3, xb[2 * j], xb[2 * j + 1]);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          mma_bf16(acc[s % 2][nt], a0, a1, a2, a3, xb[nt][2 * j], xb[nt][2 * j + 1]);
+        }
       }
     }
   }
   cp_async_wait<0>();
 
-  // acc: (row wr, x rows 2t, 2t + 1), (row wr + 8, x rows 2t, 2t + 1)
-  float sum[4];
+  // acc[.][nt]: (row wr, x rows 8 nt + 2t, + 1), (row wr + 8, the same x rows)
+  float sum[NT][4];
 #pragma unroll
-  for (int e = 0; e < 4; ++e) sum[e] = acc[0][e] + acc[1][e];
+  for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sum[nt][e] = acc[0][nt][e] + acc[1][nt][e];
+  }
   if (slices == 1) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int row = row0 + wr + 8 * (e / 2), mm = 2 * t + e % 2;
-      if (row < n && mm < m) {
-        y[static_cast<size_t>(mm) * n + row] =
-            __float2bfloat16_rn(bf16_round(sum[e]) * bf16_round(scale[row]));
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = row0 + wr + 8 * (e / 2), mm = 8 * nt + 2 * t + e % 2;
+        if (row < n && mm < m) {
+          y[static_cast<size_t>(mm) * n + row] =
+              __float2bfloat16_rn(bf16_round(sum[nt][e]) * bf16_round(scale[row]));
+        }
       }
     }
     return;
   }
 #pragma unroll
-  for (int e = 0; e < 4; ++e) sums[wr + 8 * (e / 2)][2 * t + e % 2] = sum[e];
+  for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sums[wr + 8 * (e / 2)][8 * nt + 2 * t + e % 2] = sum[nt][e];
+  }
   // the slices' sums in distributed shared memory, added in slice order
   cg::cluster_group cluster = cg::this_cluster();
   cluster.sync();
@@ -371,14 +402,50 @@ __global__ void __launch_bounds__(kGemvThreads) int8_linear_kernel_gemv(
 
 }  // namespace
 
+namespace {
+
+// The mma kernel with NT n-tiles, launched in clusters of the K slices.
+template <int NT>
+int launch_mma(const __nv_bfloat16* x, const int8_t* w, const float* scale, __nv_bfloat16* y,
+               int m, int n, int k, int k_range, int slices, cudaStream_t st) {
+  constexpr int kSmemBytes = Ring<NT>::kSmemBytes;
+  // once per device; the same value from every caller, so a race is harmless
+  static bool smem_set[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= 64 || !smem_set[dev]) {
+    err = cudaFuncSetAttribute(int8_linear_kernel<NT>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev < 64) smem_set[dev] = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((n + kRows - 1) / kRows, slices);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = kSmemBytes;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = slices;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return static_cast<int>(
+      cudaLaunchKernelEx(&cfg, int8_linear_kernel<NT>, x, w, scale, y, m, n, k, k_range));
+}
+
+}  // namespace
+
 // x (m, k) bf16, w (n, k) int8, scale (n,) f32, y (m, n) bf16: all contiguous
-// with 16-byte aligned bases; 1 <= m <= 8, k a positive multiple of 16. With
-// gemv (m must be 1) the CUDA-core kernel runs; else K is cut into slices of
-// k_range columns (a multiple of 256), at most 8. Returns a cudaError_t
-// code (0 on success).
+// with 16-byte aligned bases; 1 <= m <= 32, k a positive multiple of 16. With
+// gemv (m must be 1) the CUDA-core kernel runs; else the mma kernel with
+// ceil(m / 8) n-tiles (1, 2 or 4) and K cut into slices of k_range columns (a
+// multiple of 256), at most 8. Returns a cudaError_t code (0 on success).
 extern "C" int int8_linear_bf16(const void* x, const void* w, const void* scale, void* y, int m,
                                 int n, int k, int k_range, int gemv, void* stream) {
-  if (m < 1 || m > 8 || n < 1 || k < 16 || k % 16 != 0 || (gemv && m != 1)) {
+  if (m < 1 || m > kMaxRows || n < 1 || k < 16 || k % 16 != 0 || (gemv && m != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -395,29 +462,7 @@ extern "C" int int8_linear_bf16(const void* x, const void* w, const void* scale,
   if (k_range < kStageK || k_range % kStageK != 0 || slices > 8) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  // once per device; the same value from every caller, so a race is harmless
-  static bool smem_set[64] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev >= 64 || !smem_set[dev]) {
-    err = cudaFuncSetAttribute(int8_linear_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kSmemBytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (dev < 64) smem_set[dev] = true;
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((n + kRows - 1) / kRows, slices);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = kSmemBytes;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 1;
-  attr[0].val.clusterDim.y = slices;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return static_cast<int>(cudaLaunchKernelEx(&cfg, int8_linear_kernel, xb, wb, sc, yb, m, n, k,
-                                             k_range));
+  if (m <= 8) return launch_mma<1>(xb, wb, sc, yb, m, n, k, k_range, slices, st);
+  if (m <= 16) return launch_mma<2>(xb, wb, sc, yb, m, n, k, k_range, slices, st);
+  return launch_mma<4>(xb, wb, sc, yb, m, n, k, k_range, slices, st);
 }

@@ -1,19 +1,26 @@
 """Assembly of the story stack (tokenizer, ViT, agent, SDXL adapter + VAE)
-from config dataclasses and a weights source; counterpart of
-``build_stack`` in ``seed_story_tpu/inference/common.py``.
+from config dataclasses and a weights source, and the helpers of the two
+inference CLIs; counterpart of ``seed_story_tpu/inference/common.py``.
 
 Weights come either from seeded random initialisation on the device
 (``weights=None``), or from the JAX package's parameter trees
 (``weights={"vit": ..., "agent": ..., "adapter": ..., "vae": ...}``).
 The de-tokenizer returns uint8 (H, W, 3) arrays. The flagship decode
 configuration is ``quantize_base`` (the float agent is quantized in place
-after it is filled), ``quantize_kv`` and ``speculate_k``; ``sink`` keeps the
-KV cache for the sink flows (``run_sink``, the visualization pipeline).
+after it is filled), ``quantize_kv`` and ``speculate_k``. The generator
+hands its KV cache back for the sink flows (``sink``) and for the one-story
+flow without speculation; the lockstep and pipelined serving flows
+re-prefill every segment and keep no cache (the JAX package's rule).
+``build_stack_from_yaml`` is the CLIs' front end: the repo's YAML configs
+through ``utils/config.py`` and ``train_clm_sft.port_config``. PIL is
+imported only where a subtitle is drawn.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
+import json
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
@@ -28,6 +35,47 @@ from ..models.sdxl.adapter import SDXLAdapter, SDXLAdapterConfig
 from ..models.sdxl.vae import AutoencoderKL, VAEConfig
 from ..models.vit import ViTConfig, VisionTransformerWithAttnPool
 from ..pipelines.sdxl_pipeline import SDXLImagePipeline, SDXLSampleConfig
+from ..utils.config import instantiate, load_config
+
+
+def read_jsonl(path: str):
+    data = []
+    with open(path) as f:
+        for line in f:
+            if line.strip():
+                data.append(json.loads(line))
+    return data
+
+
+def split_subtitle(text: str) -> tuple:
+    """Two lines, split at the word boundary nearest the midpoint."""
+    mid = len(text) // 2
+    left = text.rfind(" ", 0, mid + 1)
+    right = text.find(" ", mid)
+    if left == -1 and right == -1:
+        return text[:mid], text[mid:]
+    if left == -1 or (right != -1 and right - mid < mid - left):
+        cut = right
+    else:
+        cut = left
+    return text[:cut], text[cut + 1:]
+
+
+def add_subtitle(original_image, text: str):
+    """A PIL image with a black caption bar of two lines under the frame."""
+    from PIL import Image, ImageDraw
+
+    text_height = 80
+    new_image = Image.new("RGB", (original_image.width, original_image.height + text_height),
+                          "black")
+    new_image.paste(original_image, (0, 0))
+    draw = ImageDraw.Draw(new_image)
+    font_size = 14
+    line1, line2 = split_subtitle(text)
+    y1 = original_image.height + (text_height - font_size) // 2
+    draw.text((10, y1), line1, fill="white")
+    draw.text((10, y1 + font_size), line2, fill="white")
+    return new_image
 
 
 @dataclasses.dataclass
@@ -40,6 +88,20 @@ class InferenceStack:
     vit: VisionTransformerWithAttnPool
     agent: ContinuousLVLM
     image_pipe: Optional[SDXLImagePipeline] = None
+    image_transform: Optional[Callable] = None  # PIL image -> (3, H, W) float32
+    # device -> (feats -> uint8 image): a de-tokenizer replica whose weights
+    # live on that device (the DetokenizerPool factory of pipelines/serving.py);
+    # None without an adapter
+    detok_factory: Optional[Callable] = None
+    device: Optional[torch.device] = None
+
+
+def _indexed(device) -> torch.device:
+    """``device`` with its index: "cuda" is the current CUDA device."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 def fill_module(cls, cfg, device, seed: int, params=None, to_state_dict=None) -> torch.nn.Module:
@@ -88,16 +150,22 @@ def build_stack(vit_cfg: ViTConfig, agent_cfg: AgentConfig,
                 eos_token_id: int = 2, quantize_base: bool = False,
                 quantize_kv: bool = False, speculate_k: int = 0,
                 temperature: float = 0.0, top_p: float = 1.0,
-                sink: bool = False) -> InferenceStack:
+                sink: bool = False, batch_stories: int = 1,
+                pipelined_detok: bool = False,
+                image_transform: Optional[Callable] = None) -> InferenceStack:
     """The gen_george stack (and, with ``sink``, the sink flows'). ``weights``:
     None for seeded random weights, or the JAX param trees by family.
     ``eos_token_id=-1`` bans EOS (every segment decodes ``max_new_tokens``).
     ``quantize_base`` quantizes the filled float agent in place,
-    ``quantize_kv`` gives its caches int8 rows. Every image starts from the
-    same noise (seed 42, the JAX pipeline's default)."""
+    ``quantize_kv`` gives its caches int8 rows. The generator keeps the KV
+    cache (``return_cache``) for ``sink``, or for one story
+    (``batch_stories`` <= 1) decoded inline without speculation; with
+    ``pipelined_detok`` the stack has no inline de-tokenizer and the pool's
+    replicas come from ``detok_factory``. Every image starts from the same
+    noise (seed 42, the JAX pipeline's default)."""
     weights = weights or {}
     tokenizer = tokenizer or TinyTokenizer()
-    device = torch.device(device)
+    device = _indexed(device)
 
     vit = _build(VisionTransformerWithAttnPool, vit_cfg, device, seed,
                  weights.get("vit"), W.vit_state_dict)
@@ -113,11 +181,14 @@ def build_stack(vit_cfg: ViTConfig, agent_cfg: AgentConfig,
     generator = StoryGenerator(agent, GenerateConfig(
         max_new_tokens=max_new_tokens, num_img_gen_tokens=agent_cfg.num_img_out_tokens,
         eos_token_id=eos_token_id, cache_capacity=cache_capacity, force_boi_at=force_boi_at,
-        temperature=temperature, top_p=top_p, speculate_k=speculate_k, return_cache=sink))
+        temperature=temperature, top_p=top_p, speculate_k=speculate_k,
+        return_cache=sink or (batch_stories <= 1 and not pipelined_detok
+                              and speculate_k == 0)))
 
     stack = InferenceStack(tokenizer=tokenizer, visual_encode=visual_encode,
                            generator=generator, detokenize=None,
-                           num_img_in_tokens=agent_cfg.num_img_in_tokens, vit=vit, agent=agent)
+                           num_img_in_tokens=agent_cfg.num_img_in_tokens, vit=vit, agent=agent,
+                           image_transform=image_transform, device=device)
     if adapter_cfg is None:
         return stack
 
@@ -129,17 +200,82 @@ def build_stack(vit_cfg: ViTConfig, agent_cfg: AgentConfig,
     if device.type == "cuda":
         adapter.to(memory_format=torch.channels_last)
         vae.to(memory_format=torch.channels_last)
-    vae_scale = 2 ** (len(vae_cfg.block_out_channels) - 1)
-    pipe = SDXLImagePipeline(adapter, vae, cfg=SDXLSampleConfig(
-        height=image_size, width=image_size, num_inference_steps=num_inference_steps,
-        vae_scale=vae_scale))
+    sample_cfg = SDXLSampleConfig(height=image_size, width=image_size,
+                                  num_inference_steps=num_inference_steps,
+                                  vae_scale=2 ** (len(vae_cfg.block_out_channels) - 1))
+    pipe = SDXLImagePipeline(adapter, vae, cfg=sample_cfg)
     # CFG negatives: the ViT features of a black image
     black = np.zeros((1, 3, vit_cfg.image_size, vit_cfg.image_size), np.float32)
     neg_feats = visual_encode(black)
 
-    def detokenize(feats):
-        gen = torch.Generator(device=device).manual_seed(42)
-        return pipe.generate(feats, neg_feats, generator=gen)[0]
+    def detokenizer(rpipe, rdevice, rneg):
+        def detokenize(feats):
+            gen = torch.Generator(device=rdevice).manual_seed(42)
+            return rpipe.generate(feats, rneg, generator=gen)[0]
+        return detokenize
 
-    stack.detokenize, stack.image_pipe = detokenize, pipe
+    def detok_factory(replica_device):
+        """A replica on ``replica_device``: the stack's own adapter and VAE
+        on the stack's device, copies of them on another."""
+        replica_device = _indexed(replica_device)
+        if replica_device == device:
+            return detokenizer(pipe, device, neg_feats)
+        rpipe = SDXLImagePipeline(copy.deepcopy(adapter).to(replica_device),
+                                  copy.deepcopy(vae).to(replica_device), cfg=sample_cfg)
+        return detokenizer(rpipe, replica_device, neg_feats.to(replica_device))
+
+    stack.image_pipe, stack.detok_factory = pipe, detok_factory
+    if not pipelined_detok:
+        stack.detokenize = detokenizer(pipe, device, neg_feats)
     return stack
+
+
+def refuse_unported(args):
+    """Raises SystemExit for a CLI flag whose machinery is not ported, so
+    that none is silently ignored."""
+    if args.decode_tp > 1:
+        raise SystemExit(f"--decode_tp {args.decode_tp}: tensor-parallel decode needs "
+                         "parallel/* (ROADMAP.md, queue A item 12)")
+    if args.sdxl_int8:
+        raise SystemExit("--sdxl_int8: the int8 UNet is not ported (ROADMAP.md, queue A item 8)")
+    for name in ("agent_ckpt", "vit_ckpt", "adapter_ckpt", "vae_ckpt"):
+        if getattr(args, name):
+            raise SystemExit(f"--{name}: the checkpoint loaders of the CLIs are not ported "
+                             "(ROADMAP.md, queue A item 13); without checkpoints the stack "
+                             "takes seeded random weights")
+
+
+def visible_devices(device) -> list:
+    """The devices a CLI may spread over: every visible CUDA device for a
+    CUDA ``device``, else ``device`` alone."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [device]
+
+
+def build_stack_from_yaml(tokenizer_cfg: str, image_transform_cfg: str,
+                          visual_encoder_cfg: str, llm_cfg_path: str, agent_cfg_path: str,
+                          adapter_cfg_path: Optional[str] = None,
+                          vae_cfg_path: Optional[str] = None, **kw) -> InferenceStack:
+    """``build_stack`` from the repo's YAML configs, on seeded random weights
+    (the CLIs' front end). The tokenizer and transform YAMLs name the JAX
+    package's builders, which ``utils.config`` maps onto the port's own; the
+    model YAMLs name the JAX config classes, which ``port_config`` maps onto
+    the port's. A LLaMA YAML's ``quantize_base`` / ``quantize_kv`` become the
+    flagship decode configuration (the float agent quantized in place, an
+    int8 KV cache). ``kw`` goes to ``build_stack``."""
+    from ..train.train_clm_sft import port_config
+
+    llm_raw = dict(load_config(llm_cfg_path))
+    kw.setdefault("quantize_base", bool(llm_raw.pop("quantize_base", False)))
+    kw.setdefault("quantize_kv", bool(llm_raw.pop("quantize_kv", False)))
+    agent_cfg = port_config(load_config(agent_cfg_path), llm=port_config(llm_raw))
+    adapter_cfg = port_config(load_config(adapter_cfg_path)) if adapter_cfg_path else None
+    vae_cfg = None
+    if adapter_cfg is not None:
+        vae_cfg = (port_config(load_config(vae_cfg_path)) if vae_cfg_path
+                   else VAEConfig(dtype=adapter_cfg.unet.dtype))
+    return build_stack(port_config(load_config(visual_encoder_cfg)), agent_cfg, adapter_cfg,
+                       vae_cfg, tokenizer=instantiate(load_config(tokenizer_cfg)),
+                       image_transform=instantiate(load_config(image_transform_cfg)), **kw)

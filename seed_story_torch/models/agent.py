@@ -136,8 +136,12 @@ class ContinuousLVLM(nn.Module):
         return scatter_image_embeds(self.llm.embed(input_ids), self.input_resampler(image_embeds),
                                     ids_cmp_mask, embeds_cmp_mask)
 
-    def llm_step(self, inputs_embeds, cache: KVCache, logits_indices=None):
-        return self.llm(inputs_embeds=inputs_embeds, cache=cache, logits_indices=logits_indices)
+    def llm_step(self, inputs_embeds, cache: KVCache, seq_lengths=None, logits_indices=None):
+        """Appends a right-padded (B, P) block to ``cache``; ``seq_lengths``
+        (B,) host ints are the rows' true lengths (None: P each) and
+        ``logits_indices`` (B,) the position of each row's logits."""
+        return self.llm(inputs_embeds=inputs_embeds, cache=cache, seq_lengths=seq_lengths,
+                        logits_indices=logits_indices)
 
     def embed_tokens(self, input_ids):
         return self.llm.embed(input_ids)

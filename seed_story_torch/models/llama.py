@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -278,7 +278,10 @@ class LlamaAttention(nn.Module):
                 start: torch.Tensor, kv_len: Optional[torch.Tensor],
                 dropout_seed: Optional[int] = None):
         """x: (B, S, D). With a cache, the new K/V land at each row's fill
-        level ``start`` (B,) and attention spans the buffer's valid prefix."""
+        level ``start`` (B,) and attention spans the buffer's valid prefix:
+        row r sees ``kv_len[r]`` keys (``start + S``, or ``start`` plus the
+        row's true length of a right-padded block), and the padding's K/V
+        lands beyond it."""
         cfg = self.cfg
         b, s, _ = x.shape
         h, hkv, hd = cfg.num_attention_heads, cfg.kv_heads, cfg.head_dim
@@ -301,7 +304,7 @@ class LlamaAttention(nn.Module):
             for row, st in enumerate(cache.length):
                 for buf, new in writes:
                     buf[row, :, st:st + s] = new[row]
-            end = start + s
+            end = kv_len
             q = q.to(cfg.dtype)
             limit = max(cache.length) + s  # attention reads the valid prefix only
             k_buf, v_buf = k_buf[:, :, :limit], v_buf[:, :, :limit]
@@ -364,10 +367,13 @@ class LlamaModel(nn.Module):
 
     def forward(self, input_ids=None, *, inputs_embeds=None, cache: Optional[KVCache] = None,
                 attention_mask: Optional[torch.Tensor] = None,
+                seq_lengths: Optional[Sequence[int]] = None,
                 dropout_seed: Optional[int] = None):
         """Returns the final-norm hidden states (B, S, D). With a cache, the
-        call appends S tokens to every row and advances ``cache.length``.
-        Without one, ``attention_mask`` (B, S) marks suffix padding, and with
+        call appends a (B, S) block to every row and advances
+        ``cache.length``: by S, or with ``seq_lengths`` (B,) host ints by
+        each row's true length of a right-padded block. Without one,
+        ``attention_mask`` (B, S) marks suffix padding, and with
         ``cfg.remat`` each layer is recomputed in the backward.
         ``dropout_seed`` turns on LoRA dropout in training mode."""
         cfg = self.cfg
@@ -378,11 +384,18 @@ class LlamaModel(nn.Module):
                 raise ValueError(f"KV cache overflow: {max(cache.length)} + {s} tokens "
                                  f"> capacity {cache.capacity}")
             start_host = cache.length
+            new_len = [s] * b if seq_lengths is None else [int(n) for n in seq_lengths]
+            if len(new_len) != b or not all(0 <= n <= s for n in new_len):
+                raise ValueError(f"seq_lengths {new_len} must be {b} values in 0..{s}")
         else:
             start_host = [0] * b
         start = torch.tensor(start_host, dtype=torch.int32, device=x.device)
         kv_len = None
-        if cache is None and attention_mask is not None:
+        if cache is not None:
+            kv_len = (start + s if seq_lengths is None else
+                      torch.tensor([st + n for st, n in zip(start_host, new_len)],
+                                   dtype=torch.int32, device=x.device))
+        elif attention_mask is not None:
             kv_len = attention_mask.to(torch.int32).sum(dim=-1)
         positions = start[:, None] + torch.arange(s, device=x.device)[None, :]
         cos, sin = rope_frequencies(
@@ -401,7 +414,7 @@ class LlamaModel(nn.Module):
             else:
                 x = layer(x, cos, sin, **kw)
         if cache is not None:
-            cache.length = [n + s for n in cache.length]
+            cache.length = [st + n for st, n in zip(cache.length, new_len)]
         return self.norm(x)
 
 
@@ -415,12 +428,15 @@ class LlamaForCausalLM(nn.Module):
 
     def forward(self, input_ids=None, *, inputs_embeds=None, cache: Optional[KVCache] = None,
                 attention_mask: Optional[torch.Tensor] = None,
+                seq_lengths: Optional[Sequence[int]] = None,
                 logits_indices: Optional[torch.Tensor] = None,
                 dropout_seed: Optional[int] = None):
         """``logits_indices`` (B,): lm_head only at those positions -> (B, 1, V).
+        ``seq_lengths``: see :meth:`LlamaModel.forward`.
         Returns {"logits", "hidden_states", "cache"}."""
         hidden = self.model(input_ids, inputs_embeds=inputs_embeds, cache=cache,
-                            attention_mask=attention_mask, dropout_seed=dropout_seed)
+                            attention_mask=attention_mask, seq_lengths=seq_lengths,
+                            dropout_seed=dropout_seed)
         head_in = hidden
         if logits_indices is not None:
             rows = torch.arange(hidden.shape[0], device=hidden.device)

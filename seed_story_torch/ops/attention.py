@@ -23,6 +23,7 @@ from __future__ import annotations
 import ctypes
 import math
 import numbers
+import threading
 from typing import Optional, Tuple, Union
 
 import torch
@@ -147,7 +148,8 @@ class DecodeAttention:
     """Wrapper of the CUDA small-query cache attention
     (``csrc/decode_attn.cu``: split-KV on tensor cores, the chunks of a head
     merged inside their thread block cluster). ``launches`` counts the calls
-    that launched it (one a call); nothing else touches the count."""
+    that launched it (one a call, under a lock); nothing else touches the
+    count."""
 
     ROW_TILE = 16    # query rows (group x S) of a block
     MAX_CHUNKS = 16  # the blocks of a cluster (Hopper's non-portable limit)
@@ -155,6 +157,7 @@ class DecodeAttention:
 
     def __init__(self):
         self.launches = 0
+        self._lock = threading.Lock()
         self._built: Optional[BuiltLibrary] = None
         self._sms = {}
 
@@ -244,7 +247,8 @@ class DecodeAttention:
                      b, hq, hkv, sq, c, chunk, n_chunks, int(quantized),
                      *q.stride()[:3], *k.stride()[:3], *ks_strides, float(scale), stream)
         check_launch("decode_attn", err)
-        self.launches += 1
+        with self._lock:
+            self.launches += 1
         return out
 
 
@@ -362,11 +366,13 @@ class FlashForward:
     """Wrapper of the CUDA flash forward. ``launches`` counts kernel launches
     made through it; nothing else touches the count. ``padded_copies``
     counts the inputs it copied first because TMA cannot read them in place
-    (see :func:`tma_ready`)."""
+    (see :func:`tma_ready`). Both counts move under a lock: a de-tokenizer
+    thread may launch the kernel beside the decode loop."""
 
     def __init__(self):
         self.launches = 0
         self.padded_copies = 0
+        self._lock = threading.Lock()
         self._built: Optional[BuiltLibrary] = None
 
     def build(self) -> BuiltLibrary:
@@ -403,7 +409,8 @@ class FlashForward:
         if not all(tma_ready(t) for t in (q, k, v)):
             d_in = -(-d // 8) * 8
             q, k, v = (padded_copy(t, d_in) for t in (q, k, v))
-            self.padded_copies += 3
+            with self._lock:
+                self.padded_copies += 3
         strides = [s for t in (q, k, v) for s in t.stride()[:3]]
         fn = self.build().lib.flash_fwd_bf16
         with torch.cuda.device(q.device):
@@ -413,7 +420,8 @@ class FlashForward:
                      b, hq, hkv, sq, skv, d, d_in, *strides, float(scale),
                      int(causal), stream)
         check_launch("flash_fwd", err)
-        self.launches += 1
+        with self._lock:
+            self.launches += 1
         return o, lse
 
 

@@ -8,18 +8,21 @@ package's ``jnp.dot(x, kernel.astype(dtype)) * scale.astype(dtype)``
 (``seed_story_tpu/models/llama.py:294``).
 
 ``int8_linear(implementation="auto")`` takes the plain version for CPU
-tensors. On CUDA tensors with at most 8 rows (decode and the K + 1 verify
-block) it launches the hand-written kernel ``csrc/int8_linear.cu`` (tensor
-cores, a cp.async ring, K split across the blocks of a cluster; one row
-takes a CUDA-core kernel), which streams the int8 bytes once; with more
-rows (prefill, compute-bound) it runs the plain expression, a large product
-that the JAX package leaves to XLA too. There is no fallback: a CUDA input
-the kernel does not take raises, and so does a failed build or launch.
+tensors. On CUDA tensors with at most 32 rows (decode, the K + 1 verify
+block, and B (K + 1) rows of B stories in lockstep) it launches the
+hand-written kernel ``csrc/int8_linear.cu`` (tensor cores in 1, 2 or 4
+n-tiles of 8 rows, a cp.async ring, K split across the blocks of a cluster;
+one row takes a CUDA-core kernel), which streams the int8 bytes once; with
+more rows (prefill, compute-bound) it runs the plain expression, a large
+product that the JAX package leaves to XLA too. There is no fallback: a
+CUDA input the kernel does not take raises, and so does a failed build or
+launch.
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -27,7 +30,7 @@ import torch.nn.functional as F
 
 from .cuda_lib import BuiltLibrary, check_launch
 
-MAX_KERNEL_ROWS = 8
+MAX_KERNEL_ROWS = 32
 
 
 def int8_linear_reference(x: torch.Tensor, weight: torch.Tensor, scale: torch.Tensor):
@@ -37,7 +40,8 @@ def int8_linear_reference(x: torch.Tensor, weight: torch.Tensor, scale: torch.Te
 
 class Int8Linear:
     """Wrapper of the CUDA weight-only int8 product. ``launches`` counts the
-    kernel launches made through it; nothing else touches the count."""
+    kernel launches made through it (under a lock: a de-tokenizer thread may
+    launch kernels beside the decode loop); nothing else touches the count."""
 
     ROWS = 64          # output channels of a block of the mma kernel
     STAGE_K = 256      # columns of a stage; a K slice is a multiple of it
@@ -47,6 +51,7 @@ class Int8Linear:
 
     def __init__(self):
         self.launches = 0
+        self._lock = threading.Lock()
         self._built: Optional[BuiltLibrary] = None
         self._sms = {}
 
@@ -61,7 +66,8 @@ class Int8Linear:
 
     def k_slices(self, device, n: int, k: int) -> Tuple[int, int]:
         """(columns per K slice, slices): about 2 blocks per multiprocessor,
-        at most 8 slices."""
+        at most 8 slices. It depends on N and K only, so a row of x is summed
+        in the same order whatever the number of rows beside it."""
         if device not in self._sms:
             self._sms[device] = torch.cuda.get_device_properties(device).multi_processor_count
         groups = -(-n // self.ROWS)
@@ -72,7 +78,7 @@ class Int8Linear:
         return k_range, -(-k // k_range)
 
     def __call__(self, x: torch.Tensor, weight: torch.Tensor, scale: torch.Tensor):
-        """x (..., K) bf16 with at most 8 rows, weight (N, K) int8, scale (N,)
+        """x (..., K) bf16 with at most 32 rows, weight (N, K) int8, scale (N,)
         f32; CUDA tensors on one device, contiguous, 16-byte aligned, K a
         multiple of 16. Returns (..., N) bf16."""
         for name, t, dtype in (("x", x, torch.bfloat16), ("weight", weight, torch.int8),
@@ -100,7 +106,8 @@ class Int8Linear:
             check_launch("int8_linear", fn(x.data_ptr(), weight.data_ptr(), scale.data_ptr(),
                                            y.data_ptr(), m, n, k, k_range,
                                            int(m <= self.GEMV_MAX_ROWS), stream))
-        self.launches += 1
+        with self._lock:
+            self.launches += 1
         return y
 
 
@@ -112,7 +119,7 @@ def int8_linear(x: torch.Tensor, weight: torch.Tensor, scale: torch.Tensor,
     """x (..., K) times the int8 ``weight`` (N, K) with ``scale`` (N,).
 
     implementation: 'auto' (plain on CPU tensors; on CUDA tensors the kernel
-    for at most 8 rows, the plain expression above that), 'kernel' (CUDA
+    for at most 32 rows, the plain expression above that), 'kernel' (CUDA
     tensors only) or 'plain'."""
     if implementation == "auto":
         rows = x.numel() // max(1, x.shape[-1])

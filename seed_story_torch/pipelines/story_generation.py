@@ -12,13 +12,16 @@ features; every segment re-prefills the window's prompt.
 each segment prefills only the new image's comprehension block, and old
 segments leave through the attention-sink eviction policy
 (``decode/sink_cache.py``).
+
+``run_batch``: B stories of the ``run`` flow in lockstep, one
+``generate_batch`` a round (the serving path).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import re
-from typing import Any, Callable, Iterator, Optional
+from typing import Any, Callable, Iterator, List, Optional
 
 import numpy as np
 import torch
@@ -199,3 +202,72 @@ class StoryGenerationPipeline:
             guard_capacity(sink.sink_len + len(live_ids), len(suffix_ids))
             out = gen.generate(suffix_ids, feats, np.ones((1,), bool), suffix_cmp, cache=cache)
             live_ids = np.concatenate([live_ids, suffix_ids])
+
+    def run_batch(self, seeds) -> Iterator[List[Optional[StorySegment]]]:
+        """B stories of the ``run`` flow in lockstep: each round runs one
+        ``StoryGenerator.generate_batch`` for every story (the generator must
+        be built with ``return_cache=False``). ``seeds``: (image_pixels,
+        caption) pairs. Yields one list a round with a segment per story, or
+        None for a story that has ended; a story that ends without an image
+        yields its closing text once and then stays dormant, riding the batch
+        until every story has ended. Each story keeps its own window."""
+        cfg = self.cfg
+        image_tokens = image_comprehension_string(cfg.num_img_in_tokens)
+        states = [{"prompt": cfg.instruction_prompt.format_map(
+                       {"instruction": caption + image_tokens}),
+                   "embeds": self.visual_encode(pixels), "alive": True, "text_id": 1}
+                  for pixels, caption in seeds]
+
+        def round_trip():
+            batch = []
+            for st in states:
+                n_img = int(st["embeds"].shape[0])
+                ids, ids_cmp = self._ids_and_masks(st["prompt"], n_img)
+                st["ids_len"] = len(ids)
+                batch.append(dict(input_ids=ids, image_embeds=st["embeds"],
+                                  embeds_cmp_mask=np.ones((n_img,), bool), ids_cmp_mask=ids_cmp))
+            return self.generator.generate_batch(batch)
+
+        outs = round_trip()
+        # text-only endings surface once, then the story goes dormant
+        finals: List[Optional[StorySegment]] = [None] * len(states)
+        for r, (st, out) in enumerate(zip(states, outs)):
+            if not out["has_img_output"]:
+                finals[r] = StorySegment(0, self._clean(out["generate_ids"]), None, None,
+                                         st["ids_len"])
+                st["alive"] = False
+        if any(f is not None for f in finals):
+            yield finals
+
+        while any(st["alive"] for st in states):
+            segments: List[Optional[StorySegment]] = [None] * len(states)
+            for r, (st, out) in enumerate(zip(states, outs)):
+                if not st["alive"]:
+                    continue
+                feats = out["img_gen_feat"]
+                image = self.detokenize(feats) if self.detokenize is not None else None
+                text = self._clean(out["generate_ids"])
+                segments[r] = StorySegment(st["text_id"], text, image, feats, st["ids_len"])
+                st["embeds"] = torch.cat([st["embeds"], feats.to(st["embeds"].dtype)], dim=0)
+                if (st["text_id"] >= cfg.story_len - 1
+                        or st["embeds"].shape[0] >= cfg.story_len):
+                    st["alive"] = False
+                st["prompt"] = st["prompt"] + text + image_tokens
+                st["text_id"] += 1
+                while st["embeds"].shape[0] > cfg.window_size:  # sliding window
+                    eoi_idx = st["prompt"].index(EOI_TOKEN)
+                    st["prompt"] = st["prompt"][eoi_idx + len(EOI_TOKEN) + len("[INST]"):]
+                    st["embeds"] = st["embeds"][1:]
+            yield segments
+            if not any(st["alive"] for st in states):
+                return
+            outs = round_trip()
+            closing: List[Optional[StorySegment]] = [None] * len(states)
+            for r, (st, out) in enumerate(zip(states, outs)):
+                if st["alive"] and not out["has_img_output"]:
+                    # the story ends without an image: its closing text
+                    st["alive"] = False
+                    closing[r] = StorySegment(st["text_id"], self._clean(out["generate_ids"]),
+                                              None, None, st["ids_len"])
+            if any(c is not None for c in closing):
+                yield closing

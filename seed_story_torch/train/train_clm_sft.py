@@ -33,6 +33,9 @@ from ..data.story_telling import flatten_images
 from ..inference.common import fill_module
 from ..models.agent import AgentConfig, ContinuousLVLM
 from ..models.llama import LlamaConfig, lora_trainable_mask
+from ..models.sdxl.adapter import SDXLAdapterConfig
+from ..models.sdxl.unet import SDXLUNetConfig
+from ..models.sdxl.vae import VAEConfig
 from ..models.vit import ViTConfig, VisionTransformerWithAttnPool
 from ..utils.config import instantiate, load_config
 from .checkpoint import load_params_partial
@@ -42,7 +45,8 @@ from .trainer import TrainConfig
 
 log = logging.getLogger("seed_story_torch")
 
-CONFIG_CLASSES = {cls.__name__: cls for cls in (ViTConfig, LlamaConfig, AgentConfig)}
+CONFIG_CLASSES = {cls.__name__: cls for cls in (ViTConfig, LlamaConfig, AgentConfig,
+                                                SDXLAdapterConfig, SDXLUNetConfig, VAEConfig)}
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 # JAX-only options: a scanned layer stack changes the parameter layout, not
 # the numbers, so it is dropped; the others change the numbers and are refused.
@@ -52,7 +56,8 @@ NOT_PORTED_OPTIONS = ("quantize_base", "quantize_kv", "shard_attention_axis")
 
 def port_config(raw: Dict[str, Any], **overrides):
     """A model YAML (``_target_`` naming a JAX config class) -> the port's
-    config dataclass of the same name."""
+    config dataclass of the same name; a nested config (the adapter's
+    ``unet``) is mapped the same way, and lists become tuples."""
     raw = dict(raw)
     name = raw.pop("_target_").rsplit(".", 1)[-1]
     if name not in CONFIG_CLASSES:
@@ -68,6 +73,10 @@ def port_config(raw: Dict[str, Any], **overrides):
             continue
         if isinstance(value, dict) and "path" in value:  # {_target_: resolve_target, path: dtype}
             value = DTYPES[value["path"].rsplit(".", 1)[-1]]
+        elif isinstance(value, dict) and "_target_" in value:
+            value = port_config(value)
+        elif isinstance(value, list):
+            value = tuple(value)
         kwargs[key] = value
     kwargs.update(overrides)
     return CONFIG_CLASSES[name](**kwargs)

@@ -24,6 +24,20 @@ def _card():
         pytest.skip("needs a CUDA card (the decode kernels have no CPU mode)")
 
 
+def _exact_plain(x, w, scale):
+    """The plain version as it is defined, its f32 sums rounded to bf16 once:
+    cuBLAS may otherwise add split-K partial sums in bf16
+    (``allow_bf16_reduced_precision_reduction``, on by default), which at
+    some shapes moves many outputs by one bf16 spacing."""
+    matmul = torch.backends.cuda.matmul
+    flag = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        return int8_linear(x, w, scale, implementation="plain")
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = flag
+
+
 def _int8_inputs(m, n, k, seed):
     gen = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
@@ -33,14 +47,15 @@ def _int8_inputs(m, n, k, seed):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m", [1, 2, 3, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 16, 17, 20, 32])
 @pytest.mark.parametrize("n,k", [(4096, 4096), (11008, 4096), (4096, 11008), (4096, 1040),
                                  (4100, 1040)])
 def test_int8_linear_kernel_matches_plain(m, n, k):
-    """Every row count of the n8 tile; K = 1040 is not a multiple of the
-    kernel's 256-column stage, and its last K slice of the cluster is 16
-    columns; N = 4100 is not a multiple of its 64-channel block. Every row
-    of x differs."""
+    """Every row count of one n8 tile, and of two and four (9-32 rows: B
+    stories' K + 1 verify blocks in lockstep); K = 1040 is not a multiple
+    of the kernel's 256-column stage, and its last K slice of the cluster
+    is 16 columns; N = 4100 is not a multiple of its 64-channel block.
+    Every row of x differs."""
     _card()
     x, w, scale = _int8_inputs(m, n, k, seed=m + n + k)
     x = x * torch.arange(1, m + 1, device="cuda", dtype=torch.bfloat16)[:, None]
@@ -48,7 +63,7 @@ def test_int8_linear_kernel_matches_plain(m, n, k):
     y = int8_linear(x, w, scale)
     torch.cuda.synchronize()
     assert int8_linear_kernel.launches == before + 1
-    want = int8_linear(x, w, scale, implementation="plain")
+    want = _exact_plain(x, w, scale)
     assert y.dtype == torch.bfloat16 and y.shape == (m, n)
     err = (y.float() - want.float()).abs()
     assert float(err.max()) <= 1e-2 * float(want.float().abs().max())
@@ -65,9 +80,26 @@ def test_int8_linear_kernel_is_bitwise_repeatable():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n,k", [(4096, 4096), (11008, 4096), (4096, 11008)])
+def test_int8_linear_rows_are_bitwise_equal_across_row_counts(n, k):
+    """The K split depends on N and K only, so the rows of a 20-row call
+    (four 5-row verify blocks in lockstep) equal the same rows of 5-row
+    calls bit for bit, and so do those of 10- and 32-row calls: a story
+    decodes the same tokens alone or beside others."""
+    _card()
+    x, _, _ = _int8_inputs(32, n, k, seed=11)
+    _, w, scale = _int8_inputs(1, n, k, seed=12)
+    parts = torch.cat([int8_linear(x[i:i + 5], w, scale) for i in range(0, 20, 5)])
+    assert torch.equal(int8_linear(x[:20], w, scale), parts)
+    assert torch.equal(int8_linear(x[:10], w, scale), parts[:10])
+    assert torch.equal(int8_linear(x, w, scale)[:20], parts)
+    assert torch.equal(int8_linear(x[:2], w, scale), parts[:2])
+
+
+@pytest.mark.gpu
 def test_int8_linear_routes_prefill_rows_to_the_plain_product():
     _card()
-    x, w, scale = _int8_inputs(9, 256, 512, seed=1)
+    x, w, scale = _int8_inputs(33, 256, 512, seed=1)
     before = int8_linear_kernel.launches
     y = int8_linear(x, w, scale)
     assert int8_linear_kernel.launches == before
@@ -83,7 +115,7 @@ def test_int8_linear_refuses_what_it_does_not_take():
     with pytest.raises(TypeError):
         int8_linear_kernel(x, w.to(torch.bfloat16), scale)
     with pytest.raises(ValueError, match="rows"):
-        int8_linear_kernel(torch.cat([x, x, x]), w, scale)
+        int8_linear_kernel(torch.cat([x] * 9), w, scale)
     with pytest.raises(ValueError, match="multiple of 16"):
         int8_linear_kernel(x[:, :500].contiguous(), w[:, :500].contiguous(), scale)
 

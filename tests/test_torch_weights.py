@@ -157,7 +157,9 @@ def test_init_random_is_seeded_and_uses_flax_scales():
 
 def test_port_imports_no_jax_flax_yaml_or_pil():
     names = [m.name for m in pkgutil.walk_packages(seed_story_torch.__path__, "seed_story_torch.")]
-    assert "seed_story_torch.inference.common" in names
+    assert {f"seed_story_torch.{m}" for m in (
+        "inference.common", "inference.gen_george", "inference.vis_george_sink",
+        "pipelines.serving", "pipelines.story_generation")} <= set(names)
     assert {f"seed_story_torch.train.{m}" for m in (
         "trainer", "stage2", "checkpoint", "metrics", "runner", "scheduler",
         "train_clm_sft")} <= set(names)
