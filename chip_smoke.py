@@ -14,8 +14,9 @@ exits non-zero:
    one ``F.scaled_dot_product_attention`` call on the same inputs, timed
    here as a yardstick and used nowhere in the port;
 3. backward kernels: at the stage-2 training shapes of the LLaMA and the
-   resamplers (and the forward's edge cases and the UNet's 64x64
-   self-attention), the flash forward against the plain forward, and the
+   resamplers, the forward's edge cases and the stage-3 shapes of the
+   UNet (self-attention at 64x64 and 32x32, cross-attention from both onto
+   64 keys), the flash forward against the plain forward, and the
    flash backward's dq and dk/dv kernels against the plain backward, with
    errors, a second call that must give the same bits, times, TFLOP/s,
    bounds and SDPA's backward;
@@ -29,7 +30,17 @@ exits non-zero:
    weights: ``run_training`` for 4 steps on one repeated batch of 2 x 1280
    tokens and 20 images, with losses, parameters, per-step times, the
    kernels' launches per step and no input copied for TMA (by the forward
-   or the backward wrapper) checked.
+   or the backward wrapper) checked;
+6. stage3: the de-tokenizer adaptation at full width (frozen ViT-bigG,
+   LLaMA-2-7B + LoRA agent and SDXL VAE encoder; the SDXLAdapter's
+   resampler and UNet ``to_k`` / ``to_v`` training on the eps-MSE) on seeded
+   random weights: ``run_training`` for 4 steps of 2 accumulated
+   microbatches on the stage-2 batch plus two 1024x1024 targets, with
+   finite losses, frozen weights bit-equal, trained ones changed, the flash
+   kernels' launches per step (every UNet attention forward, dq and dk/dv,
+   the frozen towers forward) and no input copied for TMA checked; s/step,
+   SDXL targets/s, the stage split and peak GiB printed, then one more
+   microbatch profiled (device ms, busy share, flash and largest kernels).
 
 Between 3 and 4, the decode kernels: the weight-only int8 product
 (``csrc/int8_linear.cu``) at the 7B projections' shapes (1 and 5 rows) and
@@ -94,9 +105,10 @@ from seed_story_torch.decode.generate import GenerateConfig, StoryGenerator
 from seed_story_torch.inference.common import build_stack, fill_module, quantize_agent_
 from seed_story_torch.models.agent import AgentConfig, ContinuousLVLM
 from seed_story_torch.models.llama import LlamaConfig, LoRADense, lora_trainable_mask
-from seed_story_torch.models.sdxl.adapter import SDXLAdapterConfig
-from seed_story_torch.models.sdxl.unet import SDXLUNetConfig
-from seed_story_torch.models.sdxl.vae import VAEConfig
+from seed_story_torch.models.sdxl.adapter import (SDXLAdapter, SDXLAdapterConfig,
+                                                  adapter_trainable_mask)
+from seed_story_torch.models.sdxl.unet import CrossAttention, SDXLUNetConfig
+from seed_story_torch.models.sdxl.vae import AutoencoderKL, VAEConfig
 from seed_story_torch.models.vit import ViTConfig, VisionTransformerWithAttnPool
 from seed_story_torch.data.tokenizer import image_comprehension_string
 from seed_story_torch.ops.attention import (
@@ -121,8 +133,9 @@ from seed_story_torch.pipelines.story_visualization import (
     VisPipelineConfig,
 )
 from seed_story_torch.train.runner import (LAUNCH_COUNTS, RunnerArgs, flash_launch_counts,
-                                           run_training)
+                                           run_training, to_device)
 from seed_story_torch.train.stage2 import make_stage2_loss_fn
+from seed_story_torch.train.stage3 import make_stage3_loss_fn
 from seed_story_torch.train.trainer import TrainConfig
 
 # Kernel against its plain version, both from the same bf16 inputs; the plain
@@ -352,7 +365,8 @@ def phase_kernels(label: str):
 # (name, B, Hq, Hkv, Sq, Skv, D, causal, q_start, kv_len, layout): the
 # training shapes of stage 2 (LLaMA self-attention over B=2 x 1280 tokens,
 # the resamplers over N=20 images), the forward's edge cases, and the UNet's
-# 64x64 self-attention for stage 3.
+# attentions of stage 3 at B=2: self-attention at the 64x64 and 32x32
+# levels, cross-attention from those queries onto the resampler's 64 keys.
 BWD_CASES = [
     ("llama_train_causal", 2, 32, 32, 1280, 1280, 128, True, 0, [1280, 1100], "bshd"),
     ("agent_input_resampler", 20, 32, 32, 64, 256, 128, False, None, None, "bshd"),
@@ -361,7 +375,11 @@ BWD_CASES = [
     ("empty_rows", 2, 4, 4, 100, 300, 80, True, [-10, 5], [300, 0], "bhsd"),
     ("unaligned_d100", 2, 4, 4, 77, 150, 100, False, None, [150, 91], "bshd"),
     ("unet_self_64x64", 2, 10, 10, 4096, 4096, 64, False, None, None, "bshd"),
+    ("unet_self_32x32", 2, 20, 20, 1024, 1024, 64, False, None, None, "bshd"),
+    ("unet_cross_64x64", 2, 10, 10, 4096, 64, 64, False, None, None, "bshd"),
+    ("unet_cross_32x32", 2, 20, 20, 1024, 64, 64, False, None, None, "bshd"),
 ]
+UNET_BWD_CASES = tuple(case[0] for case in BWD_CASES if case[0].startswith("unet_"))
 
 
 def device_events(events) -> list:
@@ -1495,6 +1513,187 @@ def phase_train(label: str):
     return launches
 
 
+# Stage 3 at full width: the models of scripts/adapt_storystream.sh
+# (qwen_vitg_448.yaml, llama2chat7b_lora.yaml + agent_7b_sft.yaml, the SDXL
+# VAE, detokenizer_sdxl_qwen_vit_pretrained.yaml's SDXLAdapter); the batch is
+# the stage-2 batch with 1024x1024 targets (george_sdxl.yaml,
+# sd_transform_1024.yaml). Cut: 4 steps of 2 accumulated microbatches (the
+# script takes 4) on one repeated synthetic batch, random weights.
+STAGE3_STEPS, STAGE3_ACCUM, SD_SIZE = 4, 2, 1024
+
+
+def stage3_batch(agent_cfg: AgentConfig):
+    """The stage-2 batch plus what ``sd_image_transform`` adds: seeded
+    uniform [-1, 1] targets (B, 3, 1024, 1024) and their SDXL time_ids."""
+    batch = train_batch(agent_cfg)
+    b = len(TRAIN_CONTEXT)
+    rng = np.random.RandomState(3)
+    batch["sd_images"] = rng.uniform(-1.0, 1.0, (b, 3, SD_SIZE, SD_SIZE)).astype(np.float32)
+    batch["time_ids"] = np.array([[SD_SIZE, SD_SIZE, 0, 0, SD_SIZE, SD_SIZE]] * b, np.int32)
+    return batch
+
+
+def profile_microbatch(loss_fn, micro, trainable) -> dict:
+    """One more stage-3 microbatch (loss and backward, gradients dropped):
+    its wall ms without the profiler, then under torch.profiler the device
+    ms of everything it launched, of each flash kernel, and of the largest
+    kernels, and the profiled run's own wall ms."""
+    wall = []
+
+    def run():
+        t0 = time.perf_counter()
+        loss_fn(micro, 0)[0].backward()
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+        for p in trainable:
+            p.grad = None
+
+    run()
+    events = device_events(profiled(run, ("flash_bwd_dkv_kernel",)))
+    device_ms = sum(e.self_device_time_total for e in events) / 1e3
+    out = {"wall_ms": 1e3 * wall[0], "profiled_wall_ms": 1e3 * wall[-1], "device_ms": device_ms,
+           "busy": device_ms / (1e3 * wall[0])}
+    for kernel in ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"):
+        mine = [e for e in events if kernel in e.key]
+        out[f"{kernel}_ms"] = sum(e.self_device_time_total for e in mine) / 1e3
+        out[f"{kernel}_launches"] = sum(e.count for e in mine)
+    largest = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    out["largest"] = [[e.key[:80], e.self_device_time_total / 1e3, e.count] for e in largest]
+    return out
+
+
+def phase_stage3(label: str):
+    """Stage 3 at full width through ``run_training``: the frozen ViT, agent
+    and VAE encoder under the loss, the SDXLAdapter's resampler and UNet
+    ``to_k`` / ``to_v`` training, with the flash kernels' launches per step
+    (the UNet's attentions forward and backward, the frozen towers forward)
+    and frozen / trained weights checked."""
+    bf16 = torch.bfloat16
+    llm_cfg = LlamaConfig(lora_rank=16, lora_alpha=32.0, lora_dropout=0.05, param_dtype=bf16)
+    agent_cfg = AgentConfig(llm=llm_cfg)
+    b = len(TRAIN_CONTEXT)
+    print(f"stage3 cuts: {STAGE3_STEPS} steps of {STAGE3_ACCUM} accumulated microbatches on "
+          f"one repeated synthetic batch ({b} x {TRAIN_SEQ} tokens, {b * TRAIN_IMAGES} images "
+          f"of 448x448, {b} targets of {SD_SIZE}x{SD_SIZE}), random weights; widths and "
+          f"depths not cut", flush=True)
+    print(f"device memory before the build: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+          f"allocated [{label}]", flush=True)
+    t0 = time.perf_counter()
+    vit = fill_module(VisionTransformerWithAttnPool, ViTConfig(param_dtype=bf16), "cuda", seed=0)
+    agent = fill_module(ContinuousLVLM, agent_cfg, "cuda", seed=1)
+    vae = fill_module(AutoencoderKL, VAEConfig(), "cuda", seed=2)
+    for frozen_module in (vit, agent, vae):
+        frozen_module.eval().requires_grad_(False)
+    adapter = fill_module(SDXLAdapter, SDXLAdapterConfig(), "cuda", seed=3)
+    mask = adapter_trainable_mask(adapter)
+    torch.cuda.synchronize()
+    params = dict(adapter.named_parameters())
+    n_train = sum(params[k].numel() for k, m in mask.items() if m)
+    n_kv = sum(params[k].numel() for k, m in mask.items() if m and k.startswith("unet."))
+    sizes = {name: sum(p.numel() for p in m.parameters()) / 1e9
+             for name, m in (("ViT", vit), ("agent", agent), ("VAE", vae), ("adapter", adapter))}
+    print(f"stage3 build: {time.perf_counter() - t0:.2f} s; frozen ViT {sizes['ViT']:.3f} B, "
+          f"agent {sizes['agent']:.3f} B (bf16), VAE {sizes['VAE']:.3f} B; adapter "
+          f"{sizes['adapter']:.3f} B f32 ({n_train / 1e9:.4f} B trainable: UNet to_k/to_v "
+          f"{n_kv / 1e9:.4f} B, resampler {(n_train - n_kv) / 1e9:.4f} B); "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated [{label}]", flush=True)
+
+    unet = adapter.unet
+    block0 = unet.down_blocks[1].attentions[0].transformer_blocks[0]
+    frozen = {"vit block 0 in_proj": vit.transformer.resblocks[0].attn.in_proj.weight,
+              "agent layer 0 q_proj": agent.llm.model.layers[0].self_attn.q_proj.weight,
+              "vae encoder conv_in": vae.encoder.conv_in.weight,
+              "unet attn1 to_q": block0.attn1.to_q.weight,
+              "unet resnet conv1": unet.down_blocks[0].resnets[0].conv1.weight}
+    trained = {"unet self-attention to_k": block0.attn1.to_k.weight,
+               "unet cross-attention to_v": unet.mid_block.attentions[0]
+               .transformer_blocks[9].attn2.to_v.weight,
+               "resampler proj_in": adapter.resampler.proj_in.weight}
+    before = {k: t.detach().clone() for k, t in {**frozen, **trained}.items()}
+    n_unet_attn = sum(isinstance(m, CrossAttention) for m in unet.modules())
+    # flash forward launches of one microbatch's frozen towers: the ViT's
+    # layers and attention pool, the LLaMA's layers and both resamplers
+    towers_fwd = vit.cfg.layers + 1 + llm_cfg.num_hidden_layers + 2
+    clock = StageClock()
+    clock.watch(vit, lambda a, k: "vit")
+    clock.watch(agent, lambda a, k: "agent")
+    clock.watch(vae.encoder, lambda a, k: "vae_encode")
+    batch = stage3_batch(agent_cfg)
+
+    def repeated():
+        while True:
+            yield batch
+
+    with tempfile.TemporaryDirectory() as out:
+        flash_fwd.launches = flash_bwd.dq_launches = flash_bwd.dkv_launches = 0
+        flash_fwd.padded_copies = flash_bwd.padded_copies = 0
+        t_run = time.perf_counter()
+        loss_fn = make_stage3_loss_fn(adapter, agent, vae, vit)
+        trainer = run_training(
+            RunnerArgs(output_dir=out, max_steps=STAGE3_STEPS, save_steps=10**9, log_steps=1,
+                       seed=0),
+            TrainConfig(learning_rate=1e-4, warmup_steps=1, training_steps=STAGE3_STEPS,
+                        grad_accum_steps=STAGE3_ACCUM),
+            adapter, loss_fn, repeated(), trainable_mask=mask)
+        run_s = time.perf_counter() - t_run
+        launches = flash_launch_counts()
+        copies = flash_fwd.padded_copies + flash_bwd.padded_copies
+        with open(os.path.join(out, "metrics.jsonl")) as f:
+            logged = [json.loads(line) for line in f]
+    clock.close()
+    trainable = list(trainer.params.values())
+    del trainer  # its Adam moments
+
+    failures = [f"{copies} inputs copied for TMA in stage 3"] if copies else []
+    steps = [m for m in logged if "loss" in m]
+    ckpt_s = next(m for m in logged if "checkpoint_write_seconds" in m)
+    losses = [m["loss"] for m in steps]
+    if len(losses) != STAGE3_STEPS or not np.all(np.isfinite(losses)):
+        failures.append(f"losses {losses}")
+    failures += [f"frozen {k} changed" for k, t in frozen.items() if not torch.equal(t, before[k])]
+    failures += [f"trainable {k} did not change" for k, t in trained.items()
+                 if torch.equal(t, before[k])]
+    targets = b * STAGE3_ACCUM
+    for i, m in enumerate(steps):
+        micro = slice(STAGE3_ACCUM * i, STAGE3_ACCUM * (i + 1))
+        stage_s = {name: sum(t for t, _ in clock.calls[name][micro])
+                   for name in ("vit", "agent", "vae_encode")}
+        adapter_s = m["fwd_bwd_seconds"] - sum(stage_s.values())
+        fwd, dq, dkv = (int(m[k]) for k in LAUNCH_COUNTS)
+        print(f"stage3 step {i + 1}: {m['step_seconds']:.3f} s, loss {losses[i]:.5f}, "
+              f"{targets / m['step_seconds']:.3f} SDXL targets/s; fwd+bwd "
+              f"{m['fwd_bwd_seconds']:.3f} s (ViT {stage_s['vit']:.3f}, agent "
+              f"{stage_s['agent']:.3f}, VAE encode {stage_s['vae_encode']:.3f}, adapter fwd+bwd "
+              f"{adapter_s:.3f}), update {m['update_seconds']:.3f} s, grad_norm "
+              f"{m['grad_norm']:.4g}, launches fwd {fwd} dq {dq} dkv {dkv}, peak "
+              f"{m['peak_gib']:.2f} GiB [{label}]", flush=True)
+        # every UNet attention runs forward, dq and dk/dv once a microbatch
+        # (the first self-attention's q needs no gradient; dq runs there too)
+        if dq != STAGE3_ACCUM * n_unet_attn or dkv != STAGE3_ACCUM * n_unet_attn:
+            failures.append(f"step {i + 1}: {dq} dq / {dkv} dk-dv launches, expected "
+                            f"{STAGE3_ACCUM * n_unet_attn}")
+        if fwd != STAGE3_ACCUM * (n_unet_attn + towers_fwd):
+            failures.append(f"step {i + 1}: {fwd} forward launches, expected "
+                            f"{STAGE3_ACCUM * (n_unet_attn + towers_fwd)}")
+    steady = steps[1:]
+    step_s = float(np.mean([m["step_seconds"] for m in steady]))
+    stats = {"s_per_step": step_s, "targets_per_s": targets / step_s,
+             "fwd_bwd_s": float(np.mean([m["fwd_bwd_seconds"] for m in steady])),
+             "update_s": float(np.mean([m["update_seconds"] for m in steady])),
+             "peak_gib": max(m["peak_gib"] for m in steps)}
+    print(f"stage3 steady (steps 2-{STAGE3_STEPS}): {json.dumps(stats)}; run {run_s:.3f} s; "
+          f"final checkpoint host copy {ckpt_s['checkpoint_copy_seconds']:.3f} s + write "
+          f"{ckpt_s['checkpoint_write_seconds']:.3f} s; {n_unet_attn} UNet attentions; "
+          f"launches fwd {launches[0]} dq {launches[1]} dkv {launches[2]}, {copies} padded "
+          f"copies [{label}]", flush=True)
+    prof = profile_microbatch(loss_fn, to_device(batch, torch.device("cuda")), trainable)
+    print(f"stage3 microbatch profiled: {json.dumps(prof)} [{label}]", flush=True)
+    failures += forbidden_imports()
+    if failures:
+        raise AssertionError(f"stage3 phase failed: {failures}")
+    return launches
+
+
 def compare_with_baseline(path: str, int8_rows: list, attn_rows: list):
     """Prints each decode kernel's device ms beside the one an earlier run
     logged at the same shape (that run's own "int8_linear <name>: {...}" and
@@ -1535,6 +1734,9 @@ def main():
     gc.collect()  # the story stack is gone; give its memory back before training
     torch.cuda.empty_cache()
     train_fwd, train_dq, train_dkv = phase_train(label)
+    gc.collect()  # the stage-2 modules are gone; give their memory back before stage 3
+    torch.cuda.empty_cache()
+    stage3_fwd, stage3_dq, stage3_dkv = phase_stage3(label)
     at = next(r for r in rows if r["name"] == "unet_self_64x64")
     bat = next(r for r in bwd_rows if r["name"] == "llama_train_causal")
     a_at = next(r for r in int8_rows if r["name"] == "gate_up_m5")
@@ -1542,7 +1744,8 @@ def main():
     flash_paths = {"story": story_launches["flash_fwd"],
                    "flagship": flagship_launches["flash_fwd"],
                    "lockstep": lockstep_launches["flash_fwd"],
-                   "serving": serving_launches["flash_fwd"], "train": train_fwd}
+                   "serving": serving_launches["flash_fwd"], "train": train_fwd,
+                   "stage3": stage3_fwd}
     attn_paths = {"story": story_launches["decode_attn"],
                   "flagship": flagship_launches["decode_attn"],
                   "lockstep": lockstep_launches["decode_attn"],
@@ -1560,14 +1763,21 @@ def main():
          "library_ms": at["library_ms"], "library": at["library"], "at": at["name"]},
         *({"name": f"flash_bwd_{kname}", "route": "cuda",
            "source": "seed_story_torch/csrc/flash_bwd.cu",
-           "replaces": f"seed_story_tpu/ops/attention.py:{line}", "launches": n,
+           "replaces": f"seed_story_tpu/ops/attention.py:{line}",
+           "launches": sum(by_path.values()), "launches_by_path": by_path,
            "max_abs_err": max(max(r[f"{g}_max_abs"] for g in grads) for r in bwd_rows),
            "ms": bat[f"{kname}_ms"], "plain_ms": bat["plain_ms"],
            "bound_ms": bat[f"{kname}_bound_ms"], "bound_by": bat[f"{kname}_bound_by"],
            "library_ms": bat["library_ms"], "library": f"{bat['library']}: dq, dk and dv",
-           "at": bat["name"]}
-          for kname, line, n, grads in (("dq", 398, train_dq, ("dq",)),
-                                        ("dkv", 453, train_dkv, ("dk", "dv")))),
+           "at": bat["name"],
+           # the stage-3 UNet shapes; plain_ms and library_ms there cover dq, dk and dv
+           "unet_shapes": {r["name"]: {k: r[k] for k in (
+               f"{kname}_ms", f"{kname}_bound_ms", f"{kname}_bound_by", "plain_ms",
+               "library_ms", *(f"{g}_max_rel" for g in grads))}
+               for r in bwd_rows if r["name"] in UNET_BWD_CASES}}
+          for kname, line, by_path, grads in (
+              ("dq", 398, {"train": train_dq, "stage3": stage3_dq}, ("dq",)),
+              ("dkv", 453, {"train": train_dkv, "stage3": stage3_dkv}, ("dk", "dv")))),
         {"name": "int8_linear", "route": "cuda", "source": "seed_story_torch/csrc/int8_linear.cu",
          "replaces": "seed_story_tpu/models/llama.py:294 (XLA-fused, no Pallas kernel)",
          "launches": sum(int8_paths.values()), "launches_by_path": int8_paths,

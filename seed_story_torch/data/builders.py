@@ -1,8 +1,7 @@
 """Datapipe builders with the YAML surface of ``configs/data/*.yaml``; the
 port's own copy of what it uses of ``seed_story_tpu/data/builders.py``:
 ``build_long_story_datapipe`` and ``build_multi_datapipes``, keyword for
-keyword but for the SDXL image transform of stage 3, which the port does not
-train yet."""
+keyword."""
 
 from __future__ import annotations
 
@@ -36,7 +35,8 @@ class StoryDataPipe:
 
 def build_long_story_datapipe(data_dir, image_dir, tokenizer=None, story_len=30, max_length=77,
                               batch_size=None, min_resolution=180, image_transform=None,
-                              instruction_prompt="{instruction}", turn_sep="\n",
+                              sd_image_transform=None, instruction_prompt="{instruction}",
+                              turn_sep="\n",
                               system_message="", min_aspect_ratio=0.666, num_img_in_tokens=64,
                               num_img_out_tokens=64, cycle_count=None, seed=0,
                               max_images=None) -> StoryDataPipe:
@@ -48,7 +48,8 @@ def build_long_story_datapipe(data_dir, image_dir, tokenizer=None, story_len=30,
         instruction_prompt=instruction_prompt, system_message=system_message,
         min_resolution=min_resolution, min_aspect_ratio=min_aspect_ratio)
     decode = functools.partial(decode_long_story_sample, image_dir=image_dir,
-                               tokenizer=tokenizer, cfg=cfg, image_transform=image_transform)
+                               tokenizer=tokenizer, cfg=cfg, image_transform=image_transform,
+                               sd_image_transform=sd_image_transform)
     ds = JsonlStoryDataset(data_dir, decode, cycle_count=cycle_count or 1, seed=seed)
     return StoryDataPipe(ds, batch_size)
 
@@ -96,12 +97,13 @@ class MultiStoryDataPipe:
 
 
 def build_multi_datapipes(datapipes: List, tokenizer=None, image_transform=None,
-                          sample_weights=None, seed=0):
+                          sd_image_transform=None, sample_weights=None, seed=0):
     """Weighted mix of ``datapipes``: dict configs (instantiated here, with
-    the shared tokenizer and transform) or built pipes."""
+    the shared tokenizer and transforms) or built pipes."""
     from ..utils.config import instantiate
 
-    built = [instantiate(dp, tokenizer=tokenizer, image_transform=image_transform)
+    built = [instantiate(dp, tokenizer=tokenizer, image_transform=image_transform,
+                         sd_image_transform=sd_image_transform)
              if isinstance(dp, dict) else dp for dp in datapipes]
     if sample_weights is None:
         sample_weights = [1.0] * len(built)

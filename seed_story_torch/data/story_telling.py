@@ -9,6 +9,10 @@ static ``max_images`` axis with validity masks:
   ids_cmp_mask  True on the slots of every context image
   ids_gen_mask  True on the slots of the single target image
   embeds_*_mask per-image flags aligned with the images axis
+
+With an SDXL image transform (stage 3) a sample also carries the target
+image as ``sd_images`` (float32 CHW) and its SDXL micro-conditioning
+``time_ids`` (int32, 6).
 """
 
 from __future__ import annotations
@@ -36,6 +40,23 @@ class StoryDecodeConfig:
     min_resolution: int = 128
     min_aspect_ratio: float = 0.2
     image_size: int = 448  # of the zero images when there is no transform
+
+
+def calculate_new_dimensions(height: int, width: int, target_size: int):
+    """Shorter-side resize arithmetic of the reference data pipeline."""
+    if height < width:
+        return target_size, int(width * (target_size / height))
+    return int(height * (target_size / width)), target_size
+
+
+def sdxl_micro_conditioning(height: int, width: int, target_size: int) -> np.ndarray:
+    """SDXL time_ids = (orig_h, orig_w, crop_y, crop_x, target, target). As
+    in the reference, the (height, width) pair comes back unpacked as (width,
+    height), so a landscape image's crop offset lands in the y slot."""
+    target_width, target_height = calculate_new_dimensions(height, width, target_size)
+    y1 = max(0, int(round((target_height - target_size) / 2.0)))
+    x1 = max(0, int(round((target_width - target_size) / 2.0)))
+    return np.array([height, width, y1, x1, target_size, target_size], np.int32)
 
 
 def _encode_spans(tokenizer, instruction: str, response: str, system_message: str):
@@ -86,11 +107,13 @@ def _finalize_sample(tokenizer, input_ids: List[int], labels: List[int],
 def decode_long_story_sample(value: Dict[str, Any], *, image_dir: str, tokenizer,
                              cfg: StoryDecodeConfig,
                              image_transform: Optional[Callable] = None,
+                             sd_image_transform: Optional[Callable] = None,
                              rng: Optional[random.Random] = None,
                              ) -> Optional[Dict[str, np.ndarray]]:
     """One jsonl record {'images': [...], 'captions': [...]} -> sample dict:
-    ``randint(0, story_len - 2)`` context images, the next one the target.
-    None on any decode or filter failure."""
+    ``randint(0, story_len - 2)`` context images, the next one the target
+    (also through ``sd_image_transform`` when given). None on any decode or
+    filter failure."""
     if "images" not in value or "captions" not in value:
         return None
     rng = rng or random
@@ -113,6 +136,12 @@ def decode_long_story_sample(value: Dict[str, Any], *, image_dir: str, tokenizer
             return None
         if aspect_ratio < cfg.min_aspect_ratio or aspect_ratio > 1 / cfg.min_aspect_ratio:
             return None
+
+        extra: Dict[str, np.ndarray] = {}
+        if sd_image_transform is not None:  # the target, the last image opened
+            sd_tensor = sd_image_transform(pil_images[num_image_given + 1])
+            extra["time_ids"] = sdxl_micro_conditioning(height, width, sd_tensor.shape[-2])
+            extra["sd_images"] = sd_tensor.astype(np.float32)
 
         if image_transform is not None:
             images = [image_transform(im) for im in pil_images]
@@ -154,6 +183,7 @@ def decode_long_story_sample(value: Dict[str, Any], *, image_dir: str, tokenizer
         "embeds_gen_mask": embeds_gen_mask,
         "images": padded,
         "num_images": np.int32(num_image_given + 2),
+        **extra,
     }
 
 

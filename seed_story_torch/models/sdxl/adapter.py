@@ -1,11 +1,14 @@
-"""SDXLAdapter inference surface (the visual de-tokenizer): ResamplerXLV2
-conditioning for the SDXL UNet; counterpart of
-``seed_story_tpu/models/sdxl/adapter.py``. State-dict names: ``resampler.*``
-and ``unet.*``, as ``convert_detokenizer`` reads them."""
+"""SDXLAdapter (the visual de-tokenizer): ResamplerXLV2 conditioning for the
+SDXL UNet; counterpart of ``seed_story_tpu/models/sdxl/adapter.py``. The
+training forward is the eps-prediction MSE of stage 3; the trainable set is
+the resampler and every UNet ``to_k`` / ``to_v`` projection (self- and
+cross-attention), or the whole UNet with ``full_ft``. State-dict names:
+``resampler.*`` and ``unet.*``, as ``convert_detokenizer`` reads them."""
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Dict
 
 from torch import nn
 
@@ -49,6 +52,17 @@ class SDXLAdapter(nn.Module):
         self.unet = UNet2DConditionModel(dataclasses.replace(
             cfg.unet, cross_attention_dim=cfg.output1_dim + cfg.output2_dim))
 
+    def forward(self, noisy_latents, timesteps, image_embeds, time_ids, noise):
+        """Training forward: NHWC ``noisy_latents``, (B,) ``timesteps``,
+        (B, n, embedding_dim) ``image_embeds``, (B, 6) ``time_ids``, the
+        ``noise`` that was added. Returns {"total_loss" (the f32 MSE of the
+        predicted noise), "noise_pred"}."""
+        prompt_embeds, pooled = self.resampler(image_embeds)
+        noise_pred = self.unet(noisy_latents, timesteps, prompt_embeds, time_ids=time_ids,
+                               text_embeds=pooled)
+        loss = (noise_pred.float() - noise.float()).square().mean()
+        return {"total_loss": loss, "noise_pred": noise_pred}
+
     def encode_image_embeds(self, image_embeds):
         """(B, n, embedding_dim) -> (prompt_embeds (B, nq, 2048), pooled (B, 1280))."""
         return self.resampler(image_embeds)
@@ -57,3 +71,15 @@ class SDXLAdapter(nn.Module):
         """UNet call with precomputed conditioning (NHWC latents)."""
         return self.unet(noisy_latents, timesteps, prompt_embeds, time_ids=time_ids,
                          text_embeds=pooled)
+
+
+def adapter_trainable_mask(adapter: SDXLAdapter, full_ft: bool = False) -> Dict[str, bool]:
+    """Parameter name -> whether it trains: the whole resampler and every UNet
+    ``to_k`` / ``to_v`` (self- and cross-attention), or the whole UNet with
+    ``full_ft``. The keys are those of ``adapter.named_parameters()``."""
+    mask = {}
+    for name, _ in adapter.named_parameters():
+        parts = name.split(".")
+        mask[name] = (parts[0] == "resampler" or (full_ft and parts[0] == "unet")
+                      or "to_k" in parts or "to_v" in parts)
+    return mask

@@ -1,7 +1,8 @@
-"""Euler discrete sampling schedule for SDXL (scaled-linear betas 0.00085 ->
-0.012 over 1000 steps, epsilon prediction, 'leading' spacing with
-steps_offset 1, linear sigma interpolation); counterpart of
-``EulerDiscreteScheduler`` in ``seed_story_tpu/models/sdxl/schedulers.py``."""
+"""Diffusion schedules for SDXL (scaled-linear betas 0.00085 -> 0.012 over
+1000 steps, epsilon prediction); counterparts of the two schedulers in
+``seed_story_tpu/models/sdxl/schedulers.py``: ``DDPMScheduler`` adds the
+training noise of stage 3, ``EulerDiscreteScheduler`` samples ('leading'
+spacing with steps_offset 1, linear sigma interpolation)."""
 
 from __future__ import annotations
 
@@ -9,6 +10,7 @@ import dataclasses
 from typing import Tuple
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,6 +33,29 @@ def alphas_cumprod(cfg: SchedulerConfig) -> np.ndarray:
     else:
         raise ValueError(cfg.beta_schedule)
     return np.cumprod(1.0 - betas).astype(np.float32)
+
+
+class DDPMScheduler:
+    """Training-side q(x_t | x_0) sampling."""
+
+    def __init__(self, cfg: SchedulerConfig = SchedulerConfig()):
+        self.cfg = cfg
+        self.alphas_cumprod = torch.from_numpy(alphas_cumprod(cfg))  # f32
+
+    def add_noise(self, sample, noise, timesteps):
+        """sample, noise: (B, ...); timesteps: (B,) int. Computed in f32,
+        returned in the sample's dtype."""
+        acp = self.alphas_cumprod.to(sample.device)[timesteps.long()]
+        shape = (-1,) + (1,) * (sample.ndim - 1)
+        sqrt_acp = torch.sqrt(acp).reshape(shape)
+        sqrt_1macp = torch.sqrt(1.0 - acp).reshape(shape)
+        return (sqrt_acp * sample.float() + sqrt_1macp * noise.float()).to(sample.dtype)
+
+    def sample_timesteps(self, batch: int, generator: torch.Generator):
+        """(batch,) int32 timesteps, uniform in [0, num_train_timesteps), on
+        the generator's device."""
+        return torch.randint(0, self.cfg.num_train_timesteps, (batch,), generator=generator,
+                             dtype=torch.int32, device=generator.device)
 
 
 class EulerDiscreteScheduler:

@@ -1,7 +1,12 @@
-"""SDXL VAE decoder (AutoencoderKL.decode) in PyTorch, NHWC at the
-boundary; counterpart of ``seed_story_tpu/models/sdxl/vae.py``. Names follow
-diffusers (``decoder.up_blocks.{i}.resnets.{j}``, ``post_quant_conv``). The
-mid-block attention is a plain f32 softmax, as in the JAX package."""
+"""SDXL VAE (AutoencoderKL) in PyTorch, NHWC at the boundary; counterpart of
+``seed_story_tpu/models/sdxl/vae.py``. ``encode`` turns the training targets
+into latents (stage 3), ``decode`` turns latents into pixels. Names follow
+diffusers (``encoder.down_blocks.{i}.resnets.{j}``,
+``encoder.down_blocks.{i}.downsamplers.0.conv``, ``quant_conv``,
+``decoder.up_blocks.{i}.resnets.{j}``, ``post_quant_conv``). The mid-block
+attention is a plain f32 softmax, as in the JAX package: at 1024x1024 its
+(16384, 16384) f32 scores take 1 GiB an image, so encode under
+``torch.no_grad()``."""
 
 from __future__ import annotations
 
@@ -15,7 +20,7 @@ from torch import nn
 
 from ...ops.dense import linear
 from ...ops.groupnorm import FastGroupNorm
-from .unet import UNetBlock, conv_nhwc, upsample_nearest_2x
+from .unet import Downsample2D, UNetBlock, conv_nhwc, upsample_nearest_2x
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,6 +95,43 @@ class Upsampler(nn.Module):
         return conv_nhwc(self.conv, upsample_nearest_2x(x), self.dtype)
 
 
+class Encoder(nn.Module):
+    def __init__(self, cfg: VAEConfig):
+        super().__init__()
+        self.dtype = cfg.dtype
+        ch = cfg.block_out_channels
+        pd = cfg.param_dtype
+        self.conv_in = nn.Conv2d(cfg.in_channels, ch[0], 3, padding=1, dtype=pd)
+        self.down_blocks = nn.ModuleList()
+        c_in = ch[0]
+        for bi, c in enumerate(ch):
+            resnets = []
+            for _ in range(cfg.layers_per_block):
+                resnets.append(VAEResnet(c_in, c, cfg))
+                c_in = c
+            # pads right and bottom by one, then a stride-2 3x3 conv without padding
+            sampler = Downsample2D(c, cfg) if bi < len(ch) - 1 else None
+            self.down_blocks.append(UNetBlock(resnets, [], sampler, "downsamplers"))
+        self.mid_block = UNetBlock([VAEResnet(ch[-1], ch[-1], cfg),
+                                    VAEResnet(ch[-1], ch[-1], cfg)],
+                                   [VAEAttention(ch[-1], cfg)])
+        self.conv_norm_out = FastGroupNorm(cfg.norm_num_groups, ch[-1], 1e-6)
+        self.conv_out = nn.Conv2d(ch[-1], 2 * cfg.latent_channels, 3, padding=1, dtype=pd)
+
+    def forward(self, x):
+        dt = self.dtype
+        x = conv_nhwc(self.conv_in, x, dt)
+        for block in self.down_blocks:
+            for resnet in block.resnets:
+                x = resnet(x)
+            if hasattr(block, "downsamplers"):
+                x = block.downsamplers[0](x)
+        mid = self.mid_block
+        x = mid.resnets[1](mid.attentions[0](mid.resnets[0](x)))
+        x = F.silu(self.conv_norm_out(x)).to(dt)
+        return conv_nhwc(self.conv_out, x, dt)
+
+
 class Decoder(nn.Module):
     def __init__(self, cfg: VAEConfig):
         super().__init__()
@@ -126,14 +168,34 @@ class Decoder(nn.Module):
 
 
 class AutoencoderKL(nn.Module):
-    """Decode half of the SDXL VAE (the encoder serves training only)."""
-
     def __init__(self, cfg: VAEConfig):
         super().__init__()
         self.cfg = cfg
+        self.encoder = Encoder(cfg)
         self.decoder = Decoder(cfg)
+        self.quant_conv = nn.Conv2d(2 * cfg.latent_channels, 2 * cfg.latent_channels, 1,
+                                    dtype=cfg.param_dtype)
         self.post_quant_conv = nn.Conv2d(cfg.latent_channels, cfg.latent_channels, 1,
                                          dtype=cfg.param_dtype)
+
+    def latent_shape(self, pixel_shape) -> Tuple[int, int, int, int]:
+        """(B, H, W, 3) pixels -> the (B, h, w, latent_channels) shape of
+        their latents (H and W divisible by the downsampling factor)."""
+        f = 2 ** (len(self.cfg.block_out_channels) - 1)
+        b, h, w, _ = pixel_shape
+        return b, h // f, w // f, self.cfg.latent_channels
+
+    def encode(self, pixels, eps=None):
+        """pixels (B, H, W, 3) in [-1, 1] -> latents * scaling_factor.
+        With ``eps`` (a standard normal draw of the latents' shape, f32) the
+        latents are sampled from the posterior, else its mode."""
+        dt = self.cfg.dtype
+        moments = conv_nhwc(self.quant_conv, self.encoder(pixels), dt)
+        mean, logvar = moments.chunk(2, dim=-1)
+        if eps is not None:
+            std = torch.exp(0.5 * logvar.clamp(-30.0, 20.0).float())
+            mean = mean + (std * eps).to(mean.dtype)
+        return mean * self.cfg.scaling_factor
 
     def decode(self, latents):
         """latents (B, h, w, 4) scaled -> pixels (B, H, W, 3) in [-1, 1]."""

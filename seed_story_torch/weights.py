@@ -129,7 +129,7 @@ def _diffusers_path(prefix: str) -> str:
 
 def _vae_path(prefix: str) -> str:
     path = _diffusers_path(prefix)
-    return re.sub(r"(upsamplers_\d+)/conv", r"\1_conv", path)
+    return re.sub(r"((?:up|down)samplers_\d+)/conv", r"\1_conv", path)
 
 
 def _ipa_path(prefix: str) -> str:
@@ -161,20 +161,28 @@ def agent_flax_paths(module: nn.Module) -> Dict[str, Tuple[str, Callable]]:
     return _flax_paths(module, _llama_path)
 
 
+def _adapter_path(prefix: str) -> str:
+    if prefix.startswith("resampler"):
+        return _ipa_path(prefix)
+    return _diffusers_path(prefix)
+
+
 def adapter_state_dict(module, params) -> Dict[str, torch.Tensor]:
     """JAX ``SDXLAdapter`` params (``resampler``, ``unet``) -> state dict."""
-    def path_of(prefix: str) -> str:
-        if prefix.startswith("resampler"):
-            return _ipa_path(prefix)
-        return _diffusers_path(prefix)
+    return _state_dict(module, params, _adapter_path)
 
-    return _state_dict(module, params, path_of)
+
+def adapter_flax_paths(module: nn.Module) -> Dict[str, Tuple[str, Callable]]:
+    """Parameter name of the port's ``SDXLAdapter`` -> (flax leaf path joined
+    with '/', the flax -> torch transform), as :func:`adapter_state_dict`
+    pairs them; used to hold gradients and the trainable set of stage 3 to
+    the JAX package's."""
+    return _flax_paths(module, _adapter_path)
 
 
 def vae_state_dict(module, params) -> Dict[str, torch.Tensor]:
-    """JAX ``AutoencoderKL`` params -> the decode-only port's state dict. The
-    encoder and ``quant_conv`` leaves are left out (the port decodes only)."""
-    params = {k: v for k, v in params.items() if k not in ("encoder", "quant_conv")}
+    """JAX ``AutoencoderKL`` params (encoder, ``quant_conv``, decoder,
+    ``post_quant_conv``) -> the port's state dict."""
     return _state_dict(module, params, _vae_path)
 
 

@@ -119,6 +119,52 @@ def test_long_story_datapipe_matches_the_jax_package(workspace, keep_ratio):
                          batches(ref_builders, ref_tok, ref_transforms))
 
 
+@pytest.mark.parametrize("height,width,target", [(480, 640, 64), (640, 480, 64),
+                                                  (300, 300, 1024), (97, 131, 1024)])
+def test_sdxl_micro_conditioning_matches_the_jax_package(height, width, target):
+    got = port_story.sdxl_micro_conditioning(height, width, target)
+    want = ref_story.sdxl_micro_conditioning(height, width, target)
+    assert got.dtype == want.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
+    assert port_story.calculate_new_dimensions(height, width, target) == (
+        ref_story.calculate_new_dimensions(height, width, target))
+
+
+def _sd_batches(builders, tok, transforms, n, **kwargs):
+    pipe = builders.build_long_story_datapipe(
+        tokenizer=tok.TinyTokenizer(), image_transform=transforms.get_transform("clip", False, 28),
+        sd_image_transform=transforms.get_transform("sd", True, 64), **kwargs)
+    it = iter(pipe)
+    return [next(it) for _ in range(n)]
+
+
+def test_sd_image_transform_flows_like_the_jax_package(workspace, tmp_path):
+    """Stage 3's targets: the long-story datapipe with the SDXL transform
+    gives the JAX package's ``sd_images`` bit for bit and its ``time_ids``,
+    on the shared workspace and on a 640x480 story, whose row carries the
+    reference's swapped crop (the offset in the y slot)."""
+    got = _sd_batches(port_builders, port_tok, port_transforms, 4, **_pipe_kwargs(workspace))
+    _assert_same_batches(got, _sd_batches(ref_builders, ref_tok, ref_transforms, 4,
+                                          **_pipe_kwargs(workspace)))
+    assert got[0]["sd_images"].shape == (2, 3, 64, 64) and got[0]["time_ids"].shape == (2, 6)
+    assert got[0]["sd_images"].dtype == np.float32 and got[0]["time_ids"].dtype == np.int32
+
+    (tmp_path / "images").mkdir()
+    (tmp_path / "data").mkdir()
+    names = [f"s0_{i}.jpg" for i in range(4)]
+    for i, name in enumerate(names):
+        Image.new("RGB", (640, 480), (10 * i, 60, 120)).save(tmp_path / "images" / name)
+    with open(tmp_path / "data" / "train.jsonl", "w") as f:
+        f.write(json.dumps({"images": names,
+                            "captions": [f"scene {i} with a dog" for i in range(4)]}) + "\n")
+    kwargs = _pipe_kwargs(tmp_path, story_len=4, cycle_count=4)
+    got = _sd_batches(port_builders, port_tok, port_transforms, 1, **kwargs)
+    _assert_same_batches(got, _sd_batches(ref_builders, ref_tok, ref_transforms, 1, **kwargs))
+    np.testing.assert_array_equal(got[0]["time_ids"], [[480, 640, 10, 0, 64, 64]] * 2)
+    flat = port_story.flatten_images(got[0])
+    assert flat["sd_images"] is got[0]["sd_images"] and flat["time_ids"] is got[0]["time_ids"]
+
+
 def test_collate_and_flatten_images_match_the_jax_package(workspace):
     pipe = port_builders.build_long_story_datapipe(
         tokenizer=port_tok.TinyTokenizer(), **_pipe_kwargs(workspace, batch_size=None))

@@ -165,6 +165,15 @@ BWD_FULL_GRID_CASES = [
 ]
 
 
+# The SDXL UNet's cross-attention in stage 3: d=64 queries onto the
+# resampler's 64 keys, fewer than one 128-key block, on a small grid and on
+# the 32x32 level's full one.
+BWD_UNET_CROSS_CASES = [
+    (False, 257, 64, 4, 4, 64, None, None),
+    (False, 1024, 64, 20, 20, 64, None, None),
+]
+
+
 def _assert_grads_close(got, want):
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.dtype == torch.bfloat16 and g.shape == w.shape, name
@@ -176,7 +185,7 @@ def _assert_grads_close(got, want):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("causal,sq,skv,hq,hkv,d,q_start,kv_len",
-                         CASES + BWD_EDGE_CASES + BWD_FULL_GRID_CASES)
+                         CASES + BWD_EDGE_CASES + BWD_FULL_GRID_CASES + BWD_UNET_CROSS_CASES)
 def test_backward_kernels_match_plain_on_gpu(causal, sq, skv, hq, hkv, d, q_start, kv_len):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the flash kernels have no CPU mode)")

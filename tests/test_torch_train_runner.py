@@ -1,9 +1,10 @@
 """The port's training runner on the CPU at pico size: resume replays an
 uninterrupted run bit for bit (LoRA dropout on, data position restored),
 the checkpoint manager keeps whole checkpoints only, ``load_params_partial``
-reports what it could not load, and the stage-2 entry point
-``seed_story_torch.train.train_clm_sft.main`` runs from YAML configs and
-jsonl + jpg data on disk, with a profiler window, and resumes."""
+reports what it could not load, and the stage-2 and stage-3 entry points
+(``seed_story_torch.train.train_clm_sft.main``,
+``seed_story_torch.train.train_sdxl_img2img_llm.main``) run from YAML
+configs and jsonl + jpg data on disk and resume."""
 
 import json
 import os
@@ -108,8 +109,8 @@ def test_load_params_partial_reports_missing_and_unexpected(tmp_path):
 
 @pytest.fixture(scope="module")
 def workspace(tmp_path_factory):
-    """``tests/test_train_entries.py::workspace``, stage-2 part: pico YAML
-    configs and three 4-image stories of jpgs and jsonl."""
+    """``tests/test_train_entries.py::workspace``, stage-2 and stage-3 parts:
+    pico YAML configs and three 4-image stories of jpgs and jsonl."""
     root = tmp_path_factory.mktemp("ws")
     img_dir = root / "images"
     img_dir.mkdir()
@@ -147,6 +148,23 @@ def workspace(tmp_path_factory):
         "_target_: seed_story_tpu.models.agent.AgentConfig\n"
         "input_resampler_grid: 2\noutput_resampler_grid: 3\n"
         "num_img_out_tokens: 4\nresampler_heads: 2\nvit_dim: 64\n")
+    (cfg / "sd_transform.yaml").write_text(
+        "_target_: seed_story_tpu.data.transforms.get_transform\n"
+        "type: sd\nimage_size: 32\nkeep_ratio: True\n")
+    (cfg / "adapter.yaml").write_text(
+        "_target_: seed_story_tpu.models.sdxl.adapter.SDXLAdapterConfig\n"
+        "resampler_dim: 32\nresampler_depth: 1\nresampler_heads: 2\n"
+        "resampler_queries: 4\nembedding_dim: 64\noutput1_dim: 32\noutput2_dim: 64\n"
+        "unet:\n"
+        "  _target_: seed_story_tpu.models.sdxl.unet.SDXLUNetConfig\n"
+        "  block_out_channels: [16, 32, 32]\n  transformer_layers_per_block: [1, 1, 1]\n"
+        "  attention_head_dim: 8\n  cross_attention_dim: 32\n"
+        "  addition_time_embed_dim: 8\n  projection_class_embeddings_input_dim: 112\n"
+        "  pooled_projection_dim: 64\n  norm_num_groups: 8\n"
+        + "".join("  " + line + "\n" for line in f32.splitlines()))
+    (cfg / "vae.yaml").write_text(
+        "_target_: seed_story_tpu.models.sdxl.vae.VAEConfig\n"
+        "block_out_channels: [16, 32, 32, 32]\nnorm_num_groups: 8\n" + f32)
     (cfg / "data.yaml").write_text(
         "_target_: seed_story_tpu.data.builders.build_multi_datapipes\n"
         "_recursive_: False\n"
@@ -189,6 +207,45 @@ def test_stage2_entry_runs_from_yaml_and_resumes(workspace):
     assert len(losses) == 3 and np.isfinite(losses).all()
     with open(out / "3" / "meta.json") as f:
         assert json.load(f)["data_state"] is not None  # the datapipe position travels along
+
+    trainer = main(argv + ["--resume_from_checkpoint", str(out), "--max_steps", "4"],
+                   device="cpu")
+    assert trainer.step_count == 4 and (out / "4").is_dir()
+
+
+def test_stage3_entry_runs_from_yaml_and_resumes(workspace):
+    from seed_story_torch.train.train_sdxl_img2img_llm import main
+
+    cfg, out = workspace / "configs", workspace / "out_sdxl"
+    argv = ["--image_transform", str(cfg / "transform.yaml"),
+            "--sd_image_transform", str(cfg / "sd_transform.yaml"),
+            "--tokenizer", str(cfg / "tokenizer.yaml"),
+            "--visual_encoder", str(cfg / "vit.yaml"),
+            "--llm_model", str(cfg / "llm.yaml"),
+            "--agent_model", str(cfg / "agent.yaml"),
+            "--adapter", str(cfg / "adapter.yaml"),
+            "--vae", str(cfg / "vae.yaml"),
+            "--train_dataset", str(cfg / "data.yaml"),
+            "--output_dir", str(out), "--max_steps", "2", "--save_steps", "2",
+            "--log_steps", "1", "--warmup_steps", "1", "--gradient_accumulation_steps", "1",
+            "--sharding", "dp"]
+    for mesh in (["--mesh_data", "2"], ["--mesh_model", "2"]):
+        with pytest.raises(ValueError, match="one device"):
+            main(argv + mesh, device="cpu")
+    if not torch.cuda.is_available():  # no CPU continuation without being asked
+        with pytest.raises(RuntimeError, match="CUDA"):
+            main(argv)
+    trainer = main(argv, device="cpu")
+    assert trainer.step_count == 2 and (out / "2").is_dir()
+    trained = sorted(trainer.params)
+    assert trained and all(n.startswith("resampler.") or n.split(".")[-2] in ("to_k", "to_v")
+                           for n in trained)
+    assert any(".attn1.to_k." in n for n in trained) and any(".attn2.to_v." in n for n in trained)
+    logged = [json.loads(line) for line in (out / "metrics.jsonl").read_text().splitlines()]
+    losses = [m["mse_loss"] for m in logged if "mse_loss" in m]
+    assert len(losses) == 2 and np.isfinite(losses).all()
+    with open(out / "2" / "meta.json") as f:
+        assert json.load(f)["data_state"] is not None
 
     trainer = main(argv + ["--resume_from_checkpoint", str(out), "--max_steps", "4"],
                    device="cpu")

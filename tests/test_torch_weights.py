@@ -127,9 +127,10 @@ def test_adapter_and_vae_round_trip():
     vparams = jax_params(ref_vae.AutoencoderKL(ref_vae.VAEConfig.tiny()), jnp.zeros((1, 8, 8, 3)))
     vae = AutoencoderKL(VAEConfig.tiny())
     vae.load_state_dict(W.vae_state_dict(vae, vparams))
+    assert {"encoder", "quant_conv"} <= set(vparams)  # the encoder travels too
+    assert "encoder.down_blocks.0.downsamplers.0.conv.weight" in vae.state_dict()
     back, _, _ = conv.convert_sdxl_vae(_numpy_sd(vae))
-    _assert_same_tree(back, {k: v for k, v in vparams.items()
-                             if k not in ("encoder", "quant_conv")})
+    _assert_same_tree(back, vparams)
 
 
 def test_state_dict_rejects_a_tree_of_another_shape():
@@ -161,8 +162,8 @@ def test_port_imports_no_jax_flax_yaml_or_pil():
         "inference.common", "inference.gen_george", "inference.vis_george_sink",
         "pipelines.serving", "pipelines.story_generation")} <= set(names)
     assert {f"seed_story_torch.train.{m}" for m in (
-        "trainer", "stage2", "checkpoint", "metrics", "runner", "scheduler",
-        "train_clm_sft")} <= set(names)
+        "trainer", "stage2", "stage3", "checkpoint", "metrics", "runner", "scheduler",
+        "train_clm_sft", "train_sdxl_img2img_llm")} <= set(names)
     assert {f"seed_story_torch.data.{m}" for m in (
         "tokenizer", "story_telling", "datapipes", "builders", "transforms")} <= set(names)
     # the port keeps its own copies of the JAX package's framework-free modules
