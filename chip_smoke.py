@@ -71,6 +71,16 @@ lockstep shapes too: kernel A at 4, 10, 20 and 32 rows (and rows of a
 20-row call bit-equal to those of 5-row calls), kernel B over 4 rows of
 unequal lengths.
 
+After the decode kernels, the probes phase: the attention probes'
+kernels (``csrc/probe_attn.cu``: the variants' online kernel in three
+variants at four tile instances, the single pass in its three layouts, the
+copy) against their plain versions at the shapes of the JAX probes
+(``benchmarks/probe_attn_*.py``), with device ms, the chained ``bench``
+time, the bound, the exp floor (the exponentials over the SFU's rate), the
+plain version's ms and SDPA's (``q + v`` for the copy); then the three
+probes' ``main()`` (``seed_story_torch.benchmarks.probe_attn_*``), with
+each probe kernel's launches counted over them.
+
     python3 chip_smoke.py --baseline LOG
 
 also prints each decode kernel's device time beside the one that LOG (an
@@ -88,7 +98,6 @@ import gc
 import json
 import os
 import re
-import subprocess
 import sys
 import tempfile
 import time
@@ -110,6 +119,10 @@ from seed_story_torch.models.sdxl.adapter import (SDXLAdapter, SDXLAdapterConfig
 from seed_story_torch.models.sdxl.unet import CrossAttention, SDXLUNetConfig
 from seed_story_torch.models.sdxl.vae import AutoencoderKL, VAEConfig
 from seed_story_torch.models.vit import ViTConfig, VisionTransformerWithAttnPool
+from seed_story_torch.benchmarks import (probe_attn_dma, probe_attn_overhead, probe_attn_variants,
+                                          probe_kernels)
+from seed_story_torch.benchmarks.common import bench, card_label
+from seed_story_torch.benchmarks.common import qkv as probe_qkv
 from seed_story_torch.data.tokenizer import image_comprehension_string
 from seed_story_torch.ops.attention import (
     _normalize_lens,
@@ -151,7 +164,8 @@ SDPA_BACKENDS = ("FLASH_ATTENTION", "CUDNN_ATTENTION", "EFFICIENT_ATTENTION")
 # two bf16 roundings, f32 sums in another order.
 INT8_MAX_REL, INT8_MEAN_REL = 1e-2, 1e-3
 KERNELS = (("flash_fwd", flash_fwd), ("flash_bwd", flash_bwd),
-           ("int8_linear", int8_linear_kernel), ("decode_attn", decode_attn))
+           ("int8_linear", int8_linear_kernel), ("decode_attn", decode_attn),
+           ("probe_attn", probe_kernels.probe_attn))
 
 
 def forbidden_imports() -> list:
@@ -159,13 +173,6 @@ def forbidden_imports() -> list:
     imports neither."""
     bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "seed_story_tpu")))
     return [f"imported {bad[:5]}"] if bad else []
-
-
-def card_label() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-    return out.splitlines()[0]
 
 
 def phase_device():
@@ -652,6 +659,123 @@ def phase_decode_attn_kernel(label: str):
     if failed:
         raise AssertionError(f"decode_attn disagrees with the plain version at {failed}")
     return rows
+
+
+# The attention probes (seed_story_torch/benchmarks/): each kernel against
+# its plain version at the shapes of the JAX probes, then each probe's
+# main(). The exp floor is a shape's exponentials over the SFU's rate: 16
+# MUFU results a clock per multiprocessor (compute capability 9.0), 132
+# multiprocessors, at the 1.83 GHz that the bf16 peak assumes.
+EXP_PER_S = 16 * 132 * 1.83e9
+PROBE_ATTN_SHAPES = ((2, 10, 4096, 64), (2, 20, 1024, 64))
+PROBE_SP_SHAPES = ((2, 20, 1024, 64), (2, 10, 2048, 64))
+PROBE_COPY_SHAPES = ((2, 20, 1024, 64), (2, 10, 2048, 64), (2, 10, 4096, 64), (2, 10, 1024, 128))
+PROBE_ENTRY_POINTS = (probe_attn_variants, probe_attn_overhead, probe_attn_dma)
+
+
+def phase_probes(label: str):
+    """Each probe kernel against its plain version on the same bf16 inputs
+    at every probe shape (a second call bit-equal), with device ms
+    (torch.profiler), the chained ``bench`` time of the whole call, the
+    plain version's ms, the bound (4 S^2 d operations a head; Q, K, V and O
+    once), the exp floor and one library call on the same inputs (SDPA;
+    ``q + v`` for the copy); then the three probes' ``main()`` with the
+    launch counts set to 0 just before and read just after."""
+    t0 = time.perf_counter()
+    rows, failed, library = [], [], {}
+
+    def measure(name, shape, f, plain, tensors, exps, **fields):
+        q, k, v = tensors
+        attention = name != "probe_copy_only"
+        got, again = f(q, k, v), f(q, k, v)
+        torch.cuda.synchronize()
+        want = plain(q, k, v)
+        row = dict(kernel=name, shape=list(shape), **fields)
+        if not torch.equal(got, again):
+            failed.append(f"{name} {shape} {fields}: a second call differs")
+        if not attention:
+            row["bitwise"] = torch.equal(got, want)
+            row["o_max_abs"] = float((got.float() - want.float()).abs().max())
+            ok = row["bitwise"]
+        elif fields.get("variant") == "noexp":
+            row["noexp_conditioned"] = probe_kernels.noexp_error(q, k, got, want)
+            ok = row["noexp_conditioned"] <= O_MAX_ABS and bool(torch.isfinite(got.float()).all())
+        else:
+            err = (got.float() - want.float()).abs()
+            row["o_max_abs"], row["o_mean_abs"] = float(err.max()), float(err.mean())
+            ok = row["o_max_abs"] <= O_MAX_ABS and row["o_mean_abs"] <= O_MEAN_ABS
+        if not ok:
+            failed.append(f"{name} {shape} {fields}")
+        del got, again, want
+        iters = 10 if q.shape[2] >= 4096 else 20
+        row["ms"], row["recorded"] = _profiled_ms(lambda: f(q, k, v), iters, ("probe_",))["probe_"]
+        row["bench_ms"] = 1e3 * bench(f, q, k, v)
+        row["plain_ms"] = _time_ms(lambda: plain(q, k, v), 3)
+        b, h, s, d = q.shape
+        row["bound_ms"], row["bound_by"] = bound(4 * b * h * s * s * d if attention else 0,
+                                                 4 * q.numel() * q.element_size())
+        row["roofline"] = row["bound_ms"] / row["ms"]
+        row["exp_floor_ms"] = 1e3 * exps / EXP_PER_S if exps else None
+        if attention:
+            if shape not in library:
+                library[shape] = time_library(q, k, v, iters, False, None, None)
+            row["library_ms"], row["library"] = library[shape]
+        else:
+            row["library_ms"] = _profiled_ms(lambda: q + v, iters)["all"][0]
+            row["library"] = "q + v"
+        print(f"probe {name} {shape}: {json.dumps(row)} [{label}]", flush=True)
+        rows.append(row)
+
+    for shape in PROBE_ATTN_SHAPES:
+        b, h, s, d = shape
+        tensors = probe_qkv(shape, torch.device("cuda"))
+        for variant in probe_kernels.VARIANTS:
+            for bq, bkv in probe_kernels.TILES:
+                kw = dict(variant=variant, block_q=bq, block_kv=bkv)
+                measure("probe_attn", shape,
+                        lambda q, k, v, kw=kw: probe_kernels.attn(q, k, v, implementation="kernel",
+                                                                  **kw),
+                        lambda q, k, v, kw=kw: probe_kernels.attn(q, k, v, implementation="plain",
+                                                                  **kw),
+                        tensors, 0 if variant == "noexp" else b * h * s * s, **kw)
+        del tensors
+    sp_shapes = {"probe_single_pass": PROBE_SP_SHAPES,
+                 "probe_single_pass_fused_bh": PROBE_SP_SHAPES,
+                 "probe_attn_packed2": PROBE_SP_SHAPES[:1]}
+    for name, shapes in sp_shapes.items():
+        fn = getattr(probe_kernels, name.removeprefix("probe_"))
+        for shape in shapes:
+            b, h, s, d = shape
+            measure(name, shape, lambda q, k, v: fn(q, k, v, implementation="kernel"),
+                    lambda q, k, v: fn(q, k, v, implementation="plain"),
+                    probe_qkv(shape, torch.device("cuda")), b * h * s * s)
+    for shape in PROBE_COPY_SHAPES:
+        measure("probe_copy_only", shape,
+                lambda q, k, v: probe_kernels.copy_only(q, k, v, implementation="kernel"),
+                lambda q, k, v: probe_kernels.copy_only(q, k, v, implementation="plain"),
+                probe_qkv(shape, torch.device("cuda")), 0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    checked_s = time.perf_counter() - t0
+
+    for kernel in probe_kernels.KERNELS:
+        kernel.launches = 0
+    results = {m.__name__.rpartition(".")[2]: m.main() for m in PROBE_ENTRY_POINTS}
+    launches = {kernel.name: kernel.launches for kernel in probe_kernels.KERNELS}
+    torch.cuda.empty_cache()
+    print(f"probes main-path launches: {json.dumps(launches)} [{label}]", flush=True)
+    failed += [f"{name}: not launched by the probes' main()"
+               for name, n in launches.items() if n == 0]
+    for probe, out in results.items():
+        failed += [f"{probe} {r}" for r in out
+                   if r.get("max_abs", 0.0) > O_MAX_ABS or not np.isfinite(r.get("ms", 0.0))]
+    print(f"probes phase: {checked_s:.1f} s of checks and timing, "
+          f"{time.perf_counter() - t0 - checked_s:.1f} s of the three main()s [{label}]",
+          flush=True)
+    failed += forbidden_imports()
+    if failed:
+        raise AssertionError(f"probes phase failed: {failed}")
+    return rows, launches
 
 
 # Cuts for time; widths and depths are the configs' own.
@@ -1694,6 +1818,40 @@ def phase_stage3(label: str):
     return launches
 
 
+# The kernels line's probe entries: (kernel, the TPU kernel it replaces, the
+# row it reports: shape and, for the variants' kernel, variant and tiles).
+PROBE_REPORT = (
+    ("probe_attn", "benchmarks/probe_attn_variants.py:77",
+     ((2, 10, 4096, 64), dict(variant="base", block_q=128, block_kv=128))),
+    ("probe_single_pass", "benchmarks/probe_attn_overhead.py:48", ((2, 10, 2048, 64), {})),
+    ("probe_single_pass_fused_bh", "benchmarks/probe_attn_overhead.py:76",
+     ((2, 10, 2048, 64), {})),
+    ("probe_copy_only", "benchmarks/probe_attn_overhead.py:32 and benchmarks/probe_attn_dma.py:32",
+     ((2, 20, 1024, 64), {})),
+    ("probe_attn_packed2", "benchmarks/probe_attn_dma.py:51", ((2, 20, 1024, 64), {})),
+)
+
+
+def probe_entry(name: str, replaces: str, rows: list, launches: int, at) -> dict:
+    """A probe kernel's entry of the kernels line: its numbers at the row
+    ``at`` names, its largest error over every shape, and every row's device
+    ms, bench ms and bound."""
+    shape, fields = at
+    mine = [r for r in rows if r["kernel"] == name]
+    row = next(r for r in mine if tuple(r["shape"]) == shape
+               and all(r.get(k) == v for k, v in fields.items()))
+    return {"name": name, "route": "cuda", "source": "seed_story_torch/csrc/probe_attn.cu",
+            "replaces": replaces, "launches": launches, "launches_by_path": {"probes": launches},
+            "max_abs_err": max(r.get("o_max_abs", 0.0) for r in mine),
+            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "library": row["library"], "exp_floor_ms": row["exp_floor_ms"],
+            "at": {"shape": list(shape), **fields},
+            "rows": [{k: r.get(k) for k in ("shape", "variant", "block_q", "block_kv", "ms",
+                                            "bench_ms", "bound_ms", "library_ms")}
+                     for r in mine]}
+
+
 def compare_with_baseline(path: str, int8_rows: list, attn_rows: list):
     """Prints each decode kernel's device ms beside the one an earlier run
     logged at the same shape (that run's own "int8_linear <name>: {...}" and
@@ -1725,6 +1883,7 @@ def main():
     attn_rows = phase_decode_attn_kernel(label)
     if args.baseline:
         compare_with_baseline(args.baseline, int8_rows, attn_rows)
+    probe_rows, probe_launches = phase_probes(label)
     story_launches, stack = phase_story(label)
     flagship_launches, _ = phase_flagship(label, stack)
     lockstep_launches, lockstep_stats, lockstep_segments = phase_lockstep(label, stack)
@@ -1792,6 +1951,8 @@ def main():
          "plain_ms": b_at["plain_ms"], "bound_ms": b_at["bound_ms"],
          "bound_by": b_at["bound_by"], "library_ms": b_at["library_ms"],
          "library": f"SDPA on a dequantized cache: {b_at['library']}", "at": b_at["name"]},
+        *(probe_entry(name, replaces, probe_rows, probe_launches[name], at)
+          for name, replaces, at in PROBE_REPORT),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,107 @@
+"""The attention probes' CUDA kernels (``csrc/probe_attn.cu``) against their
+plain PyTorch versions, on the card.
+
+The kernels have no CPU mode, so these tests skip without CUDA. They import
+neither JAX nor the JAX package, so they run on a machine that has only
+PyTorch: ``python -m pytest --noconftest -m gpu tests/test_torch_probes_gpu.py``.
+Both sides take the same bf16 inputs; the plain versions compute in f32
+with P rounded to bf16 before PV, as the kernels do. Limits: O max abs
+2e-2 and mean abs 2e-3 (``PERF.md`` section 2), set by bf16 rounding of P
+where the two sum S in another order; ``noexp`` by its conditioned measure
+(``probe_kernels.noexp_error``) at 2e-2; the copy bit for bit. A second
+call must give the same bits.
+"""
+
+import pytest
+import torch
+
+from seed_story_torch.benchmarks import probe_kernels as pk
+
+O_MAX_ABS, O_MEAN_ABS = 2e-2, 2e-3
+
+
+def _qkv(shape, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return tuple(torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+                 for _ in range(3))
+
+
+def _need_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the probe kernels have no CPU mode)")
+
+
+def _close(got, want):
+    err = (got.float() - want.float()).abs()
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert bool(torch.isfinite(got.float()).all())
+    assert float(err.max()) <= O_MAX_ABS and float(err.mean()) <= O_MEAN_ABS
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block_q,block_kv", pk.TILES)
+@pytest.mark.parametrize("variant", pk.VARIANTS)
+def test_attn_kernel_matches_plain_on_gpu(variant, block_q, block_kv):
+    _need_cuda()
+    q, k, v = _qkv((2, 4, 512, 64), seed=block_q + block_kv)
+    before = pk.probe_attn.launches
+    got = pk.attn(q, k, v, variant, block_q, block_kv, implementation="kernel")
+    again = pk.attn(q, k, v, variant, block_q, block_kv, implementation="kernel")
+    torch.cuda.synchronize()
+    assert pk.probe_attn.launches == before + 2
+    assert torch.equal(got, again)
+    want = pk.attn(q, k, v, variant, block_q, block_kv, implementation="plain")
+    if variant == "noexp":
+        assert bool(torch.isfinite(got.float()).all())
+        assert pk.noexp_error(q, k, got, want) <= O_MAX_ABS
+    else:
+        _close(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 4, 256, 64), (1, 2, 192, 64), (3, 2, 1024, 64)])
+@pytest.mark.parametrize("name", ["single_pass", "single_pass_fused_bh", "attn_packed2"])
+def test_single_pass_kernels_match_plain_on_gpu(name, shape):
+    """Both layouts of the single-pass template (flat heads, one or two a
+    block; packed head pairs), with a last group of query rows that is
+    partly past S (192 rows)."""
+    _need_cuda()
+    q, k, v = _qkv(shape, seed=shape[2])
+    kernel = {"single_pass": pk.probe_single_pass,
+              "single_pass_fused_bh": pk.probe_single_pass_fused_bh,
+              "attn_packed2": pk.probe_attn_packed2}[name]
+    before = kernel.launches
+    fn = getattr(pk, name)
+    got = fn(q, k, v, implementation="kernel")
+    again = fn(q, k, v, implementation="kernel")
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 2
+    assert torch.equal(got, again)
+    _close(got, fn(q, k, v, implementation="plain"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 20, 1024, 64), (2, 10, 1024, 128), (1, 3, 40, 8)])
+def test_copy_kernel_is_q_plus_v_bitwise_on_gpu(shape):
+    _need_cuda()
+    q, k, v = _qkv(shape, seed=7)
+    before = pk.probe_copy_only.launches
+    got = pk.copy_only(q, k, v, implementation="kernel")
+    torch.cuda.synchronize()
+    assert pk.probe_copy_only.launches == before + 1
+    assert torch.equal(got, q + v)
+
+
+@pytest.mark.gpu
+def test_kernels_refuse_what_they_do_not_take_on_gpu():
+    _need_cuda()
+    q, k, v = _qkv((1, 2, 256, 64), seed=0)
+    with pytest.raises(TypeError, match="bfloat16"):
+        pk.single_pass(q.float(), k.float(), v.float(), implementation="kernel")
+    with pytest.raises(ValueError, match="contiguous"):
+        pk.attn(q.transpose(2, 3).contiguous().transpose(2, 3), k, v, implementation="kernel")
+    with pytest.raises(ValueError, match="multiple of 64"):
+        pk.single_pass(*(t[:, :, :96].contiguous() for t in (q, k, v)), implementation="kernel")
+    with pytest.raises(ValueError, match="head dim 64"):
+        pk.attn(*(torch.zeros(1, 1, 128, 128, dtype=torch.bfloat16, device="cuda")
+                  for _ in range(3)), implementation="kernel")

@@ -166,6 +166,9 @@ def test_port_imports_no_jax_flax_yaml_or_pil():
         "train_clm_sft", "train_sdxl_img2img_llm")} <= set(names)
     assert {f"seed_story_torch.data.{m}" for m in (
         "tokenizer", "story_telling", "datapipes", "builders", "transforms")} <= set(names)
+    assert {f"seed_story_torch.benchmarks.{m}" for m in (
+        "common", "probe_kernels", "probe_attn_variants", "probe_attn_overhead",
+        "probe_attn_dma")} <= set(names)
     # the port keeps its own copies of the JAX package's framework-free modules
     code = ("import importlib, sys\n"
             f"for name in {names!r}:\n"
