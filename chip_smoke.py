@@ -42,8 +42,14 @@ exits non-zero:
    SDXL targets/s, the stage split and peak GiB printed, then one more
    microbatch profiled (device ms, busy share, flash and largest kernels).
 
-Between 3 and 4, the decode kernels: the weight-only int8 product
-(``csrc/int8_linear.cu``) at the 7B projections' shapes (1 and 5 rows) and
+Between 3 and 4, the decode kernels and kernel C: the weight-only int8
+product for 1-32 rows (``csrc/int8_linear.cu``, kernel A) at the 7B
+projections' shapes (1 and 5 rows); kernel C, the int8 GEMM for more rows
+(``csrc/int8_gemm.cu``), and its transposed form (the gradient to x) against
+their exact plain versions at every shape of the int8 UNet's CFG step at
+1024x1024, a flagship prefill and the stage-2 batch, with device ms,
+bounds, the plain expression and ``F.linear`` on a bf16 copy of W (which the
+port never calls), and rows of a 2048-row call bit-equal to a 64-row call; and
 the small-query cache attention (``csrc/decode_attn.cu``, int8 and bf16
 caches, 1 and 5 queries, GQA and an empty row) against their plain
 versions, with device times, bounds and the library yardsticks (``F.linear``
@@ -55,7 +61,8 @@ segments), a speculative-against-greedy token check, ``run_sink`` (4
 segments, window 2, two evictions) and the visualization flow (3
 ground-truth texts, window 2), with the kernels' launches per decode pass
 checked, then one verify pass of ``run`` profiled (device time of the
-int8 products, the cache attention and the rest, and its wall time). After
+int8 products, the cache attention and the rest, and its wall time), and
+``run``'s last prefill profiled on kernel C and on the plain int8 product. After
 the flagship phase, on the same stack: the lockstep phase (B = 4 stories
 with different seeds through ``run_batch`` for 2 rounds, kernel A taking the
 (4, 5) verify block as 20 rows; each story's tokens against the same story
@@ -66,7 +73,16 @@ one-story runs, peak GiB) and the serving phase (the
 same 4 seeds through ``PipelinedStoryServer`` with one de-tokenizer replica
 on the same card on its own CUDA stream: texts identical to ``run_batch``'s,
 images within 2/255, segments in per-story order, the serve wall against the
-inline wall and the pool's busy seconds). The decode kernels' rows cover the
+inline wall and the pool's busy seconds). Those three phases prefill through
+kernel C (224 launches a prefill). Then the int8 UNet phase on the same
+stack (``--sdxl_int8``): one CFG step of the bf16 UNet, the UNet quantized in
+place, the same step on kernel C (one launch per quantized linear layer,
+722 at SDXL-base) and on the plain int8 product (gated: correlation >=
+0.999), and one 8-step image. After stage 2, the same training with
+``quantize_base`` (the one-chip recipe's frozen int8 base): int8 weights and
+scales bit-equal after 4 steps, LoRA moved, 3 x 224 kernel C launches a
+step, the first loss against the plain int8 product's within 1e-2; s/step,
+tokens/s and peak GiB beside the bf16 phase's. The decode kernels' rows cover the
 lockstep shapes too: kernel A at 4, 10, 20 and 32 rows (and rows of a
 20-row call bit-equal to those of 5-row calls), kernel B over 4 rows of
 unequal lengths.
@@ -94,6 +110,8 @@ The line before the last is the kernel report (JSON); the last line is
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
 import gc
 import json
 import os
@@ -113,10 +131,11 @@ from torch.nn.attention import SDPBackend, sdpa_kernel
 from seed_story_torch.decode.generate import GenerateConfig, StoryGenerator
 from seed_story_torch.inference.common import build_stack, fill_module, quantize_agent_
 from seed_story_torch.models.agent import AgentConfig, ContinuousLVLM
-from seed_story_torch.models.llama import LlamaConfig, LoRADense, lora_trainable_mask
+from seed_story_torch.models import llama as llama_module
+from seed_story_torch.models.llama import LlamaConfig, LoRADense, derive_seed, lora_trainable_mask
 from seed_story_torch.models.sdxl.adapter import (SDXLAdapter, SDXLAdapterConfig,
-                                                  adapter_trainable_mask)
-from seed_story_torch.models.sdxl.unet import CrossAttention, SDXLUNetConfig
+                                                  adapter_trainable_mask, quantize_adapter_)
+from seed_story_torch.models.sdxl.unet import CrossAttention, SDXLUNetConfig, quantized_modules
 from seed_story_torch.models.sdxl.vae import AutoencoderKL, VAEConfig
 from seed_story_torch.models.vit import ViTConfig, VisionTransformerWithAttnPool
 from seed_story_torch.benchmarks import (probe_attn_dma, probe_attn_overhead, probe_attn_variants,
@@ -135,7 +154,8 @@ from seed_story_torch.ops.attention import (
     mha_backward_reference,
     mha_reference_lse,
 )
-from seed_story_torch.ops.int8_linear import int8_linear, int8_linear_kernel
+from seed_story_torch.ops import dense as dense_module
+from seed_story_torch.ops.int8_linear import int8_gemm_kernel, int8_linear, int8_linear_kernel
 from seed_story_torch.pipelines.serving import DetokenizerPool, PipelinedStoryServer
 from seed_story_torch.pipelines.story_generation import (
     StoryGenerationPipeline,
@@ -145,7 +165,7 @@ from seed_story_torch.pipelines.story_visualization import (
     StoryVisualizationPipeline,
     VisPipelineConfig,
 )
-from seed_story_torch.train.runner import (LAUNCH_COUNTS, RunnerArgs, flash_launch_counts,
+from seed_story_torch.train.runner import (LAUNCH_COUNTS, RunnerArgs, kernel_launch_counts,
                                            run_training, to_device)
 from seed_story_torch.train.stage2 import make_stage2_loss_fn
 from seed_story_torch.train.stage3 import make_stage3_loss_fn
@@ -164,8 +184,23 @@ SDPA_BACKENDS = ("FLASH_ATTENTION", "CUDNN_ATTENTION", "EFFICIENT_ATTENTION")
 # two bf16 roundings, f32 sums in another order.
 INT8_MAX_REL, INT8_MEAN_REL = 1e-2, 1e-3
 KERNELS = (("flash_fwd", flash_fwd), ("flash_bwd", flash_bwd),
-           ("int8_linear", int8_linear_kernel), ("decode_attn", decode_attn),
-           ("probe_attn", probe_kernels.probe_attn))
+           ("int8_linear", int8_linear_kernel), ("int8_gemm", int8_gemm_kernel),
+           ("decode_attn", decode_attn), ("probe_attn", probe_kernels.probe_attn))
+
+
+@contextlib.contextmanager
+def plain_int8_products():
+    """Inside: the int8 products of the UNet's linear layers and the LLaMA's
+    projections take their plain version (F.linear on a bf16 copy of W),
+    for the comparisons of the int8 UNet and quantize_base train phases.
+    The port has no such switch; this script swaps the two modules' name."""
+    saved = dense_module.int8_linear, llama_module.int8_linear
+    dense_module.int8_linear = llama_module.int8_linear = functools.partial(
+        int8_linear, implementation="plain")
+    try:
+        yield
+    finally:
+        dense_module.int8_linear, llama_module.int8_linear = saved
 
 
 def forbidden_imports() -> list:
@@ -589,6 +624,129 @@ def phase_int8_kernel(label: str):
     return rows
 
 
+# Kernel C, the int8 GEMM for more than 32 rows: (name, M, K, N, with the
+# transposed form). The int8 UNet at 1024x1024 with the CFG pair (M = 2 x
+# 4096 at C = 640, 2 x 1024 at C = 1280; (K, N) = (C, C), (C, 8C), (4C, C);
+# attn2 to_k / to_v at M = 2 x 64 from the 2048-wide context), a flagship
+# prefill's rows at the 7B projections (a context near the smoke's ~900), and
+# the stage-2 batch (2 x 1280 rows), forward and transposed.
+PREFILL_ROWS = 900
+INT8_GEMM_CASES = [
+    ("unet640_qkvo", 8192, 640, 640, False), ("unet640_geglu", 8192, 640, 5120, False),
+    ("unet640_ff_out", 8192, 2560, 640, False), ("unet640_attn2_kv", 128, 2048, 640, False),
+    ("unet1280_qkvo", 2048, 1280, 1280, False), ("unet1280_geglu", 2048, 1280, 10240, False),
+    ("unet1280_ff_out", 2048, 5120, 1280, False), ("unet1280_attn2_kv", 128, 2048, 1280, False),
+    ("prefill_qkvo", PREFILL_ROWS, 4096, 4096, False),
+    ("prefill_gate_up", PREFILL_ROWS, 4096, 11008, False),
+    ("prefill_down", PREFILL_ROWS, 11008, 4096, False),
+    ("train_qkvo", 2560, 4096, 4096, True), ("train_gate_up", 2560, 4096, 11008, True),
+    ("train_down", 2560, 11008, 4096, True),
+]
+# Launches of each UNet shape in one CFG step of SDXL-base: 10 transformer
+# blocks and 5 Transformer2DModels at C = 640, 60 and 6 at C = 1280; a block
+# runs q, k, v, out of attn1 and q, out of attn2 at (C, C), attn2's to_k /
+# to_v from the context, the GEGLU projection and the output projection; a
+# Transformer2DModel proj_in and proj_out.
+UNET_STEP_COUNTS = {"unet640_qkvo": 6 * 10 + 2 * 5, "unet640_geglu": 10, "unet640_ff_out": 10,
+                    "unet640_attn2_kv": 2 * 10, "unet1280_qkvo": 6 * 60 + 2 * 6,
+                    "unet1280_geglu": 60, "unet1280_ff_out": 60, "unet1280_attn2_kv": 2 * 60}
+
+
+def exact_transposed_int8(g, w, scale):
+    """The transposed form as it is defined: bf16(bf16(g * bf16(scale)) W)
+    with the product's sums in f32."""
+    return ((g * scale.to(torch.bfloat16)).float() @ w.float()).to(torch.bfloat16)
+
+
+def int8_gemm_row(name, m, n, k, a, w, scale, got, want, transposed) -> dict:
+    """Errors of one form of kernel C against its exact plain version, its
+    device ms, bound, the plain expression's ms and the library call's (on a
+    bf16 copy of W, and for the transposed form a pre-scaled g, both made
+    before the timer)."""
+    err = (got.float() - want.float()).abs()
+    row = dict(name=name, form="transposed" if transposed else "forward", shape=[m, n, k],
+               max_abs=float(err.max()), max_rel=float(err.max() / want.float().abs().max()),
+               mean_rel=float(err.mean() / want.float().abs().mean()),
+               finite=bool(torch.isfinite(got).all()))
+    if transposed:
+        kernel = lambda: int8_gemm_kernel.transposed(a, w, scale)  # noqa: E731
+        plain = lambda: torch.matmul(  # noqa: E731
+            a * scale.to(torch.bfloat16), w.to(torch.bfloat16))
+        w_bf16, a_lib = w.to(torch.bfloat16), a * scale.to(torch.bfloat16)
+        library = lambda: torch.matmul(a_lib, w_bf16)  # noqa: E731
+    else:
+        kernel = lambda: int8_gemm_kernel(a, w, scale)  # noqa: E731
+        plain = lambda: int8_linear(a, w, scale, implementation="plain")  # noqa: E731
+        w_bf16 = w.to(torch.bfloat16)
+        library = lambda: F.linear(a, w_bf16)  # noqa: E731
+    iters = 20 if m * n * k >= 1 << 33 else 50
+    t = [_time_ms(fn, iters) for fn in (plain, kernel, kernel, plain)]
+    row["call_ms"], row["plain_ms"] = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+    row["ms"], row["recorded"] = _profiled_ms(kernel, iters, ("int8_gemm_kernel",))[
+        "int8_gemm_kernel"]
+    flops, nbytes = 2 * m * n * k, n * k + 2 * m * k + 2 * m * n
+    row["bound_ms"], row["bound_by"] = bound(flops, nbytes)
+    row["roofline"] = row["bound_ms"] / row["ms"]
+    row["tflops"] = flops / row["ms"] / 1e9
+    row["library_ms"] = _profiled_ms(library, iters)["all"][0]
+    row["library"] = ("torch.matmul(g * bf16(scale), W_bf16)" if transposed
+                      else "F.linear(x, W_bf16)")
+    return row
+
+
+def phase_int8_gemm_kernel(label: str):
+    """Kernel C against its exact plain version at every distinct shape of
+    the int8 UNet, a flagship prefill and the quantize_base training step
+    (the transposed form at the training shapes), within kernel A's limits;
+    device ms, bound, the plain expression and the library yardstick. Then
+    rows 0-3 of a 2048-row call against a 64-row call, bit for bit."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    rows, failed = [], []
+    for name, m, k, n, with_transposed in INT8_GEMM_CASES:
+        x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+        w = torch.randint(-127, 128, (n, k), generator=gen, device="cuda", dtype=torch.int8)
+        scale = torch.rand(n, generator=gen, device="cuda") / (127 * k ** 0.5)
+        forms = [(x, int8_gemm_kernel(x, w, scale), exact_plain_int8(x, w, scale), False)]
+        if with_transposed:
+            g = torch.randn(m, n, generator=gen, device="cuda").to(torch.bfloat16)
+            forms.append((g, int8_gemm_kernel.transposed(g, w, scale),
+                          exact_transposed_int8(g, w, scale), True))
+        torch.cuda.synchronize()
+        for a, got, want, transposed in forms:
+            row = int8_gemm_row(name, m, n, k, a, w, scale, got, want, transposed)
+            if (not row["finite"] or row["max_rel"] > INT8_MAX_REL
+                    or row["mean_rel"] > INT8_MEAN_REL):
+                failed.append(f"{name} ({row['form']})")
+            print(f"int8_gemm {name} {row['form']}: {json.dumps(row)} [{label}]", flush=True)
+            rows.append(row)
+    forward = {r["name"]: r for r in rows if r["form"] == "forward"}
+    step = {key: sum(c * forward[s][key] for s, c in UNET_STEP_COUNTS.items())
+            for key in ("ms", "bound_ms", "plain_ms", "library_ms")}
+    print(f"int8_gemm per UNet CFG step: {sum(UNET_STEP_COUNTS.values())} launches, "
+          f"{json.dumps(step)} [{label}]", flush=True)
+    n_layers = LlamaConfig().num_hidden_layers
+    prefill = {key: n_layers * sum(PER_LAYER[s] * forward[f"prefill_{s}"][key]
+                                   for s in PER_LAYER)
+               for key in ("ms", "bound_ms", "plain_ms", "library_ms")}
+    print(f"int8_gemm per prefill of {PREFILL_ROWS} rows: {7 * n_layers} launches, "
+          f"{json.dumps(prefill)} [{label}]", flush=True)
+    x = torch.randn(2048, 4096, generator=gen, device="cuda").to(torch.bfloat16)
+    g = torch.randn(2048, 4096, generator=gen, device="cuda").to(torch.bfloat16)
+    w = torch.randint(-127, 128, (4096, 4096), generator=gen, device="cuda", dtype=torch.int8)
+    scale = torch.rand(4096, generator=gen, device="cuda") / (127 * 64)
+    equal = (torch.equal(int8_gemm_kernel(x, w, scale)[:4],
+                         int8_gemm_kernel(x[:64].contiguous(), w, scale)[:4])
+             and torch.equal(int8_gemm_kernel.transposed(g, w, scale)[:4],
+                             int8_gemm_kernel.transposed(g[:64].contiguous(), w, scale)[:4]))
+    print(f"int8_gemm: rows 0-3 of a 2048-row call bit-equal to a 64-row call (both forms): "
+          f"{equal} [{label}]", flush=True)
+    if not equal:
+        failed.append("rows of a 2048-row call differ from a 64-row call")
+    if failed:
+        raise AssertionError(f"int8_gemm disagrees with the plain version at {failed}")
+    return rows
+
+
 # The cache attention: (name, B, Hq, Hkv, S, C, int8 cache, kv_len). The
 # story phase's bf16 cache, the flagship phase's int8 cache at the smoke's
 # contexts and at the window-8 capacity (S = 1 decode, S = 5 verify), and
@@ -790,6 +948,7 @@ CAPTION = "george the monkey went to the park"
 # The launch counts of the wrappers, by kernel.
 LAUNCHES = {"flash_fwd": lambda: flash_fwd.launches,
             "int8_linear": lambda: int8_linear_kernel.launches,
+            "int8_gemm": lambda: int8_gemm_kernel.launches,
             "decode_attn": lambda: decode_attn.launches}
 
 
@@ -1003,6 +1162,7 @@ def drive(label: str, name: str, segments, agent, clocks: list, expect: int, ima
              "decode_passes": passes, "tokens_per_pass": tokens / passes,
              "decode_ms_per_token": 1e3 * clock.total_s("decode_pass") / tokens,
              "decode_ms_per_pass": clock.mean_ms("decode_pass"),
+             "int8_gemm_per_prefill": clock.launches("prefill", "int8_gemm") / max(1, prefills),
              "context_tokens": [seg.context_tokens for seg in segs]}
     print(f"flagship {name}: {json.dumps(stats)} [{label}]", flush=True)
     return segs, stats, failures
@@ -1013,8 +1173,8 @@ def phase_flagship(label: str, stack):
     agent quantized in place (quantize_agent_: int8 weights, int8 KV cache),
     speculate_k = 4, through run, a speculative-against-greedy check, run_sink
     and the visualization flow. Kernel A must launch 224 times and kernel B
-    32 times per decode pass, the flash forward in every prefill, with no
-    input copied for TMA."""
+    32 times per decode pass, the flash forward and kernel C (224 times) in
+    every prefill, with no input copied for TMA."""
     agent = stack.agent
     n_layers = agent.cfg.llm.num_hidden_layers
     t0 = time.perf_counter()
@@ -1033,7 +1193,7 @@ def phase_flagship(label: str, stack):
     story_cfg = dict(num_img_in_tokens=n_in)
 
     torch.cuda.reset_peak_memory_stats()
-    for kernel in (flash_fwd, int8_linear_kernel, decode_attn):
+    for kernel in (flash_fwd, int8_linear_kernel, int8_gemm_kernel, decode_attn):
         kernel.launches = 0
     flash_fwd.padded_copies = 0
     clocks, failures, stats = [], [], {}
@@ -1041,11 +1201,14 @@ def phase_flagship(label: str, stack):
     pipe = StoryGenerationPipeline(stack.tokenizer, spec, stack.visual_encode, stack.detokenize,
                                    StoryPipelineConfig(story_len=SEGMENTS + 1, window_size=WINDOW,
                                                        **story_cfg))
-    verify = []  # the last verify pass of run: its inputs and the cache lengths before it
+    # the last verify pass and the last prefill of run: inputs, cache lengths before
+    verify, prefill = [], []
 
     def keep_verify(mod, args, kwargs):
-        if kwargs["inputs_embeds"].shape[1] == FLAGSHIP_K + 1:
-            verify[:] = [args, kwargs, list(kwargs["cache"].length)]
+        rows = kwargs["inputs_embeds"].shape[1]
+        if rows == FLAGSHIP_K + 1 or rows > 8:
+            (verify if rows == FLAGSHIP_K + 1 else prefill)[:] = [
+                args, kwargs, list(kwargs["cache"].length)]
 
     hook = agent.llm.register_forward_pre_hook(keep_verify, with_kwargs=True)
     _, stats["run"], fail = drive(label, "run", pipe.run(PIXELS, CAPTION), agent, clocks,
@@ -1119,11 +1282,18 @@ def phase_flagship(label: str, stack):
     launches = {k: count() for k, count in LAUNCHES.items()}
     passes = sum(len(c.calls["decode_pass"]) for c in clocks)
     prefill_flash = sum(c.launches("prefill") for c in clocks)
+    prefills = sum(len(c.calls["prefill"]) for c in clocks)
+    prefill_gemm = sum(c.launches("prefill", "int8_gemm") for c in clocks)
     print(f"flagship launches: {json.dumps(launches)} in {passes} decode passes "
           f"({passes - greedy_passes} verify passes of {FLAGSHIP_K + 1} tokens, {greedy_passes} "
-          f"greedy passes of 1); prefill flash launches {prefill_flash}, "
+          f"greedy passes of 1); {prefills} prefills with {prefill_flash} flash and "
+          f"{prefill_gemm} int8_gemm launches, "
           f"{flash_fwd.padded_copies} padded copies, peak "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{label}]", flush=True)
+    if prefill_gemm != 7 * n_layers * prefills or launches["int8_gemm"] != prefill_gemm:
+        failures.append(f"{prefill_gemm} int8_gemm launches in {prefills} prefills "
+                        f"({launches['int8_gemm']} in all), expected {7 * n_layers} a prefill "
+                        f"and none elsewhere")
     if launches["int8_linear"] != 7 * n_layers * passes:
         failures.append(f"{launches['int8_linear']} int8_linear launches in {passes} decode "
                         f"passes, expected {7 * n_layers} a pass")
@@ -1143,19 +1313,31 @@ def phase_flagship(label: str, stack):
     if (stats["verify_pass"]["int8_linear_launches"] != 7 * n_layers
             or stats["verify_pass"]["decode_attn_launches"] != n_layers):
         failures.append(f"profiled verify pass: {stats['verify_pass']}")
+    # run's last prefill once more on kernel C, then on the plain product (a
+    # bf16 copy of each weight, then cuBLAS), both profiled
+    kernel_c = profile_verify_pass(agent, *prefill, names={"int8_gemm": "int8_gemm_kernel"})
+    with plain_int8_products():
+        plain = profile_verify_pass(agent, *prefill, names={})
+    stats["prefill_profiled"] = {"rows": prefill[1]["inputs_embeds"].shape[1],
+                                 "kernel_c": kernel_c, "plain": plain}
+    print(f"flagship prefill profiled: {json.dumps(stats['prefill_profiled'])} [{label}]",
+          flush=True)
     if failures:
         raise AssertionError(f"flagship phase failed: {failures}")
     return launches, stats
 
 
-def profile_verify_pass(agent, args, kwargs, lengths) -> dict:
-    """One more verify pass of the LLaMA on the inputs it last saw, written
-    at the cache position it had then: its wall ms without the profiler
-    (synchronized), then, in a second run under torch.profiler, its device
-    ms split into kernel A, kernel B and the rest, with their launches, and
-    that run's wall ms (``profiled_wall_ms``, the profiler's overhead
-    included). The busy share is device ms over the unprofiled wall. The
-    cache's lengths are put back afterwards."""
+VERIFY_KERNELS = {"int8_linear": "int8_linear_kernel", "decode_attn": "decode_attn_chunk_kernel"}
+
+
+def profile_verify_pass(agent, args, kwargs, lengths, names=VERIFY_KERNELS) -> dict:
+    """One more verify pass (or prefill) of the LLaMA on the inputs it last
+    saw, written at the cache position it had then: its wall ms without the
+    profiler (synchronized), then, in a second run under torch.profiler, its
+    device ms split into the kernels of ``names`` (kernels A and B) and the
+    rest, with their launches, and that run's wall ms (``profiled_wall_ms``,
+    the profiler's overhead included). The busy share is device ms over the
+    unprofiled wall. The cache's lengths are put back afterwards."""
     cache = kwargs["cache"]
     after, wall = list(cache.length), []
 
@@ -1166,7 +1348,6 @@ def profile_verify_pass(agent, args, kwargs, lengths) -> dict:
         torch.cuda.synchronize()
         wall.append(time.perf_counter() - t0)
 
-    names = {"int8_linear": "int8_linear_kernel", "decode_attn": "decode_attn_chunk_kernel"}
     with torch.inference_mode():
         run()
         events = device_events(profiled(run, tuple(names.values())))
@@ -1177,7 +1358,7 @@ def profile_verify_pass(agent, args, kwargs, lengths) -> dict:
         mine = [e for e in events if kernel in e.key]
         out[f"{name}_ms"] = sum(e.self_device_time_total for e in mine) / 1e3
         out[f"{name}_launches"] = sum(e.count for e in mine)
-    out["rest_ms"] = out["device_ms"] - out["int8_linear_ms"] - out["decode_attn_ms"]
+    out["rest_ms"] = out["device_ms"] - sum(out[f"{name}_ms"] for name in names)
     out["device_busy_share"] = out["device_ms"] / out["wall_ms"]
     return out
 
@@ -1272,8 +1453,8 @@ def phase_lockstep(label: str, stack):
     """The flagship stack (int8 agent and cache, speculate_k = 4) serving 4
     stories in lockstep through run_batch, against each story alone through
     run. Kernel A must take every product of the (4, 5) verify pass (224
-    launches a pass), kernel B 32 a pass, and the flash forward the batched
-    prefill."""
+    launches a pass), kernel B 32 a pass, and the flash forward and kernel C
+    (224 launches) the batched prefill."""
     agent = stack.agent
     n_layers, b = agent.cfg.llm.num_hidden_layers, len(LOCKSTEP_CAPTIONS)
     seeds = list(zip(LOCKSTEP_PIXELS, LOCKSTEP_CAPTIONS))
@@ -1316,7 +1497,7 @@ def phase_lockstep(label: str, stack):
         "prefill" if k["inputs_embeds"].shape[1] > 8
         else f"decode_pass_{tuple(k['inputs_embeds'].shape[:2])}"))
     torch.cuda.reset_peak_memory_stats()
-    for kernel in (flash_fwd, int8_linear_kernel, decode_attn):
+    for kernel in (flash_fwd, int8_linear_kernel, int8_gemm_kernel, decode_attn):
         kernel.launches = 0
     rounds = []
     t0 = time.perf_counter()
@@ -1338,6 +1519,7 @@ def phase_lockstep(label: str, stack):
         "int8_linear_per_pass": clock.launches(stage, "int8_linear") / passes,
         "decode_attn_per_pass": clock.launches(stage, "decode_attn") / passes,
         "prefill_flash_launches": clock.launches("prefill"),
+        "prefill_int8_gemm_launches": clock.launches("prefill", "int8_gemm"),
         "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
     stats["lockstep"]["stories_segments_per_min"] = 60 * stats["lockstep"]["segments"] / lock_s
     stats["lockstep"]["tokens_per_s"] = (len(batch_calls) * b * (MAX_NEW - 1)
@@ -1357,6 +1539,11 @@ def phase_lockstep(label: str, stack):
                         f"pass, expected {n_layers}")
     if stats["lockstep"]["prefill_flash_launches"] == 0:
         failures.append("flash kernel not launched in the batched prefill")
+    prefills = stats["lockstep"]["prefills"]
+    if (stats["lockstep"]["prefill_int8_gemm_launches"] != 7 * n_layers * prefills
+            or launches["int8_gemm"] != 7 * n_layers * prefills):
+        failures.append(f"{launches['int8_gemm']} int8_gemm launches in {prefills} batched "
+                        f"prefills, expected {7 * n_layers} a prefill and none elsewhere")
     if len(batch_calls) != LOCKSTEP_ROUNDS or len(rounds) != LOCKSTEP_ROUNDS:
         failures.append(f"{len(batch_calls)} generate_batch calls, {len(rounds)} rounds, "
                         f"expected {LOCKSTEP_ROUNDS}")
@@ -1448,7 +1635,7 @@ def phase_serving(label: str, stack, inline_segments, inline_s: float):
         lambda mod, args, kwargs: passes.append(kwargs["inputs_embeds"].shape[1] <= 8),
         with_kwargs=True)
     torch.cuda.synchronize()
-    for kernel in (flash_fwd, int8_linear_kernel, decode_attn):
+    for kernel in (flash_fwd, int8_linear_kernel, int8_gemm_kernel, decode_attn):
         kernel.launches = 0
     order, t0 = [], time.perf_counter()
     try:
@@ -1463,7 +1650,8 @@ def phase_serving(label: str, stack, inline_segments, inline_s: float):
     n_passes = sum(passes)
     stats = {"serve_wall_s": serve_s, "inline_wall_s": inline_s,
              "speedup": inline_s / serve_s, **server.stats(),
-             "decode_passes": n_passes, "launches": launches}
+             "decode_passes": n_passes, "prefills": len(passes) - n_passes,
+             "launches": launches}
     print(f"serving: {json.dumps(stats)} [{label}]", flush=True)
 
     failures = []
@@ -1491,10 +1679,127 @@ def phase_serving(label: str, stack, inline_segments, inline_s: float):
                         f"passes, expected {n_layers} a pass")
     if launches["flash_fwd"] == 0:
         failures.append("flash kernel not launched while serving")
+    n_prefills = len(passes) - n_passes
+    if launches["int8_gemm"] != 7 * n_layers * n_prefills:
+        failures.append(f"{launches['int8_gemm']} int8_gemm launches in {n_prefills} "
+                        f"prefills, expected {7 * n_layers} a prefill")
     failures += forbidden_imports()
     if failures:
         raise AssertionError(f"serving phase failed: {failures}")
     return launches, stats
+
+
+def unet_step(unet, args, kwargs) -> dict:
+    """One CFG step of ``unet`` on these inputs: its wall ms (the mean of 3
+    synchronized calls after one), then one call under torch.profiler: the
+    device ms of everything and of kernel C, with its launches, and that
+    call's wall ms (``profiled_wall_ms``); the peak GiB of the calls."""
+    torch.cuda.reset_peak_memory_stats()
+    wall = []
+
+    def run():
+        t0 = time.perf_counter()
+        unet(*args, **kwargs)
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+
+    with torch.inference_mode():
+        for _ in range(4):
+            run()
+        events = device_events(profiled(run))
+    mine = [e for e in events if "int8_gemm_kernel" in e.key]
+    device_ms = sum(e.self_device_time_total for e in events) / 1e3
+    out = {"wall_ms": 1e3 * float(np.mean(wall[1:4])), "profiled_wall_ms": 1e3 * wall[-1],
+           "device_ms": device_ms, "busy": device_ms / (1e3 * float(np.mean(wall[1:4]))),
+           "int8_gemm_ms": sum(e.self_device_time_total for e in mine) / 1e3,
+           "int8_gemm_launches": sum(e.count for e in mine),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    largest = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
+    out["largest"] = [[e.key[:60], e.self_device_time_total / 1e3, e.count] for e in largest]
+    return out
+
+
+def phase_unet_int8(label: str, stack):
+    """The int8 UNet (--sdxl_int8) on the story stack's adapter, after every
+    phase that needs its bf16 UNet: one CFG step of the bf16 UNet timed
+    (wall, profiled device ms, peak GiB), the UNet quantized in place
+    (quantize_adapter_), the same step on the int8 UNet, which must launch
+    kernel C once for each of its quantized linear layers (722 at SDXL-base),
+    and on the int8 UNet with the plain int8 product; then one 8-step
+    1024x1024 image through the stack's de-tokenizer. The int8 eps against
+    the bf16 eps is reported (random weights carry no quality meaning);
+    kernel C against the plain product is gated: finite, correlation >=
+    0.999."""
+    adapter = stack.image_pipe.adapter
+    unet, dt = adapter.unet, adapter.cfg.unet.dtype
+    feats = stack.visual_encode(PIXELS)
+    neg = stack.visual_encode(np.zeros_like(PIXELS))
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    with torch.inference_mode():
+        prompt, pooled = adapter.encode_image_embeds(torch.cat([neg, feats]))
+    lat = torch.randn(2, 128, 128, 4, generator=gen, device="cuda").to(dt)
+    args = (lat, torch.full((2,), 500.0, device="cuda"), prompt)
+    kwargs = dict(time_ids=torch.tensor([[1024.0, 1024.0, 0.0, 0.0, 1024.0, 1024.0]] * 2,
+                                        device="cuda"), text_embeds=pooled)
+    stats = {"bf16": unet_step(unet, args, kwargs)}
+    with torch.inference_mode():
+        eps_bf16 = unet(*args, **kwargs).float()
+    before = torch.cuda.memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    quantize_adapter_(adapter)
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    quantize_s = time.perf_counter() - t0
+    after = torch.cuda.memory_allocated() / 2**30
+    n_linear = sum(isinstance(m, torch.nn.Linear) for _, m in quantized_modules(unet))
+    n_conv = sum(isinstance(m, torch.nn.Conv2d) for _, m in quantized_modules(unet))
+    n_int8 = sum(p.numel() for p in unet.parameters() if p.dtype == torch.int8)
+    print(f"unet_int8: quantize_adapter_ {quantize_s:.3f} s, {n_int8 / 1e9:.3f} B int8 weights "
+          f"in {n_linear} linear and {n_conv} conv layers; {before:.2f} -> {after:.2f} GiB "
+          f"allocated [{label}]", flush=True)
+    int8_gemm_kernel.launches = 0
+    with torch.inference_mode():
+        eps_int8 = unet(*args, **kwargs).float()
+    torch.cuda.synchronize()
+    step_launches = int8_gemm_kernel.launches
+    stats["int8"] = unet_step(unet, args, kwargs)
+    with torch.inference_mode(), plain_int8_products():
+        eps_plain = unet(*args, **kwargs).float()
+
+    def compare(a, b):
+        a, b = a.double().flatten(), b.double().flatten()
+        return {"rel_max": float((a - b).abs().max() / b.abs().max()),
+                "corr": float(torch.corrcoef(torch.stack([a, b]))[0, 1])}
+
+    stats["int8_vs_bf16"] = compare(eps_int8, eps_bf16)
+    stats["kernel_vs_plain"] = compare(eps_int8, eps_plain)
+    stats.update(allocated_gib_bf16=before, allocated_gib_int8=after, quantize_s=quantize_s,
+                 int8_gemm_launches_per_step=step_launches, quantized_linear=n_linear,
+                 quantized_conv=n_conv)
+    int8_gemm_kernel.launches = 0
+    t0 = time.perf_counter()
+    image = stack.detokenize(feats)
+    torch.cuda.synchronize()
+    stats["image_s"] = time.perf_counter() - t0
+    image_launches = int8_gemm_kernel.launches
+    print(f"unet_int8: {json.dumps(stats)} [{label}]", flush=True)
+    failures = []
+    if step_launches != n_linear:
+        failures.append(f"{step_launches} int8_gemm launches in a CFG step, expected "
+                        f"{n_linear} (one for each quantized linear layer)")
+    if image_launches != n_linear * EULER_STEPS:
+        failures.append(f"{image_launches} int8_gemm launches in an image of {EULER_STEPS} "
+                        f"steps, expected {n_linear * EULER_STEPS}")
+    if not (bool(torch.isfinite(eps_int8).all()) and stats["kernel_vs_plain"]["corr"] >= 0.999):
+        failures.append(f"int8 UNet on kernel C against the plain product: "
+                        f"{stats['kernel_vs_plain']}")
+    if image.shape != (1024, 1024, 3) or image.min() == image.max():
+        failures.append(f"int8 UNet image {image.shape}, constant {image.min() == image.max()}")
+    failures += forbidden_imports()
+    if failures:
+        raise AssertionError(f"unet_int8 phase failed: {failures}")
+    return step_launches + image_launches, stats
 
 
 # Stage 2 at full width: configs/clm_models/llama2chat7b_lora.yaml with the
@@ -1538,16 +1843,23 @@ def train_batch(agent_cfg: AgentConfig, seed: int = 0):
             "ids_cmp_mask": ids_cmp, "ids_gen_mask": ids_gen}
 
 
-def phase_train(label: str):
+def phase_train(label: str, quantize_base: bool = False):
     """Stage-2 training at full width through ``run_training``; per-step
-    times, peak memory and launches are the runner's own metrics."""
+    times, peak memory and launches are the runner's own metrics. With
+    ``quantize_base`` (the one-chip recipe's frozen int8 base): the filled
+    agent is quantized in place, its int8 weights and scales must come out
+    bit for bit unchanged, kernel C must run every base product (forward,
+    the remat recompute and the transposed backward: 3 x 224 a step), and
+    the first step's loss must agree with the same step on the plain int8
+    product within 1e-2 x |loss|."""
     bf16 = torch.bfloat16
+    name = "train_int8" if quantize_base else "train"
     vit_cfg = ViTConfig(param_dtype=bf16)
     llm_cfg = LlamaConfig(lora_rank=16, lora_alpha=32.0, lora_dropout=0.05, remat=True,
                           ce_chunk_size=256, param_dtype=bf16)
     agent_cfg = AgentConfig(llm=llm_cfg)
     n_layers = llm_cfg.num_hidden_layers
-    print(f"train cuts: {TRAIN_STEPS} steps on one repeated synthetic batch "
+    print(f"{name} cuts: {TRAIN_STEPS} steps on one repeated synthetic batch "
           f"({len(TRAIN_CONTEXT)} x {TRAIN_SEQ} tokens, {len(TRAIN_CONTEXT) * TRAIN_IMAGES} "
           f"images of 448x448), random weights; widths and depths not cut", flush=True)
     print(f"device memory before the build: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
@@ -1557,20 +1869,37 @@ def phase_train(label: str):
     vit = fill_module(VisionTransformerWithAttnPool, vit_cfg, "cuda", seed=0)
     vit.eval().requires_grad_(False)
     agent = fill_module(ContinuousLVLM, agent_cfg, "cuda", seed=1)
+    if quantize_base:  # llama2chat7b_lora_onechip.yaml: the float agent quantized in place
+        quantize_agent_(agent, base=True, kv=False)
+        gc.collect()
+        torch.cuda.empty_cache()
     mask = lora_trainable_mask(agent)
     mask = {k: v or k.startswith(("input_resampler.", "output_resampler.")) for k, v in mask.items()}
     torch.cuda.synchronize()
     params = dict(agent.named_parameters())
     n_agent = sum(p.numel() for p in params.values())
     n_train = sum(params[k].numel() for k, v in mask.items() if v)
+    n_int8 = sum(p.numel() for p in params.values() if p.dtype == torch.int8)
     n_vit = sum(p.numel() for p in vit.parameters())
-    print(f"train build: {time.perf_counter() - t0:.2f} s, agent {n_agent / 1e9:.3f} B "
-          f"parameters ({n_train / 1e9:.3f} B trainable), ViT {n_vit / 1e9:.3f} B frozen, "
-          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated [{label}]", flush=True)
+    print(f"{name} build: {time.perf_counter() - t0:.2f} s, agent {n_agent / 1e9:.3f} B "
+          f"parameters ({n_train / 1e9:.3f} B trainable, {n_int8 / 1e9:.3f} B int8), ViT "
+          f"{n_vit / 1e9:.3f} B frozen, {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+          f"allocated [{label}]", flush=True)
 
     batch = train_batch(agent_cfg)
-    frozen = agent.llm.model.layers[0].self_attn.q_proj.weight
-    frozen_before = frozen.detach().clone()
+    if quantize_base:  # every int8 weight and scale
+        frozen = {k: p for k, p in params.items()
+                  if p.dtype == torch.int8 or k.endswith("weight_scale")}
+    else:
+        frozen = {"q_proj": agent.llm.model.layers[0].self_attn.q_proj.weight}
+    # host copies, so that they do not count in the steps' peak memory
+    frozen_before = {k: p.detach().to("cpu", copy=True) for k, p in frozen.items()}
+    plain_loss = None
+    if quantize_base:  # the first step's loss on the plain int8 product, before training
+        agent.train()
+        with torch.no_grad(), plain_int8_products():
+            plain_loss = float(make_stage2_loss_fn(agent, vit)(
+                to_device(batch, torch.device("cuda")), derive_seed(0, 0))[0])
     vit_clock = StageClock()
     vit_clock.watch(vit, lambda a, k: "vit_encode")
 
@@ -1580,14 +1909,14 @@ def phase_train(label: str):
 
     with tempfile.TemporaryDirectory() as out:
         flash_fwd.launches = flash_bwd.dq_launches = flash_bwd.dkv_launches = 0
-        flash_fwd.padded_copies = flash_bwd.padded_copies = 0
+        flash_fwd.padded_copies = flash_bwd.padded_copies = int8_gemm_kernel.launches = 0
         t_run = time.perf_counter()
         run_training(RunnerArgs(output_dir=out, max_steps=TRAIN_STEPS, save_steps=10**9,
                                 log_steps=1, seed=0),
                      TrainConfig(learning_rate=1e-3, warmup_steps=1, training_steps=TRAIN_STEPS),
                      agent, make_stage2_loss_fn(agent, vit), repeated(), trainable_mask=mask)
         run_s = time.perf_counter() - t_run
-        launches = flash_launch_counts()
+        launches = kernel_launch_counts()
         copies = flash_fwd.padded_copies + flash_bwd.padded_copies
         with open(os.path.join(out, "metrics.jsonl")) as f:
             logged = [json.loads(line) for line in f]
@@ -1605,20 +1934,30 @@ def phase_train(label: str):
     lora_b = [m.lora_B.weight for m in agent.modules() if isinstance(m, LoRADense) and m.lora_rank]
     if not all(bool((w != 0).any()) for w in lora_b):
         failures.append("a LoRA B stayed at zero")
-    if not torch.equal(frozen, frozen_before):
-        failures.append("a frozen base projection weight changed")
+    changed = [k for k, p in frozen.items()
+               if not torch.equal(p.detach().cpu(), frozen_before[k])]
+    if changed:
+        failures.append(f"{len(changed)} frozen base weights or scales changed: {changed[:3]}")
+    del frozen_before
+    if plain_loss is not None:
+        print(f"{name} first step's loss {losses[0]:.6f} on kernel C against {plain_loss:.6f} "
+              f"on the plain int8 product [{label}]", flush=True)
+        if not abs(losses[0] - plain_loss) <= 1e-2 * abs(plain_loss):
+            failures.append(f"the first loss {losses[0]} differs from the plain product's "
+                            f"{plain_loss} by more than 1e-2 of it")
     vit_calls = vit_clock.calls["vit_encode"]
+    gemm_per_step = 3 * 7 * n_layers if quantize_base else 0
     for i, m in enumerate(steps):
         vit_s, vit_launches = vit_calls[i]
         vit_fwd = vit_launches["flash_fwd"]
         sec = m["step_seconds"]
-        fwd, dq, dkv = (int(m[k]) for k in LAUNCH_COUNTS)
-        print(f"train step {i + 1}: {sec:.3f} s, loss {losses[i]:.4f}, vit_encode "
+        fwd, dq, dkv, gemm = (int(m[k]) for k in LAUNCH_COUNTS)
+        print(f"{name} step {i + 1}: {sec:.3f} s, loss {losses[i]:.4f}, vit_encode "
               f"{1e3 * vit_s:.3f} ms, agent fwd+bwd {1e3 * (m['fwd_bwd_seconds'] - vit_s):.3f} "
               f"ms, optimizer {1e3 * m['update_seconds']:.3f} ms, "
               f"{len(TRAIN_CONTEXT) * TRAIN_SEQ / sec:.1f} tokens/s, launches fwd {fwd} "
-              f"(ViT {vit_fwd}) dq {dq} dkv {dkv}, peak {m['peak_gib']:.2f} GiB [{label}]",
-              flush=True)
+              f"(ViT {vit_fwd}) dq {dq} dkv {dkv} int8_gemm {gemm}, peak {m['peak_gib']:.2f} "
+              f"GiB [{label}]", flush=True)
         # each differentiated attention call: 32 LLaMA layers + 2 resamplers;
         # the forward also runs again for each rematerialized layer
         if dq != n_layers + 2 or dkv != n_layers + 2:
@@ -1626,15 +1965,22 @@ def phase_train(label: str):
         if fwd - vit_fwd != 2 * n_layers + 2:
             failures.append(f"step {i + 1}: {fwd - vit_fwd} agent forward launches, expected "
                             f"{2 * n_layers + 2} (remat recompute included)")
-    print(f"train run: {run_s:.3f} s for {TRAIN_STEPS} steps; final checkpoint "
+        if gemm != gemm_per_step:
+            failures.append(f"step {i + 1}: {gemm} int8_gemm launches, expected {gemm_per_step}")
+    steady = steps[1:]
+    step_s = float(np.mean([m["step_seconds"] for m in steady]))
+    stats = {"s_per_step": step_s, "tokens_per_s": len(TRAIN_CONTEXT) * TRAIN_SEQ / step_s,
+             "peak_gib": max(m["peak_gib"] for m in steps), "int8_gemm_per_step": gemm_per_step}
+    print(f"{name} steady (steps 2-{TRAIN_STEPS}): {json.dumps(stats)} [{label}]", flush=True)
+    print(f"{name} run: {run_s:.3f} s for {TRAIN_STEPS} steps; final checkpoint "
           f"{ckpt_bytes / 2**30:.3f} GiB, host copy {ckpt_s['checkpoint_copy_seconds']:.3f} s "
           f"+ write {ckpt_s['checkpoint_write_seconds']:.3f} s; "
-          f"launches fwd {launches[0]} dq {launches[1]} dkv {launches[2]}, {copies} padded "
-          f"copies [{label}]", flush=True)
+          f"launches fwd {launches[0]} dq {launches[1]} dkv {launches[2]} int8_gemm "
+          f"{launches[3]}, {copies} padded copies [{label}]", flush=True)
     failures += forbidden_imports()
     if failures:
-        raise AssertionError(f"train phase failed: {failures}")
-    return launches
+        raise AssertionError(f"{name} phase failed: {failures}")
+    return launches, stats
 
 
 # Stage 3 at full width: the models of scripts/adapt_storystream.sh
@@ -1760,7 +2106,7 @@ def phase_stage3(label: str):
                         grad_accum_steps=STAGE3_ACCUM),
             adapter, loss_fn, repeated(), trainable_mask=mask)
         run_s = time.perf_counter() - t_run
-        launches = flash_launch_counts()
+        launches = kernel_launch_counts()[:3]
         copies = flash_fwd.padded_copies + flash_bwd.padded_copies
         with open(os.path.join(out, "metrics.jsonl")) as f:
             logged = [json.loads(line) for line in f]
@@ -1783,7 +2129,7 @@ def phase_stage3(label: str):
         stage_s = {name: sum(t for t, _ in clock.calls[name][micro])
                    for name in ("vit", "agent", "vae_encode")}
         adapter_s = m["fwd_bwd_seconds"] - sum(stage_s.values())
-        fwd, dq, dkv = (int(m[k]) for k in LAUNCH_COUNTS)
+        fwd, dq, dkv, _ = (int(m[k]) for k in LAUNCH_COUNTS)
         print(f"stage3 step {i + 1}: {m['step_seconds']:.3f} s, loss {losses[i]:.5f}, "
               f"{targets / m['step_seconds']:.3f} SDXL targets/s; fwd+bwd "
               f"{m['fwd_bwd_seconds']:.3f} s (ViT {stage_s['vit']:.3f}, agent "
@@ -1880,6 +2226,7 @@ def main():
     rows = phase_kernels(label)
     bwd_rows = phase_bwd_kernels(label)
     int8_rows = phase_int8_kernel(label)
+    gemm_rows = phase_int8_gemm_kernel(label)
     attn_rows = phase_decode_attn_kernel(label)
     if args.baseline:
         compare_with_baseline(args.baseline, int8_rows, attn_rows)
@@ -1889,10 +2236,19 @@ def main():
     lockstep_launches, lockstep_stats, lockstep_segments = phase_lockstep(label, stack)
     serving_launches, _ = phase_serving(label, stack, lockstep_segments,
                                         lockstep_stats["lockstep"]["wall_s"])
+    unet_int8_launches, _ = phase_unet_int8(label, stack)  # the last phase on the bf16 UNet
     del stack, lockstep_segments
     gc.collect()  # the story stack is gone; give its memory back before training
     torch.cuda.empty_cache()
-    train_fwd, train_dq, train_dkv = phase_train(label)
+    (train_fwd, train_dq, train_dkv, _), train_stats = phase_train(label)
+    gc.collect()  # the stage-2 modules are gone; give their memory back
+    torch.cuda.empty_cache()
+    (q_fwd, q_dq, q_dkv, q_gemm), q_stats = phase_train(label, quantize_base=True)
+    print(f"train_int8 against train (bf16): s/step {q_stats['s_per_step']:.3f} against "
+          f"{train_stats['s_per_step']:.3f}, tokens/s {q_stats['tokens_per_s']:.1f} against "
+          f"{train_stats['tokens_per_s']:.1f}, peak {q_stats['peak_gib']:.2f} against "
+          f"{train_stats['peak_gib']:.2f} GiB, int8_gemm launches a step "
+          f"{q_stats['int8_gemm_per_step']} [{label}]", flush=True)
     gc.collect()  # the stage-2 modules are gone; give their memory back before stage 3
     torch.cuda.empty_cache()
     stage3_fwd, stage3_dq, stage3_dkv = phase_stage3(label)
@@ -1900,11 +2256,12 @@ def main():
     bat = next(r for r in bwd_rows if r["name"] == "llama_train_causal")
     a_at = next(r for r in int8_rows if r["name"] == "gate_up_m5")
     b_at = next(r for r in attn_rows if r["name"] == "int8_s5_c900")
+    c_at = next(r for r in gemm_rows if r["name"] == "unet1280_geglu")
     flash_paths = {"story": story_launches["flash_fwd"],
                    "flagship": flagship_launches["flash_fwd"],
                    "lockstep": lockstep_launches["flash_fwd"],
                    "serving": serving_launches["flash_fwd"], "train": train_fwd,
-                   "stage3": stage3_fwd}
+                   "train_int8": q_fwd, "stage3": stage3_fwd}
     attn_paths = {"story": story_launches["decode_attn"],
                   "flagship": flagship_launches["decode_attn"],
                   "lockstep": lockstep_launches["decode_attn"],
@@ -1912,6 +2269,10 @@ def main():
     int8_paths = {"flagship": flagship_launches["int8_linear"],
                   "lockstep": lockstep_launches["int8_linear"],
                   "serving": serving_launches["int8_linear"]}
+    gemm_paths = {"flagship": flagship_launches["int8_gemm"],
+                  "lockstep": lockstep_launches["int8_gemm"],
+                  "serving": serving_launches["int8_gemm"], "unet_int8": unet_int8_launches,
+                  "train_int8": q_gemm}
     print(label, flush=True)
     print(json.dumps({"kernels": [
         {"name": "flash_fwd", "route": "cuda", "source": "seed_story_torch/csrc/flash_fwd.cu",
@@ -1935,8 +2296,9 @@ def main():
                "library_ms", *(f"{g}_max_rel" for g in grads))}
                for r in bwd_rows if r["name"] in UNET_BWD_CASES}}
           for kname, line, by_path, grads in (
-              ("dq", 398, {"train": train_dq, "stage3": stage3_dq}, ("dq",)),
-              ("dkv", 453, {"train": train_dkv, "stage3": stage3_dkv}, ("dk", "dv")))),
+              ("dq", 398, {"train": train_dq, "train_int8": q_dq, "stage3": stage3_dq}, ("dq",)),
+              ("dkv", 453, {"train": train_dkv, "train_int8": q_dkv, "stage3": stage3_dkv},
+               ("dk", "dv")))),
         {"name": "int8_linear", "route": "cuda", "source": "seed_story_torch/csrc/int8_linear.cu",
          "replaces": "seed_story_tpu/models/llama.py:294 (XLA-fused, no Pallas kernel)",
          "launches": sum(int8_paths.values()), "launches_by_path": int8_paths,
@@ -1944,6 +2306,16 @@ def main():
          "plain_ms": a_at["plain_ms"], "bound_ms": a_at["bound_ms"],
          "bound_by": a_at["bound_by"], "library_ms": a_at["library_ms"],
          "library": "F.linear on a pre-dequantized bf16 weight", "at": a_at["name"]},
+        {"name": "int8_gemm", "route": "cuda", "source": "seed_story_torch/csrc/int8_gemm.cu",
+         "replaces": "seed_story_tpu/models/llama.py:294 and seed_story_tpu/models/sdxl/unet.py:68 "
+                     "(XLA-fused, no Pallas kernel)",
+         "launches": sum(gemm_paths.values()), "launches_by_path": gemm_paths,
+         "max_abs_err": max(r["max_abs"] for r in gemm_rows), "ms": c_at["ms"],
+         "plain_ms": c_at["plain_ms"], "bound_ms": c_at["bound_ms"],
+         "bound_by": c_at["bound_by"], "library_ms": c_at["library_ms"],
+         "library": c_at["library"], "at": c_at["name"],
+         "rows": [{k: r[k] for k in ("name", "form", "shape", "ms", "bound_ms", "plain_ms",
+                                     "library_ms", "max_rel")} for r in gemm_rows]},
         {"name": "decode_attn", "route": "cuda", "source": "seed_story_torch/csrc/decode_attn.cu",
          "replaces": "seed_story_tpu/ops/attention.py:105 (XLA, no Pallas kernel)",
          "launches": sum(attn_paths.values()), "launches_by_path": attn_paths,

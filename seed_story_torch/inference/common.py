@@ -4,7 +4,13 @@ inference CLIs; counterpart of ``seed_story_tpu/inference/common.py``.
 
 Weights come either from seeded random initialisation on the device
 (``weights=None``), or from the JAX package's parameter trees
-(``weights={"vit": ..., "agent": ..., "adapter": ..., "vae": ...}``).
+(``weights={"vit": ..., "agent": ..., "adapter": ..., "vae": ...}``), and
+then from the port's own parameter files (``save_params`` or a training
+checkpoint directory) through ``vit_ckpt``, ``agent_ckpt``, ``adapter_ckpt``
+and ``vae_ckpt``, the CLIs' ``--*_ckpt`` flags (``train/checkpoint.py::
+load_checkpoint_``: float entries load before a quantization, int8 entries
+after it). ``sdxl_int8`` is the int8 UNet: the adapter is filled float and
+its UNet quantized in place (``quantize_adapter_``).
 The de-tokenizer returns uint8 (H, W, 3) arrays. The flagship decode
 configuration is ``quantize_base`` (the float agent is quantized in place
 after it is filled), ``quantize_kv`` and ``speculate_k``. The generator
@@ -31,10 +37,11 @@ from .. import weights as W
 from ..decode.generate import GenerateConfig, StoryGenerator
 from ..models.agent import AgentConfig, ContinuousLVLM
 from ..models.llama import quantize_llama_
-from ..models.sdxl.adapter import SDXLAdapter, SDXLAdapterConfig
+from ..models.sdxl.adapter import SDXLAdapter, SDXLAdapterConfig, quantize_adapter_
 from ..models.sdxl.vae import AutoencoderKL, VAEConfig
 from ..models.vit import ViTConfig, VisionTransformerWithAttnPool
 from ..pipelines.sdxl_pipeline import SDXLImagePipeline, SDXLSampleConfig
+from ..train.checkpoint import load_checkpoint_
 from ..utils.config import instantiate, load_config
 
 
@@ -152,9 +159,16 @@ def build_stack(vit_cfg: ViTConfig, agent_cfg: AgentConfig,
                 temperature: float = 0.0, top_p: float = 1.0,
                 sink: bool = False, batch_stories: int = 1,
                 pipelined_detok: bool = False,
-                image_transform: Optional[Callable] = None) -> InferenceStack:
+                image_transform: Optional[Callable] = None, sdxl_int8: bool = False,
+                vit_ckpt: Optional[str] = None, agent_ckpt: Optional[str] = None,
+                adapter_ckpt: Optional[str] = None,
+                vae_ckpt: Optional[str] = None) -> InferenceStack:
     """The gen_george stack (and, with ``sink``, the sink flows'). ``weights``:
-    None for seeded random weights, or the JAX param trees by family.
+    None for seeded random weights, or the JAX (float) param trees by family;
+    the ``*_ckpt`` parameter files then overwrite what they hold (a float
+    agent checkpoint before ``quantize_base`` quantizes, an int8 one after).
+    ``sdxl_int8`` (or ``adapter_cfg.unet.quantize``) quantizes the filled
+    adapter's UNet in place, after a float ``adapter_ckpt`` loads.
     ``eos_token_id=-1`` bans EOS (every segment decodes ``max_new_tokens``).
     ``quantize_base`` quantizes the filled float agent in place,
     ``quantize_kv`` gives its caches int8 rows. The generator keeps the KV
@@ -169,6 +183,7 @@ def build_stack(vit_cfg: ViTConfig, agent_cfg: AgentConfig,
 
     vit = _build(VisionTransformerWithAttnPool, vit_cfg, device, seed,
                  weights.get("vit"), W.vit_state_dict)
+    load_checkpoint_(vit, vit_ckpt)
 
     @torch.inference_mode()
     def visual_encode(pixels):
@@ -176,8 +191,8 @@ def build_stack(vit_cfg: ViTConfig, agent_cfg: AgentConfig,
 
     agent = _build(ContinuousLVLM, agent_cfg, device, seed + 1, weights.get("agent"),
                    W.agent_state_dict)
-    if quantize_base or quantize_kv:
-        quantize_agent_(agent, base=quantize_base, kv=quantize_kv)
+    load_checkpoint_(agent, agent_ckpt, (lambda a: quantize_agent_(
+        a, base=quantize_base, kv=quantize_kv)) if quantize_base or quantize_kv else None)
     generator = StoryGenerator(agent, GenerateConfig(
         max_new_tokens=max_new_tokens, num_img_gen_tokens=agent_cfg.num_img_out_tokens,
         eos_token_id=eos_token_id, cache_capacity=cache_capacity, force_boi_at=force_boi_at,
@@ -193,10 +208,15 @@ def build_stack(vit_cfg: ViTConfig, agent_cfg: AgentConfig,
         return stack
 
     vae_cfg = vae_cfg or VAEConfig(dtype=adapter_cfg.unet.dtype)
-    adapter = _build(SDXLAdapter, adapter_cfg, device, seed + 2, weights.get("adapter"),
+    int8_unet = sdxl_int8 or adapter_cfg.unet.quantize
+    float_cfg = dataclasses.replace(adapter_cfg, unet=dataclasses.replace(adapter_cfg.unet,
+                                                                          quantize=False))
+    adapter = _build(SDXLAdapter, float_cfg, device, seed + 2, weights.get("adapter"),
                      W.adapter_state_dict)
+    load_checkpoint_(adapter, adapter_ckpt, quantize_adapter_ if int8_unet else None)
     vae = _build(AutoencoderKL, vae_cfg, device, seed + 3, weights.get("vae"),
                  W.vae_state_dict)
+    load_checkpoint_(vae, vae_ckpt)
     if device.type == "cuda":
         adapter.to(memory_format=torch.channels_last)
         vae.to(memory_format=torch.channels_last)
@@ -236,13 +256,6 @@ def refuse_unported(args):
     if args.decode_tp > 1:
         raise SystemExit(f"--decode_tp {args.decode_tp}: tensor-parallel decode needs "
                          "parallel/* (ROADMAP.md, queue A item 12)")
-    if args.sdxl_int8:
-        raise SystemExit("--sdxl_int8: the int8 UNet is not ported (ROADMAP.md, queue A item 8)")
-    for name in ("agent_ckpt", "vit_ckpt", "adapter_ckpt", "vae_ckpt"):
-        if getattr(args, name):
-            raise SystemExit(f"--{name}: the checkpoint loaders of the CLIs are not ported "
-                             "(ROADMAP.md, queue A item 13); without checkpoints the stack "
-                             "takes seeded random weights")
 
 
 def visible_devices(device) -> list:
@@ -259,7 +272,8 @@ def build_stack_from_yaml(tokenizer_cfg: str, image_transform_cfg: str,
                           adapter_cfg_path: Optional[str] = None,
                           vae_cfg_path: Optional[str] = None, **kw) -> InferenceStack:
     """``build_stack`` from the repo's YAML configs, on seeded random weights
-    (the CLIs' front end). The tokenizer and transform YAMLs name the JAX
+    or the ``*_ckpt`` parameter files in ``kw`` (the CLIs' front end). The
+    tokenizer and transform YAMLs name the JAX
     package's builders, which ``utils.config`` maps onto the port's own; the
     model YAMLs name the JAX config classes, which ``port_config`` maps onto
     the port's. A LLaMA YAML's ``quantize_base`` / ``quantize_kv`` become the

@@ -10,9 +10,11 @@ Four flows: sequential (``run``), ``--sink`` (``run_sink``, the KV cache
 threaded across segments), ``--batch_stories N`` (N stories in lockstep,
 ``run_batch``) and ``--detok_devices N`` (``PipelinedStoryServer``: the
 lockstep decode with N de-tokenizer replicas on the last N devices, which
-never share a device with the decode). Weights are seeded random ones; the
-flags whose machinery is not ported (``--decode_tp`` > 1, ``--sdxl_int8``,
-the ``--*_ckpt`` loaders) are refused.
+never share a device with the decode). Weights are seeded random ones, or the
+port's own parameter files through ``--agent_ckpt``, ``--vit_ckpt``,
+``--adapter_ckpt`` and ``--vae_ckpt`` (``save_params`` files or training
+checkpoint directories); ``--sdxl_int8`` runs the int8 UNet. ``--decode_tp``
+above 1, whose machinery is not ported, is refused.
 
   python -m seed_story_torch.inference.gen_george --val_jsonl ... --image_root ...
 """
@@ -69,7 +71,9 @@ def parse_args(argv=None):
                    help="KV cache slots for the sink flow (default: sized from story_len, "
                         "window and max_new_tokens)")
     p.add_argument("--sdxl_int8", action="store_true",
-                   help="weight-only int8 UNet: not ported, refused")
+                   help="weight-only int8 UNet projections/convs (per-output-channel "
+                        "scales, quantize_unet_): ~2.4GB less streaming + footprint per "
+                        "image; divergence bound pinned in test_torch_unet_int8")
     p.add_argument("--decode_tp", type=int, default=0,
                    help="tensor-parallel decode over N devices: not ported, refused above 1")
     p.add_argument("--detok_devices", type=int, default=0,
@@ -113,7 +117,9 @@ def main(argv=None, device: str = "cuda"):
         num_inference_steps=args.num_inference_steps, image_size=args.image_size,
         force_boi_at=args.force_boi_at, batch_stories=args.batch_stories,
         pipelined_detok=args.detok_devices > 0, speculate_k=args.speculate_k,
-        sink=args.sink, cache_capacity=cache_capacity)
+        sink=args.sink, cache_capacity=cache_capacity, sdxl_int8=args.sdxl_int8,
+        agent_ckpt=args.agent_ckpt, vit_ckpt=args.vit_ckpt, adapter_ckpt=args.adapter_ckpt,
+        vae_ckpt=args.vae_ckpt)
 
     serving = args.detok_devices > 0 and stack.detok_factory is not None
     pipe = StoryGenerationPipeline(

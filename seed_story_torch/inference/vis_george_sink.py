@@ -7,9 +7,11 @@ cache persists across turns and long stories evict old images through the
 sink policy (``StoryVisualizationPipeline``). ``--detok_devices N`` renders
 the images on N de-tokenizer replicas on the last N devices while the
 decode goes on (``pipelined_segments``); decode and replicas never share a
-device. Weights are seeded random ones; the flags whose machinery is not
-ported (``--decode_tp`` > 1, ``--sdxl_int8``, the ``--*_ckpt`` loaders) are
-refused.
+device. Weights are seeded random ones, or the port's own parameter files
+through ``--agent_ckpt``, ``--vit_ckpt``, ``--adapter_ckpt`` and
+``--vae_ckpt`` (``save_params`` files or training checkpoint directories);
+``--sdxl_int8`` runs the int8 UNet. ``--decode_tp`` above 1, whose
+machinery is not ported, is refused.
 
   python -m seed_story_torch.inference.vis_george_sink --val_jsonl ... --image_root ...
 """
@@ -49,7 +51,9 @@ def parse_args(argv=None):
     p.add_argument("--force_boi_at", type=int, default=None)
     p.add_argument("--max_stories", type=int, default=None)
     p.add_argument("--sdxl_int8", action="store_true",
-                   help="weight-only int8 UNet: not ported, refused")
+                   help="weight-only int8 UNet projections/convs (per-output-channel "
+                        "scales, quantize_unet_): ~2.4GB less streaming + footprint per "
+                        "image; divergence bound pinned in test_torch_unet_int8")
     p.add_argument("--decode_tp", type=int, default=0,
                    help="tensor-parallel decode over N devices: not ported, refused above 1")
     p.add_argument("--detok_devices", type=int, default=0,
@@ -77,7 +81,9 @@ def main(argv=None, device: str = "cuda"):
         args.agent_model, adapter_cfg_path=None if args.no_images else args.adapter,
         vae_cfg_path=args.vae_config, device=device, max_new_tokens=args.max_new_tokens,
         num_inference_steps=args.num_inference_steps, image_size=args.image_size,
-        force_boi_at=args.force_boi_at, sink=True)
+        force_boi_at=args.force_boi_at, sink=True, sdxl_int8=args.sdxl_int8,
+        agent_ckpt=args.agent_ckpt, vit_ckpt=args.vit_ckpt, adapter_ckpt=args.adapter_ckpt,
+        vae_ckpt=args.vae_ckpt)
     serving = args.detok_devices > 0 and stack.detok_factory is not None
     pipe = StoryVisualizationPipeline(
         stack.tokenizer, stack.generator, stack.visual_encode,

@@ -152,13 +152,14 @@ def quantize_kv_rows(x: torch.Tensor):
 
 
 def quantize_weight(w: torch.Tensor):
-    """(out, in) float weight -> int8 weight and per-output-channel f32
-    scale max|w| / 127 floored at 1e-8 (the JAX ``quantize_llama_params``
-    on the transposed flax kernel)."""
+    """(out, ...) float weight (a Linear's (out, in), a Conv2d's OIHW) ->
+    int8 weight and per-output-channel f32 scale max|w| / 127 over every
+    other axis, floored at 1e-8 (the JAX ``quantize_llama_params`` and
+    ``quantize_unet_params`` on the flax kernel, whose output axis is last)."""
     wf = w.float()
-    scale = (wf.abs().amax(dim=1) / 127.0).clamp_min(1e-8)
-    q = torch.round(wf / scale[:, None]).clamp(-127, 127).to(torch.int8)
-    return q, scale
+    scale = (wf.abs().flatten(1).amax(dim=1) / 127.0).clamp_min(1e-8)
+    q = torch.round(wf / scale.view(-1, *[1] * (w.dim() - 1))).clamp(-127, 127)
+    return q.to(torch.int8), scale
 
 
 class RMSNorm(nn.Module):

@@ -3,7 +3,9 @@ SDXL UNet; counterpart of ``seed_story_tpu/models/sdxl/adapter.py``. The
 training forward is the eps-prediction MSE of stage 3; the trainable set is
 the resampler and every UNet ``to_k`` / ``to_v`` projection (self- and
 cross-attention), or the whole UNet with ``full_ft``. State-dict names:
-``resampler.*`` and ``unet.*``, as ``convert_detokenizer`` reads them."""
+``resampler.*`` and ``unet.*``, as ``convert_detokenizer`` reads them. The
+adapter passes ``unet.quantize`` through to its UNet (the int8 UNet, for
+inference); ``quantize_adapter_`` converts a float adapter's UNet in place."""
 
 from __future__ import annotations
 
@@ -13,7 +15,7 @@ from typing import Dict
 from torch import nn
 
 from ..ipa_resampler import ResamplerXLV2
-from .unet import SDXLUNetConfig, UNet2DConditionModel
+from .unet import SDXLUNetConfig, UNet2DConditionModel, quantize_unet_
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,3 +85,12 @@ def adapter_trainable_mask(adapter: SDXLAdapter, full_ft: bool = False) -> Dict[
         mask[name] = (parts[0] == "resampler" or (full_ft and parts[0] == "unet")
                       or "to_k" in parts or "to_v" in parts)
     return mask
+
+
+def quantize_adapter_(adapter: SDXLAdapter) -> SDXLAdapter:
+    """In place: the adapter's UNet becomes the int8 UNet (``quantize_unet_``)
+    and its configuration says so; the resampler stays float."""
+    quantize_unet_(adapter.unet)
+    adapter.cfg = dataclasses.replace(adapter.cfg, unet=dataclasses.replace(adapter.cfg.unet,
+                                                                             quantize=True))
+    return adapter

@@ -7,12 +7,22 @@ channels_last memory. Module names follow diffusers' state dict
 (``down_blocks.{i}.resnets.{j}``, ``...attentions.{j}.transformer_blocks.{k}
 .attn1.to_q``, ``ff.net.0.proj``), which ``convert_sdxl_unet`` reads.
 Attention goes through ``ops.attention.mha``.
+
+The int8 UNet (``SDXLUNetConfig.quantize``, or ``quantize_unet_`` on a
+float one in place): the modules of ``QUANTIZED_MODULES`` (the transformer
+projections and the resnet / sampler convolutions) hold int8 weights with a
+per-output-channel f32 ``weight_scale``. A linear layer runs ``int8_linear``
+(kernels A and C on the card, no bf16 copy of its weight), a convolution
+convolves its weight converted to ``dtype`` and scales the output (the JAX
+``QConv``); both then add the bias. The conditioning MLPs and ``conv_in`` /
+``conv_out`` stay float, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import re
 from typing import Optional, Tuple
 
 import torch
@@ -22,6 +32,7 @@ from torch import nn
 from ...ops.attention import mha
 from ...ops.dense import layer_norm, linear
 from ...ops.groupnorm import FastGroupNorm
+from ..llama import quantize_weight
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,6 +52,10 @@ class SDXLUNetConfig:
     projection_class_embeddings_input_dim: int = 2816  # 6*256 + 1280
     pooled_projection_dim: int = 1280
     norm_num_groups: int = 32
+    # weight-only int8 storage of QUANTIZED_MODULES (inference only: the UNet
+    # is frozen in every training stage); a float UNet converts in place with
+    # quantize_unet_
+    quantize: bool = False
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
 
@@ -71,12 +86,66 @@ def get_timestep_embedding(timesteps: torch.Tensor, embedding_dim: int,
     return torch.cat([cos, sin] if flip_sin_to_cos else [sin, cos], dim=-1)
 
 
+# The JAX module names whose weights an int8 UNet stores as int8
+# (seed_story_tpu/models/sdxl/unet.py:131-141): the transformer projections
+# and the resnet / sampler convolutions.
+QUANTIZED_MODULES = frozenset({
+    "to_q", "to_k", "to_v", "to_out_0", "net_0_proj", "net_2",
+    "proj_in", "proj_out", "conv1", "conv2", "conv_shortcut", "conv",
+})
+
+
+def flax_module_name(path: str) -> str:
+    """The JAX module name of the UNet submodule at ``path`` (diffusers
+    names): ``attn1.to_out.0`` -> ``to_out_0``, ``ff.net.0.proj`` ->
+    ``net_0_proj``, ``ff.net.2`` -> ``net_2``."""
+    path = re.sub(r"\.(\d+)", r"_\1", path).replace("net_0.proj", "net_0_proj")
+    return path.rpartition(".")[2]
+
+
+def quantized_modules(unet: nn.Module):
+    """(path, module) of every Linear / Conv2d of ``unet`` that an int8 UNet
+    stores as int8."""
+    return [(path, m) for path, m in unet.named_modules()
+            if isinstance(m, (nn.Linear, nn.Conv2d))
+            and flax_module_name(path) in QUANTIZED_MODULES]
+
+
+def _set_int8_(layer: nn.Module, weight: torch.Tensor, scale: torch.Tensor):
+    layer.weight = nn.Parameter(weight, requires_grad=False)
+    layer.weight_scale = nn.Parameter(scale, requires_grad=False)
+
+
+@torch.no_grad()
+def quantize_unet_(unet: nn.Module) -> nn.Module:
+    """In place, the counterpart of the JAX ``quantize_unet_params``: the
+    weight of every module of ``quantized_modules`` becomes int8 with a
+    per-output-channel f32 ``weight_scale`` (symmetric, max |w| / 127 over
+    every other axis, floored at 1e-8; ``quantize_weight``), one module at a
+    time, its float weight freed. Other parameters stay as they are; an
+    already int8 module is left alone. Sets ``cfg.quantize``."""
+    if not isinstance(unet, UNet2DConditionModel):
+        raise TypeError(f"quantize_unet_ takes the UNet (an adapter's .unet), got "
+                        f"{type(unet).__name__}")
+    for _, m in quantized_modules(unet):
+        if m.weight.dtype != torch.int8:
+            _set_int8_(m, *quantize_weight(m.weight))
+    unet.cfg = dataclasses.replace(unet.cfg, quantize=True)
+    return unet
+
+
 def conv_nhwc(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """``conv`` in ``dtype`` on an NHWC tensor (channels_last underneath)."""
+    """``conv`` in ``dtype`` on an NHWC tensor (channels_last underneath).
+    An int8 ``conv`` convolves its weight converted to ``dtype``, then
+    multiplies by its scale and adds the bias, each rounded to ``dtype``
+    (the JAX ``QConv``)."""
     bias = None if conv.bias is None else conv.bias.to(dtype)
-    y = F.conv2d(x.permute(0, 3, 1, 2).to(dtype), conv.weight.to(dtype), bias,
-                 conv.stride, conv.padding)
-    return y.permute(0, 2, 3, 1)
+    x = x.permute(0, 3, 1, 2).to(dtype)
+    if conv.weight.dtype == torch.int8:
+        y = F.conv2d(x, conv.weight.to(dtype), None, conv.stride, conv.padding)
+        y = y.permute(0, 2, 3, 1) * conv.weight_scale.to(dtype)
+        return y if bias is None else y + bias
+    return F.conv2d(x, conv.weight.to(dtype), bias, conv.stride, conv.padding).permute(0, 2, 3, 1)
 
 
 def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
@@ -288,6 +357,11 @@ class UNet2DConditionModel(nn.Module):
 
         self.conv_norm_out = FastGroupNorm(cfg.norm_num_groups, ch[0], 1e-5)
         self.conv_out = nn.Conv2d(ch[0], cfg.out_channels, 3, padding=1, dtype=pd)
+        if cfg.quantize:  # the JAX quantize=True layout: int8 zeros, unit scales
+            for _, m in quantized_modules(self):
+                _set_int8_(m, torch.zeros(m.weight.shape, dtype=torch.int8,
+                                          device=m.weight.device),
+                           torch.ones(m.weight.shape[0], device=m.weight.device))
 
     def forward(self, sample, timesteps, encoder_hidden_states, time_ids=None,
                 text_embeds=None):

@@ -1,22 +1,28 @@
-"""The base product of an int8 ``LoRADense``: x (..., K) times an int8
-weight W (N, K) with a per-output-channel scale (N,),
+"""The base product of an int8 ``LoRADense`` or UNet ``QDense``: x (..., K)
+times an int8 weight W (N, K) with a per-output-channel scale (N,),
 
     y = bf16( bf16(x W^T) * bf16(scale) )
 
 (in ``x.dtype`` for the plain version), the rounding order of the JAX
 package's ``jnp.dot(x, kernel.astype(dtype)) * scale.astype(dtype)``
-(``seed_story_tpu/models/llama.py:294``).
+(``seed_story_tpu/models/llama.py:294``, ``seed_story_tpu/models/sdxl/unet.py:63-77``).
 
 ``int8_linear(implementation="auto")`` takes the plain version for CPU
-tensors. On CUDA tensors with at most 32 rows (decode, the K + 1 verify
-block, and B (K + 1) rows of B stories in lockstep) it launches the
-hand-written kernel ``csrc/int8_linear.cu`` (tensor cores in 1, 2 or 4
-n-tiles of 8 rows, a cp.async ring, K split across the blocks of a cluster;
-one row takes a CUDA-core kernel), which streams the int8 bytes once; with
-more rows (prefill, compute-bound) it runs the plain expression, a large
-product that the JAX package leaves to XLA too. There is no fallback: a
-CUDA input the kernel does not take raises, and so does a failed build or
-launch.
+tensors. On CUDA tensors it launches a hand-written kernel, chosen by the
+number of rows:
+- at most 32 rows (decode, the K + 1 verify block, and B (K + 1) rows of B
+  stories in lockstep): kernel A, ``csrc/int8_linear.cu`` (tensor cores in
+  1, 2 or 4 n-tiles of 8 rows, a cp.async ring, K split across the blocks of
+  a cluster; one row takes a CUDA-core kernel), which streams the int8
+  bytes once;
+- more than 32 rows (prefill, the int8 UNet, ``quantize_base`` training):
+  kernel C, ``csrc/int8_gemm.cu`` (128 x 128 output tiles of mma.sync, the
+  int8 tile converted to bf16 in shared memory), which never writes a bf16
+  copy of W.
+The gradient to x goes through kernel C's transposed form,
+``dx = bf16( bf16(g * bf16(scale)) W )`` (``Int8LinearFunction``); W and the
+scale take none. There is no fallback: a CUDA input the kernels do not take
+raises, and so does a failed build or launch.
 """
 
 from __future__ import annotations
@@ -30,7 +36,21 @@ import torch.nn.functional as F
 
 from .cuda_lib import BuiltLibrary, check_launch
 
-MAX_KERNEL_ROWS = 32
+MAX_KERNEL_ROWS = 32  # kernel A's rows; more rows take kernel C
+
+
+def _check_operands(kernel: str, operands):
+    """Raises unless every (name, tensor, dtype) of ``operands`` is a
+    contiguous, 16-byte aligned CUDA tensor of that dtype on the first one's
+    device."""
+    device = operands[0][1].device
+    for name, t, dtype in operands:
+        if not t.is_cuda or t.device != device:
+            raise ValueError(f"{kernel}: {name} must be on {device}, got {t.device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{kernel} takes {name} as {dtype}, got {t.dtype}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{kernel}: {name} must be contiguous and 16-byte aligned")
 
 
 def int8_linear_reference(x: torch.Tensor, weight: torch.Tensor, scale: torch.Tensor):
@@ -81,14 +101,8 @@ class Int8Linear:
         """x (..., K) bf16 with at most 32 rows, weight (N, K) int8, scale (N,)
         f32; CUDA tensors on one device, contiguous, 16-byte aligned, K a
         multiple of 16. Returns (..., N) bf16."""
-        for name, t, dtype in (("x", x, torch.bfloat16), ("weight", weight, torch.int8),
-                               ("scale", scale, torch.float32)):
-            if not t.is_cuda or t.device != x.device:
-                raise ValueError(f"int8_linear: {name} must be on {x.device}, got {t.device}")
-            if t.dtype != dtype:
-                raise TypeError(f"int8_linear takes {name} as {dtype}, got {t.dtype}")
-            if not t.is_contiguous() or t.data_ptr() % 16:
-                raise ValueError(f"int8_linear: {name} must be contiguous and 16-byte aligned")
+        _check_operands("int8_linear", (("x", x, torch.bfloat16), ("weight", weight, torch.int8),
+                                        ("scale", scale, torch.float32)))
         n, k = weight.shape
         m = x.numel() // k if k else 0
         if x.shape[-1] != k or scale.shape != (n,):
@@ -114,20 +128,114 @@ class Int8Linear:
 int8_linear_kernel = Int8Linear()
 
 
+class Int8Gemm:
+    """Wrapper of kernel C, the int8 GEMM for more than 32 rows: the forward
+    product (``__call__``) and its transposed form (``transposed``, the
+    gradient to x). ``launches`` counts every launch of either form (under a
+    lock, as ``Int8Linear``), ``transposed_launches`` those of the transposed
+    form; nothing else touches them."""
+
+    MULTIPLE = 64  # N and K must be multiples of it
+
+    def __init__(self):
+        self.launches = 0
+        self.transposed_launches = 0
+        self._lock = threading.Lock()
+        self._built: Optional[BuiltLibrary] = None
+
+    def build(self) -> BuiltLibrary:
+        if self._built is None:
+            built = BuiltLibrary("int8_gemm")
+            fn = built.lib.int8_gemm_bf16
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            self._built = built
+        return self._built
+
+    def _launch(self, a: torch.Tensor, weight: torch.Tensor, scale: torch.Tensor,
+                transposed: bool) -> torch.Tensor:
+        _check_operands("int8_gemm", (("g" if transposed else "x", a, torch.bfloat16),
+                                      ("weight", weight, torch.int8),
+                                      ("scale", scale, torch.float32)))
+        n, k = weight.shape
+        inner, outer = (n, k) if transposed else (k, n)
+        if a.shape[-1] != inner or scale.shape != (n,):
+            raise ValueError(f"int8_gemm: bad shapes {'g' if transposed else 'x'}="
+                             f"{tuple(a.shape)} weight={tuple(weight.shape)} "
+                             f"scale={tuple(scale.shape)}")
+        if n % self.MULTIPLE or k % self.MULTIPLE or not n or not k:
+            raise ValueError(f"int8_gemm takes N and K multiples of {self.MULTIPLE}, "
+                             f"got N={n}, K={k}")
+        m = a.numel() // inner
+        if m < 1:
+            raise ValueError("int8_gemm takes at least one row")
+        out = torch.empty((*a.shape[:-1], outer), dtype=torch.bfloat16, device=a.device)
+        fn = self.build().lib.int8_gemm_bf16
+        with torch.cuda.device(a.device):
+            stream = torch.cuda.current_stream(a.device).cuda_stream
+            check_launch("int8_gemm", fn(a.data_ptr(), weight.data_ptr(), scale.data_ptr(),
+                                         out.data_ptr(), m, n, k, int(transposed), stream))
+        with self._lock:
+            self.launches += 1
+            self.transposed_launches += int(transposed)
+        return out
+
+    def __call__(self, x: torch.Tensor, weight: torch.Tensor, scale: torch.Tensor):
+        """y (..., N) = bf16(bf16(x W^T) * bf16(scale)) for x (..., K) bf16,
+        weight (N, K) int8, scale (N,) f32: CUDA tensors on one device,
+        contiguous, 16-byte aligned; N and K multiples of 64."""
+        return self._launch(x, weight, scale, transposed=False)
+
+    def transposed(self, g: torch.Tensor, weight: torch.Tensor, scale: torch.Tensor):
+        """dx (..., K) = bf16(bf16(g * bf16(scale)) W) for g (..., N) bf16:
+        the gradient of ``__call__`` to x."""
+        return self._launch(g, weight, scale, transposed=True)
+
+
+int8_gemm_kernel = Int8Gemm()
+
+
+def _launch_kernel(x: torch.Tensor, weight: torch.Tensor, scale: torch.Tensor):
+    """Kernel A for at most 32 rows, kernel C above."""
+    x = x.contiguous()
+    rows = x.numel() // max(1, x.shape[-1])
+    if rows <= MAX_KERNEL_ROWS:
+        return int8_linear_kernel(x, weight, scale)
+    return int8_gemm_kernel(x, weight, scale)
+
+
+class Int8LinearFunction(torch.autograd.Function):
+    """The kernels' product with a gradient to x through kernel C's
+    transposed form; the int8 weight and its scale are frozen and take no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, x, weight, scale):
+        ctx.save_for_backward(weight, scale)
+        return _launch_kernel(x, weight, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        weight, scale = ctx.saved_tensors
+        return int8_gemm_kernel.transposed(g.contiguous(), weight, scale), None, None
+
+
 def int8_linear(x: torch.Tensor, weight: torch.Tensor, scale: torch.Tensor,
                 implementation: str = "auto"):
     """x (..., K) times the int8 ``weight`` (N, K) with ``scale`` (N,).
 
-    implementation: 'auto' (plain on CPU tensors; on CUDA tensors the kernel
-    for at most 32 rows, the plain expression above that), 'kernel' (CUDA
-    tensors only) or 'plain'."""
+    implementation: 'auto' (plain on CPU tensors, the kernels on CUDA
+    tensors), 'kernel' (CUDA tensors only: kernel A for at most 32 rows,
+    kernel C above) or 'plain'. On the kernels, a gradient to x flows when x
+    requires one."""
     if implementation == "auto":
-        rows = x.numel() // max(1, x.shape[-1])
-        implementation = "kernel" if x.is_cuda and rows <= MAX_KERNEL_ROWS else "plain"
+        implementation = "kernel" if x.is_cuda else "plain"
     if implementation == "plain":
         return int8_linear_reference(x, weight, scale)
     if implementation != "kernel":
         raise ValueError(f"unknown implementation {implementation!r}")
     if not x.is_cuda:
         raise ValueError("implementation='kernel' needs CUDA tensors")
-    return int8_linear_kernel(x, weight, scale)
+    if torch.is_grad_enabled() and x.requires_grad:
+        return Int8LinearFunction.apply(x, weight, scale)
+    return _launch_kernel(x, weight, scale)

@@ -10,7 +10,10 @@ that thread. The newest ``max_to_keep`` checkpoints are kept.
 
 ``load_params_partial`` is the reference's ``from_pretrained(strict=False)``:
 the entries of a saved state dict overwrite matching entries of a target,
-and the missing and unexpected names are reported.
+and the missing and unexpected names are reported. An int8 entry never
+lands in a floating-point target, nor a floating-point entry in an int8
+one: a ``quantize_base`` checkpoint's int8 weights load into a quantized
+model, a float checkpoint into a float one (quantized afterwards).
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ import logging
 import os
 import shutil
 import threading
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -123,20 +126,53 @@ def load_params_partial(path: str, target: Dict[str, torch.Tensor]
     parameter file, or a checkpoint directory's ``params.pt``) overwrite the
     entries of ``target`` with the same name and shape, cast to the target's
     dtype and device. Returns (merged, missing, unexpected); an entry whose
-    shape differs counts as missing."""
+    shape differs counts as missing, and so does one that is int8 where the
+    target is floating point or the other way round (never cast: int8 values
+    read as float weights, or float weights truncated to int8, are wrong
+    without any error)."""
+    return _merge(_read(path), target, path)
+
+
+def _read(path: str) -> Dict[str, torch.Tensor]:
     if os.path.isdir(path):
         path = os.path.join(path, PARAMS)
-    loaded = torch.load(path, map_location="cpu", weights_only=True)
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def _merge(loaded: Dict[str, torch.Tensor], target: Dict[str, torch.Tensor], path: str):
     merged = dict(target)
     missing = [k for k in target if k not in loaded]
     unexpected = [k for k in loaded if k not in target]
     for k, v in loaded.items():
         if k not in target:
             continue
-        if tuple(v.shape) != tuple(target[k].shape):
+        if (tuple(v.shape) != tuple(target[k].shape)
+                or (v.dtype == torch.int8) != (target[k].dtype == torch.int8)):
             missing.append(k)
             continue
         merged[k] = v.to(dtype=target[k].dtype, device=target[k].device)
     log.info("partial load from %s: missing keys: %d, unexpected keys: %d",
              path, len(missing), len(unexpected))
     return merged, missing, unexpected
+
+
+def load_checkpoint_(module: torch.nn.Module, path: Optional[str],
+                     quantize: Optional[Callable[[torch.nn.Module], object]] = None
+                     ) -> torch.nn.Module:
+    """Fills ``module`` in place from the parameter file (or checkpoint
+    directory) at ``path`` with ``load_params_partial``, and quantizes it
+    with ``quantize`` (e.g. ``quantize_llama_``), in this order: the file's
+    floating-point entries load into the float module, ``quantize`` converts
+    it, then the file's int8 entries (and everything else, again) load into
+    the quantized module. So a float checkpoint is quantized after it loads,
+    as the JAX package converts a float tree with ``quantize_llama_params``,
+    and a ``quantize_base`` run's int8 weights and scales load as they were
+    saved. ``path`` None only quantizes."""
+    loaded = _read(path) if path else None
+    if loaded is not None:
+        module.load_state_dict(_merge(loaded, module.state_dict(), path)[0])
+    if quantize is not None:
+        quantize(module)
+        if loaded is not None:
+            module.load_state_dict(_merge(loaded, module.state_dict(), path)[0])
+    return module

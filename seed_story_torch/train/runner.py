@@ -6,7 +6,8 @@ the trainer, the host->device prefetch, metrics, the profiler window,
 checkpoints, and resume with the data pipeline's position restored. Each
 logged step's line in ``metrics.jsonl`` carries its seconds (forward and
 backward, update) on the device's clock, and on a card its peak memory and
-flash kernel launches; a last line carries the final checkpoint's host
+the launches of the flash kernels and of kernel C (the int8 GEMM of a
+``quantize_base`` base); a last line carries the final checkpoint's host
 copy and write seconds. The
 dropout seed of step ``s`` is ``derive_seed(seed, s)``, so a resumed run
 draws exactly the masks an uninterrupted one would.
@@ -26,18 +27,21 @@ from torch import nn
 from ..data.datapipes import ThreadedLoader
 from ..models.llama import derive_seed
 from ..ops.attention import flash_bwd, flash_fwd
+from ..ops.int8_linear import int8_gemm_kernel
 from .checkpoint import CheckpointManager
 from .metrics import (MetricsWriter, Profiler, Throughput, device_mark, log, seconds_between,
                       setup_logging)
 from .trainer import LossFn, TrainConfig, Trainer
 
-# the flash kernels' launch counts, logged per step on a card
-LAUNCH_COUNTS = ("flash_fwd_launches", "flash_bwd_dq_launches", "flash_bwd_dkv_launches")
+# the flash kernels' and kernel C's launch counts, logged per step on a card
+LAUNCH_COUNTS = ("flash_fwd_launches", "flash_bwd_dq_launches", "flash_bwd_dkv_launches",
+                 "int8_gemm_launches")
 
 
-def flash_launch_counts():
-    """The flash kernels' launch counts, in the order of ``LAUNCH_COUNTS``."""
-    return flash_fwd.launches, flash_bwd.dq_launches, flash_bwd.dkv_launches
+def kernel_launch_counts():
+    """The kernels' launch counts, in the order of ``LAUNCH_COUNTS``."""
+    return (flash_fwd.launches, flash_bwd.dq_launches, flash_bwd.dkv_launches,
+            int8_gemm_kernel.launches)
 
 
 @dataclasses.dataclass
@@ -126,7 +130,7 @@ def run_training(args: RunnerArgs, train_cfg: TrainConfig, model: nn.Module, los
                 batch = batch_transform(batch)
             if on_card:
                 torch.cuda.reset_peak_memory_stats(device)
-                launches = flash_launch_counts()
+                launches = kernel_launch_counts()
             marks = [device_mark(device)]
             metrics = trainer.accumulate_grads(batch, derive_seed(args.seed, step))
             marks.append(device_mark(device))
@@ -143,7 +147,7 @@ def run_training(args: RunnerArgs, train_cfg: TrainConfig, model: nn.Module, los
                 if on_card:
                     host["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
                     host.update({name: after - before for name, before, after
-                                 in zip(LAUNCH_COUNTS, launches, flash_launch_counts())})
+                                 in zip(LAUNCH_COUNTS, launches, kernel_launch_counts())})
                 host.update(throughput.tick())
                 if host_metrics_fn is not None:
                     host.update(host_metrics_fn(batch, metrics))

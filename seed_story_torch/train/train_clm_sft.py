@@ -19,6 +19,15 @@ package's builders under ``seed_story_tpu.data``; ``utils.config`` resolves
 each to the port's own copy under ``seed_story_torch.data`` and refuses
 any other ``seed_story_tpu.`` target. It trains on the card and raises
 when there is none; ``main(argv, device="cpu")`` trains on the CPU instead.
+
+A LLaMA YAML with ``quantize_base: true`` (the one-chip recipe,
+``configs/clm_models/llama2chat7b_lora_onechip.yaml``) trains LoRA over a
+frozen int8 base: the agent is built float, filled, and its seven
+projections quantized in place (``quantize_agent_``), the int8 products on
+the card going through kernels A and C with the gradient to x through
+kernel C. ``--pretrained_agent_path`` loads a float checkpoint before the
+quantization and an int8 one (a ``quantize_base`` run's) after it. The int8
+weights and their scales never reach the optimizer.
 """
 
 from __future__ import annotations
@@ -30,7 +39,7 @@ from typing import Any, Dict
 import torch
 
 from ..data.story_telling import flatten_images
-from ..inference.common import fill_module
+from ..inference.common import fill_module, quantize_agent_
 from ..models.agent import AgentConfig, ContinuousLVLM
 from ..models.llama import LlamaConfig, lora_trainable_mask
 from ..models.sdxl.adapter import SDXLAdapterConfig
@@ -38,7 +47,7 @@ from ..models.sdxl.unet import SDXLUNetConfig
 from ..models.sdxl.vae import VAEConfig
 from ..models.vit import ViTConfig, VisionTransformerWithAttnPool
 from ..utils.config import instantiate, load_config
-from .checkpoint import load_params_partial
+from .checkpoint import load_checkpoint_
 from .runner import RunnerArgs, run_training
 from .stage2 import make_stage2_loss_fn
 from .trainer import TrainConfig
@@ -49,7 +58,9 @@ CONFIG_CLASSES = {cls.__name__: cls for cls in (ViTConfig, LlamaConfig, AgentCon
                                                 SDXLAdapterConfig, SDXLUNetConfig, VAEConfig)}
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 # JAX-only options: a scanned layer stack changes the parameter layout, not
-# the numbers, so it is dropped; the others change the numbers and are refused.
+# the numbers, so it is dropped; the others are refused. The callers that
+# take ``quantize_base`` (this entry, ``build_stack_from_yaml``) pop it from
+# the YAML first and quantize the filled float agent in place.
 IGNORED_OPTIONS = ("scan_layers",)
 NOT_PORTED_OPTIONS = ("quantize_base", "quantize_kv", "shard_attention_axis")
 
@@ -125,19 +136,21 @@ def main(argv=None, device: str = "cuda"):
     tokenizer = instantiate(load_config(args.tokenizer))
     image_transform = instantiate(load_config(args.image_transform))
     vit_cfg = port_config(load_config(args.visual_encoder))
-    llm_cfg = port_config(load_config(args.llm_model))
+    llm_raw = dict(load_config(args.llm_model))
+    quantize_base = bool(llm_raw.pop("quantize_base", False))
+    llm_cfg = port_config(llm_raw)
     agent_cfg = port_config(load_config(args.agent_model), llm=llm_cfg)
 
     vit = fill_module(VisionTransformerWithAttnPool, vit_cfg, device, seed=0)
-    if args.pretrained_vit_path:
-        vit.load_state_dict(load_params_partial(args.pretrained_vit_path, vit.state_dict())[0])
+    load_checkpoint_(vit, args.pretrained_vit_path)
     vit.eval().requires_grad_(False)  # frozen (the reference's train_clm_sft.py:213-215)
     agent = fill_module(ContinuousLVLM, agent_cfg, device, seed=args.seed)
-    if args.pretrained_agent_path:
-        agent.load_state_dict(load_params_partial(args.pretrained_agent_path,
-                                                  agent.state_dict())[0])
+    load_checkpoint_(agent, args.pretrained_agent_path,
+                     (lambda a: quantize_agent_(a, base=True, kv=False)) if quantize_base else None)
 
-    # trainable set: the LoRA recipe on the LLM; both resamplers fully
+    # trainable set: the LoRA recipe on the LLM; both resamplers fully (an
+    # int8 base weight and its scale are neither; seed_story_tpu/train/
+    # train_clm_sft.py:153-160, trainer.py:114-121)
     mask = lora_trainable_mask(agent)
     for name in mask:
         if name.startswith(("input_resampler.", "output_resampler.")):

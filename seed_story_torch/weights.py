@@ -10,7 +10,8 @@ and undoes the layout change ``seed_story_tpu/tools/convert_torch_weights.py``
 makes: flax Dense kernels (in, out) become Linear weights (out, in), flax
 Conv kernels HWIO become OIHW, norm ``scale`` becomes ``weight``; an int8
 projection's ``kernel`` (int8, (in, out)) and ``kernel_scale`` become its
-``weight`` (transposed) and ``weight_scale``. Padded vocab rows stay
+``weight`` (transposed) and ``weight_scale``, and so do an int8 UNet's
+Linear and Conv2d weights (HWIO int8 -> OIHW). Padded vocab rows stay
 padded. Every flax leaf must be used exactly once.
 """
 
@@ -58,7 +59,7 @@ def _leaf(module: nn.Module, key: str) -> Tuple[str, Callable[[np.ndarray], np.n
             return "scale", lambda w: w
         if isinstance(owner, nn.Embedding):
             return "embedding", lambda w: w
-    if name == "weight_scale" and isinstance(owner, LoRADense):  # int8 projection
+    if name == "weight_scale":  # an int8 projection or convolution
         return "kernel_scale", lambda w: w
     return name, lambda w: w
 
@@ -215,7 +216,7 @@ def init_random_(model: nn.Module, seed: int) -> nn.Module:
     gen = torch.Generator(device=device).manual_seed(seed)
     for m in reversed(list(model.modules())):
         if isinstance(m, (nn.Linear, nn.Conv2d, LoRADense)):
-            if isinstance(m, LoRADense) and m.quantized:  # drawn in f32, then quantized
+            if m.weight.dtype == torch.int8:  # drawn in f32, then quantized
                 w = torch.empty(m.weight.shape, dtype=torch.float32, device=device)
                 _lecun_(w, gen)
                 q, scale = quantize_weight(w)

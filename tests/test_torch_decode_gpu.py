@@ -97,16 +97,6 @@ def test_int8_linear_rows_are_bitwise_equal_across_row_counts(n, k):
 
 
 @pytest.mark.gpu
-def test_int8_linear_routes_prefill_rows_to_the_plain_product():
-    _card()
-    x, w, scale = _int8_inputs(33, 256, 512, seed=1)
-    before = int8_linear_kernel.launches
-    y = int8_linear(x, w, scale)
-    assert int8_linear_kernel.launches == before
-    torch.testing.assert_close(y, int8_linear(x, w, scale, implementation="plain"))
-
-
-@pytest.mark.gpu
 def test_int8_linear_refuses_what_it_does_not_take():
     _card()
     x, w, scale = _int8_inputs(4, 256, 512, seed=2)

@@ -2,7 +2,8 @@
 package on the same inputs: ``quantize_kv_rows`` and ``quantize_llama_``
 bitwise, the JAX int8 parameter tree through ``agent_state_dict`` bitwise,
 the int8 ``LoRADense`` within 1e-5, ``decode_attention`` with int8 scales
-within 1e-5 (S in {1, 5}, GQA), and an int8-weight, int8-KV model's
+within 1e-5 (S in {1, 5}, GQA), its gradient to x against ``jax.vjp``,
+and an int8-weight, int8-KV model's
 prefill and decode logits within 1e-3 of max |logit| with identical greedy
 tokens. Also: the kernel routes refuse CPU tensors, and the plain int8
 product keeps the JAX rounding order."""
@@ -117,6 +118,52 @@ def test_int8_lora_dense_matches_jax(bias, rank):
     with torch.no_grad():
         got = dense(torch.from_numpy(x))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype,bias,rank", [("float32", False, 0), ("float32", True, 4),
+                                             ("bfloat16", False, 0)])
+def test_int8_lora_dense_gradient_to_x_matches_jax_vjp(dtype, bias, rank):
+    """The gradient to x through an int8 ``LoRADense`` (the quantize_base
+    training backward) against ``jax.vjp`` of the JAX ``LoRADense(quantize=True)``
+    on the same int8 kernel: in f32 within 1e-5 of max |dx|; in bf16 (the
+    base product alone: g times the bf16 scale rounded, then the product
+    with W rounded) within one bf16 spacing of each element. The int8 weight
+    and its scale take no gradient."""
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    jdense = ref.LoRADense(features=48, use_bias=bias, lora_rank=rank, quantize=True, dtype=jdt)
+    rng = np.random.RandomState(21)
+    x = torch.from_numpy(rng.randn(2, 5, 64).astype(np.float32)).to(tdt)
+    g = torch.from_numpy(rng.randn(2, 5, 48).astype(np.float32)).to(tdt)
+    shapes = jax.eval_shape(lambda: jdense.init(jax.random.PRNGKey(0), jnp.zeros((2, 5, 64))))
+    params = jax.tree_util.tree_map(lambda s: (0.1 * rng.randn(*s.shape)).astype(np.float32),
+                                    ref.nn.meta.unbox(shapes["params"]))
+    params["kernel"] = rng.randint(-127, 128, size=(64, 48)).astype(np.int8)
+    params["kernel_scale"] = (rng.rand(48) / (127 * 8)).astype(np.float32)
+
+    def jx(t):
+        return jnp.asarray(t.float().numpy()).astype(jdt)
+
+    _, vjp = jax.vjp(lambda xx: jdense.apply({"params": params}, xx), jx(x))
+    want = np.asarray(vjp(jx(g))[0].astype(jnp.float32))
+
+    dense = port.LoRADense(64, 48, bias=bias, lora_rank=rank, quantize=True, dtype=tdt)
+    sd = {"weight": torch.from_numpy(params["kernel"].T.copy()),
+          "weight_scale": torch.from_numpy(params["kernel_scale"])}
+    if bias:
+        sd["bias"] = torch.from_numpy(params["bias"])
+    if rank:
+        sd["lora_A.weight"] = torch.from_numpy(params["lora_a"].T.copy())
+        sd["lora_B.weight"] = torch.from_numpy(params["lora_b"].T.copy())
+    dense.load_state_dict(sd)
+    xt = x.clone().requires_grad_()
+    dense(xt).backward(g)
+    assert dense.weight.grad is None and dense.weight_scale.grad is None
+    got = xt.grad.float().numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max())
+    else:
+        spacing = np.maximum(np.abs(want), 2.0 ** -126) * 2.0 ** -7
+        assert np.all(np.abs(got - want) <= spacing)
 
 
 def test_int8_linear_plain_rounding_order_and_kernel_route():

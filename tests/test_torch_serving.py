@@ -14,8 +14,12 @@ jsonl, jpgs, model YAMLs whose ``_target_``s name the JAX package and are
 mapped through the port's config loader). Their ``text.txt`` / ``token.txt``
 must equal the port's own ``run`` / ``run_sink`` / ``run_batch`` /
 visualization texts on the same seeded weights (the JAX CLIs on these
-weights take minutes, which the test budget has not). The flags whose
-machinery is not ported are refused.
+weights take minutes, which the test budget has not). With ``--sdxl_int8``
+both CLIs match the port's pipelines on a quantized adapter, image bytes
+included; the four ``--*_ckpt`` flags on ``save_params`` files of a stack
+with other seeds give that stack's texts and images, and an int8
+``quantize_base`` agent checkpoint loads its int8 bytes and scales as saved.
+``--detok_devices`` on one device and ``--decode_tp`` > 1 are refused.
 """
 
 import json
@@ -36,6 +40,7 @@ from seed_story_torch.pipelines.story_generation import (StoryGenerationPipeline
                                                          StoryPipelineConfig)
 from seed_story_torch.pipelines.story_visualization import (StoryVisualizationPipeline,
                                                             VisPipelineConfig)
+from seed_story_torch.train.checkpoint import save_params
 from seed_story_tpu.data.tokenizer import TinyTokenizer
 
 CPU = torch.device("cpu")
@@ -249,6 +254,10 @@ def ws(tmp_path_factory):
         "llm.yaml": ("_target_: seed_story_tpu.models.llama.LlamaConfig\n"
                      "vocab_size: 32066\nhidden_size: 64\nintermediate_size: 128\n"
                      "num_hidden_layers: 1\nnum_attention_heads: 2\nlora_rank: 2\n" + f32),
+        "llm_int8.yaml": ("_target_: seed_story_tpu.models.llama.LlamaConfig\n"
+                          "vocab_size: 32066\nhidden_size: 64\nintermediate_size: 128\n"
+                          "num_hidden_layers: 1\nnum_attention_heads: 2\nlora_rank: 2\n"
+                          "quantize_base: true\n" + f32),
         "agent.yaml": ("_target_: seed_story_tpu.models.agent.AgentConfig\n"
                        "input_resampler_grid: 2\noutput_resampler_grid: 3\n"
                        "num_img_out_tokens: 4\nresampler_heads: 2\nvit_dim: 64\n"),
@@ -374,8 +383,6 @@ def test_vis_george_sink_cli(ws, tmp_path):
 @pytest.mark.parametrize("flag,match", [
     (["--detok_devices", "1"], "must not share a device"),
     (["--decode_tp", "2"], "parallel"),
-    (["--sdxl_int8"], "int8 UNet"),
-    (["--agent_ckpt", "agent.ckpt"], "checkpoint loaders"),
 ])
 def test_cli_refuses_what_is_not_ported(ws, tmp_path, main, flag, match):
     """On one device (here the CPU) --detok_devices is refused, as the JAX
@@ -384,3 +391,125 @@ def test_cli_refuses_what_is_not_ported(ws, tmp_path, main, flag, match):
     with pytest.raises(SystemExit, match=match):
         main(_argv(ws, tmp_path / "out") + flag, device="cpu")
     assert not (tmp_path / "out").exists()
+
+
+def _expect_images(folder, segments):
+    """The CLI's ``ori_XX.jpg`` frames are the segments' images, JPEG-coded
+    the same way."""
+    for seg in segments:
+        if seg.image is None:
+            continue
+        buf = os.path.join(folder, f"want_{seg.index:02d}.jpg")
+        Image.fromarray(seg.image).save(buf)
+        got = np.asarray(Image.open(os.path.join(folder, f"ori_{seg.index:02d}.jpg")))
+        assert np.array_equal(got, np.asarray(Image.open(buf))), seg.index
+        os.remove(buf)
+
+
+def _flow(name, ws, stack):
+    """The pipeline run a CLI makes for the first story, on ``stack``."""
+    if name == "gen_george":
+        pipe = StoryGenerationPipeline(stack.tokenizer, stack.generator, stack.visual_encode,
+                                       stack.detokenize, _story_cfg(stack))
+        pixels, captions = _seed(ws, stack, 0)
+        return list(pipe.run(pixels, captions[0]))
+    pipe = StoryVisualizationPipeline(
+        stack.tokenizer, stack.generator, stack.visual_encode, stack.detokenize,
+        VisPipelineConfig(story_len=4, window_size=2, num_img_in_tokens=stack.num_img_in_tokens))
+    pixels, captions = _seed(ws, stack, 0, "vis.jsonl")
+    return list(pipe.run(pixels, captions[0], captions[1:]))
+
+
+CLIS = {"gen_george": (gen_george.main, "val.jsonl", 3, {}),
+        "vis_george_sink": (vis_george_sink.main, "vis.jsonl", 4, dict(sink=True))}
+
+
+@pytest.mark.parametrize("name", sorted(CLIS))
+def test_cli_sdxl_int8(ws, tmp_path, name):
+    """--sdxl_int8: the CLI's texts and frames equal the port's pipeline on a
+    stack whose adapter's UNet is quantized in place (the conditioning MLPs
+    and conv_in / conv_out float); its images differ from the float UNet's."""
+    main, jsonl, story_len, kw = CLIS[name]
+    main(_argv(ws, tmp_path / "out", jsonl, story_len) + ["--max_stories", "1", "--sdxl_int8"],
+         device="cpu")
+    stack = _stack(ws, sdxl_int8=True, **kw)
+    unet = stack.image_pipe.adapter.unet
+    assert stack.image_pipe.adapter.cfg.unet.quantize
+    assert unet.mid_block.attentions[0].proj_in.weight.dtype == torch.int8
+    assert unet.conv_in.weight.dtype == unet.time_embedding.linear_1.weight.dtype == torch.float32
+    segments = _flow(name, ws, stack)
+    folder = str(tmp_path / "out" / "val_0")
+    _expect(folder, segments)
+    _expect_images(folder, segments)
+    floats = _flow(name, ws, _stack(ws, **kw))
+    assert [s.text for s in floats] == [s.text for s in segments]  # the agent is the same
+    assert any(not np.array_equal(a.image, b.image) for a, b in zip(floats, segments)
+               if a.image is not None)
+
+
+@pytest.mark.parametrize("name", sorted(CLIS))
+def test_cli_checkpoint_flags(ws, tmp_path, name):
+    """--vit_ckpt, --agent_ckpt, --adapter_ckpt and --vae_ckpt on
+    ``save_params`` files of a stack with other seeds: the CLI's texts and
+    frames are that stack's, not those of the seeded default."""
+    main, jsonl, story_len, kw = CLIS[name]
+    source = _stack(ws, seed=5, **kw)
+    parts = {"vit": source.vit, "agent": source.agent, "adapter": source.image_pipe.adapter,
+             "vae": source.image_pipe.vae}
+    flags = []
+    for part, module in parts.items():
+        save_params(str(tmp_path / f"{part}.pt"), module.state_dict())
+        flags += [f"--{part}_ckpt", str(tmp_path / f"{part}.pt")]
+    main(_argv(ws, tmp_path / "out", jsonl, story_len) + ["--max_stories", "1"] + flags,
+         device="cpu")
+    segments = _flow(name, ws, source)
+    folder = str(tmp_path / "out" / "val_0")
+    _expect(folder, segments)
+    _expect_images(folder, segments)
+    default = _flow(name, ws, _stack(ws, **kw))
+    assert any(not np.array_equal(a.image, b.image) for a, b in zip(default, segments)
+               if a.image is not None)
+
+
+def test_int8_agent_checkpoint_loads_its_bytes(ws, tmp_path):
+    """A quantize_base agent's save_params file through --agent_ckpt (a
+    LLaMA YAML with quantize_base): the stack's int8 weights and scales are
+    the saved ones bit for bit, not float-cast integers, and the CLI decodes
+    that agent's texts. A float checkpoint of the same agent loads before
+    the quantization and gives the same bytes."""
+    cfg = ws / "configs"
+    llm = str(cfg / "llm_int8.yaml")
+
+    def stack(**kw):
+        return build_stack_from_yaml(str(cfg / "tokenizer.yaml"), str(cfg / "transform.yaml"),
+                                     str(cfg / "vit.yaml"), llm, str(cfg / "agent.yaml"),
+                                     device="cpu", **SIZES, **kw)
+
+    saved = stack(seed=5).agent.state_dict()
+    assert saved["llm.model.layers.0.self_attn.q_proj.weight"].dtype == torch.int8
+    save_params(str(tmp_path / "agent_int8.pt"), saved)
+    target = stack(agent_ckpt=str(tmp_path / "agent_int8.pt"))
+    loaded = target.agent.state_dict()
+    assert sorted(loaded) == sorted(saved)
+    for key, value in saved.items():
+        assert loaded[key].dtype == value.dtype and torch.equal(loaded[key], value), key
+    assert not torch.equal(stack().agent.state_dict()["llm.lm_head.weight"],
+                           saved["llm.lm_head.weight"])  # the default seed differs
+
+    float_source = _stack(ws, seed=5, quantize_base=True)  # the same agent, quantized
+    float_agent = build_stack_from_yaml(
+        *(str(cfg / f"{n}.yaml") for n in STACK_ARGS), device="cpu", seed=5,
+        **SIZES).agent  # float
+    save_params(str(tmp_path / "agent_f32.pt"), float_agent.state_dict())
+    again = stack(agent_ckpt=str(tmp_path / "agent_f32.pt")).agent.state_dict()
+    for key, value in float_source.agent.state_dict().items():
+        assert torch.equal(again[key], value), key
+
+    argv = [a if a != str(cfg / "llm.yaml") else llm for a in _argv(ws, tmp_path / "out")]
+    gen_george.main(argv + ["--max_stories", "1", "--no_images", "--agent_ckpt",
+                            str(tmp_path / "agent_int8.pt")], device="cpu")
+    pipe = StoryGenerationPipeline(target.tokenizer, target.generator, target.visual_encode,
+                                   None, _story_cfg(target))
+    pixels, captions = _seed(ws, target, 0)
+    _, texts, _ = _story_files(str(tmp_path / "out" / "val_0"))
+    assert texts == [seg.text for seg in pipe.run(pixels, captions[0])]

@@ -305,3 +305,111 @@ def test_accumulating_two_equal_microbatches_equals_one_batch():
         torch.testing.assert_close(a["loss"], b["loss"], rtol=0, atol=1e-6)
     for k in sd1:
         torch.testing.assert_close(sd2[k], sd1[k], rtol=0, atol=1e-6, msg=k)
+
+
+def _int8_agent_pair(seed):
+    """The JAX agent with ``quantize_base`` on the int8 tree of
+    ``quantize_llama_params`` (random float kernels quantized: random int8
+    kernels with per-channel scales), and the port's ``quantize_base`` agent
+    carrying the same bytes."""
+    llm = dict(dtype=jnp.float32, lora_rank=4, lora_dropout=0.0)
+    fcfg = ref_agent.AgentConfig.tiny(llm=ref_llama.LlamaConfig.tiny(**llm))
+    params = jax_params(ref_agent.ContinuousLVLM(fcfg), seed=seed, **agent_init_args(fcfg))
+    qparams = jax.tree_util.tree_map(np.asarray, ref_llama.quantize_llama_params(params))
+    jagent = ref_agent.ContinuousLVLM(ref_agent.AgentConfig.tiny(
+        llm=ref_llama.LlamaConfig.tiny(quantize_base=True, **llm)))
+    llm["dtype"] = torch.float32
+    agent = port_agent.ContinuousLVLM(port_agent.AgentConfig.tiny(
+        llm=LlamaConfig.tiny(quantize_base=True, **llm)))
+    agent.load_state_dict(W.agent_state_dict(agent, qparams))
+    return jagent, qparams, agent
+
+
+def test_quantize_base_loss_and_lora_gradients_match_jax():
+    """The stage-2 loss over a frozen int8 base and the gradients of the
+    trainable set (LoRA, norms, embeddings, lm_head, resamplers) against
+    ``jax.value_and_grad`` over the same set of the JAX tree; the int8
+    weights and scales take no gradient."""
+    jagent, qparams, agent = _int8_agent_pair(seed=13)
+    batch = tiny_batch(seed=5)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    loss_fn = ref_stage2.make_stage2_loss_fn(jagent)
+    leaves, treedef = jax.tree_util.tree_flatten(qparams)
+    trained = jax.tree_util.tree_leaves(_stage2_mask_jax(qparams))
+
+    def loss_of(train_leaves):
+        it = iter(train_leaves)
+        full = [next(it) if t else leaf for leaf, t in zip(leaves, trained)]
+        return loss_fn(jax.tree_util.tree_unflatten(treedef, full), jbatch,
+                       jax.random.PRNGKey(0))
+
+    (jloss, jmetrics), jgrads = jax.jit(jax.value_and_grad(loss_of, has_aux=True))(
+        [jnp.asarray(leaf) for leaf, t in zip(leaves, trained) if t])
+    paths = ["/".join(str(k.key) for k in path) for path, _ in
+             jax.tree_util.tree_flatten_with_path(qparams)[0]]
+    jgrad = dict(zip([p for p, t in zip(paths, trained) if t], jgrads))
+
+    mask = _stage2_mask_port(agent)
+    for name, p in agent.named_parameters():
+        p.requires_grad_(mask[name])
+    agent.train()
+    out = agent(**_torch_batch(batch), dropout_seed=0)
+    out["total_loss"].backward()
+    np.testing.assert_allclose(out["total_loss"].item(), float(jloss), rtol=0, atol=LOSS_TOL)
+    for key in ("lm_loss", "rec_loss"):
+        np.testing.assert_allclose(out[key].item(), float(jmetrics[key]), rtol=0, atol=LOSS_TOL)
+    flax_paths = W.agent_flax_paths(agent)
+    n_int8 = 0
+    for name, p in agent.named_parameters():
+        if p.dtype == torch.int8 or name.endswith("weight_scale"):
+            assert not mask[name] and p.grad is None, name
+            n_int8 += p.dtype == torch.int8
+            continue
+        path, transform = flax_paths[name]
+        if not mask[name]:
+            assert path not in jgrad and p.grad is None, name
+            continue
+        want = np.asarray(transform(np.asarray(jgrad[path])))
+        scale = max(float(np.abs(want).max()), 1e-30)
+        assert float(np.abs(p.grad.numpy() - want).max()) <= GRAD_REL_TOL * scale, name
+    assert n_int8 == 7 * agent.cfg.llm.num_hidden_layers
+
+
+def test_quantize_base_trainer_steps_match_the_jax_trainer():
+    """3 steps of the port's ``Trainer`` against the JAX ``Trainer`` on the
+    same int8 tree (the JAX trainer keeps the frozen int8 leaves out of its
+    optimizer): losses, grad norms and the trained parameters after each,
+    and the int8 base and its scales bit for bit unchanged."""
+    jagent, qparams, agent = _int8_agent_pair(seed=17)
+    batch = tiny_batch(seed=6)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    jcfg = ref_trainer.TrainConfig(sharding_preset="dp", **TRAIN)
+    mesh = make_mesh(data=1, model=1)
+    jtrainer = ref_trainer.Trainer(mesh, jax.eval_shape(lambda: qparams),
+                                   ref_stage2.make_stage2_loss_fn(jagent), jcfg,
+                                   trainable_mask=_stage2_mask_jax(qparams))
+    frozen = {k: v.clone() for k, v in agent.state_dict().items()
+              if v.dtype == torch.int8 or k.endswith("weight_scale")}
+    trainer = Trainer(agent, make_stage2_loss_fn(agent), TrainConfig(**TRAIN),
+                      trainable_mask=_stage2_mask_port(agent))
+    assert not any(p.dtype == torch.int8 for p in trainer.params.values())
+    tbatch = _torch_batch(batch)
+    with mesh:
+        state = jtrainer.init_state(jax.tree_util.tree_map(jnp.array, qparams))
+        for step in range(3):
+            state, jm = jtrainer.step(state, jbatch, jax.random.PRNGKey(step))
+            m = trainer.step(tbatch, step)
+            np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]), rtol=0, atol=LOSS_TOL)
+            np.testing.assert_allclose(float(m["grad_norm"]), float(jm["grad_norm"]), rtol=1e-5)
+    flat = _flat(state.params)
+    paths = W.agent_flax_paths(agent)
+    for name, p in agent.named_parameters():
+        path, transform = paths[name]
+        want, p = transform(np.asarray(flat[path])), p.detach()
+        if name in frozen:
+            assert torch.equal(p, frozen[name]), name
+            np.testing.assert_array_equal(p.numpy(), want, err_msg=name)
+        else:
+            np.testing.assert_allclose(p.numpy(), want, rtol=0, atol=PARAM_TOL, err_msg=name)
+    lora_b = agent.llm.model.layers[0].self_attn.q_proj.lora_B.weight
+    assert float(lora_b.abs().max()) > 0  # LoRA moved off its zero-free start

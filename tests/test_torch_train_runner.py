@@ -1,11 +1,14 @@
 """The port's training runner on the CPU at pico size: resume replays an
 uninterrupted run bit for bit (LoRA dropout on, data position restored),
 the checkpoint manager keeps whole checkpoints only, ``load_params_partial``
-reports what it could not load, and the stage-2 and stage-3 entry points
+reports what it could not load and never casts int8 entries to float or
+float entries to int8, and the stage-2 (also with a ``quantize_base`` YAML
+and int8 or float ``--pretrained_agent_path`` files) and stage-3 entry points
 (``seed_story_torch.train.train_clm_sft.main``,
 ``seed_story_torch.train.train_sdxl_img2img_llm.main``) run from YAML
 configs and jsonl + jpg data on disk and resume."""
 
+import dataclasses
 import json
 import os
 
@@ -16,8 +19,9 @@ from PIL import Image
 
 from seed_story_torch.inference.common import fill_module
 from seed_story_torch.models.agent import AgentConfig, ContinuousLVLM
-from seed_story_torch.models.llama import LlamaConfig
-from seed_story_torch.train.checkpoint import CheckpointManager, load_params_partial, save_params
+from seed_story_torch.models.llama import LlamaConfig, quantize_llama_
+from seed_story_torch.train.checkpoint import (CheckpointManager, load_checkpoint_,
+                                               load_params_partial, save_params)
 from seed_story_torch.train.runner import RunnerArgs, run_training
 from seed_story_torch.train.stage2 import make_stage2_loss_fn
 from seed_story_torch.train.trainer import TrainConfig, Trainer
@@ -107,6 +111,34 @@ def test_load_params_partial_reports_missing_and_unexpected(tmp_path):
     assert merged["c"].dtype == torch.bfloat16 and torch.equal(merged["c"].float(), torch.ones(5))
 
 
+def test_load_params_partial_never_crosses_int8_and_float(tmp_path):
+    """An int8 entry saved by a quantize_base run is not cast into a float
+    target (its integers would read as weights), nor a float entry into an
+    int8 target (truncated to integers): both count as missing and leave the
+    target's value. ``load_checkpoint_`` loads the float entries before its
+    quantizer runs and the int8 ones after."""
+    target = {"w_float": torch.zeros(2, 3), "w_int8": torch.zeros(2, 3, dtype=torch.int8),
+              "b": torch.zeros(3)}
+    saved = {"w_float": torch.full((2, 3), 7, dtype=torch.int8),
+             "w_int8": torch.full((2, 3), 0.75), "b": torch.ones(3)}
+    save_params(str(tmp_path / "p.pt"), saved)
+    merged, missing, unexpected = load_params_partial(str(tmp_path / "p.pt"), target)
+    assert sorted(missing) == ["w_float", "w_int8"] and unexpected == []
+    assert torch.equal(merged["w_float"], target["w_float"])
+    assert torch.equal(merged["w_int8"], target["w_int8"]) and torch.equal(merged["b"], saved["b"])
+
+    def float_agent(seed):
+        return fill_module(ContinuousLVLM, _pico_agent().cfg, "cpu", seed=seed)
+
+    quantized = quantize_llama_(float_agent(4))
+    save_params(str(tmp_path / "int8.pt"), quantized.state_dict())
+    save_params(str(tmp_path / "f32.pt"), float_agent(4).state_dict())
+    for path in ("int8.pt", "f32.pt"):  # either gives the int8 agent's bytes
+        got = load_checkpoint_(float_agent(0), str(tmp_path / path), quantize_llama_)
+        for key, value in quantized.state_dict().items():
+            assert torch.equal(got.state_dict()[key], value), (path, key)
+
+
 @pytest.fixture(scope="module")
 def workspace(tmp_path_factory):
     """``tests/test_train_entries.py::workspace``, stage-2 and stage-3 parts:
@@ -144,6 +176,11 @@ def workspace(tmp_path_factory):
         "vocab_size: 32066\nhidden_size: 64\nintermediate_size: 128\n"
         "num_hidden_layers: 1\nnum_attention_heads: 2\nlora_rank: 2\n"
         "remat: true\nscan_layers: true\nce_chunk_size: 32\n" + f32)
+    (cfg / "llm_int8.yaml").write_text(  # the one-chip recipe's switches at pico size
+        "_target_: seed_story_tpu.models.llama.LlamaConfig\n"
+        "vocab_size: 32066\nhidden_size: 64\nintermediate_size: 128\n"
+        "num_hidden_layers: 1\nnum_attention_heads: 2\nlora_rank: 2\n"
+        "remat: true\nscan_layers: true\nce_chunk_size: 32\nquantize_base: true\n" + f32)
     (cfg / "agent.yaml").write_text(
         "_target_: seed_story_tpu.models.agent.AgentConfig\n"
         "input_resampler_grid: 2\noutput_resampler_grid: 3\n"
@@ -211,6 +248,49 @@ def test_stage2_entry_runs_from_yaml_and_resumes(workspace):
     trainer = main(argv + ["--resume_from_checkpoint", str(out), "--max_steps", "4"],
                    device="cpu")
     assert trainer.step_count == 4 and (out / "4").is_dir()
+
+
+def test_stage2_entry_trains_a_quantize_base_agent(workspace):
+    """``train_clm_sft`` on a quantize_base YAML: the filled agent's seven
+    projections become int8 in place, the optimizer holds no int8 weight or
+    scale, they are bit for bit unchanged after training while LoRA moves,
+    and ``--pretrained_agent_path`` loads an int8 checkpoint (the run's own
+    parameters) after the quantization and a float one before it."""
+    from seed_story_torch.train.train_clm_sft import main
+
+    cfg = workspace / "configs"
+    argv = ["--image_transform", str(cfg / "transform.yaml"),
+            "--tokenizer", str(cfg / "tokenizer.yaml"),
+            "--visual_encoder", str(cfg / "vit.yaml"),
+            "--llm_model", str(cfg / "llm_int8.yaml"),
+            "--agent_model", str(cfg / "agent.yaml"),
+            "--train_dataset", str(cfg / "data.yaml"), "--learning_rate", "1e-3",
+            "--max_steps", "2", "--save_steps", "100", "--log_steps", "1", "--warmup_steps", "1"]
+    trainer = main(argv + ["--output_dir", str(workspace / "out_q")], device="cpu")
+    agent = trainer.model
+    assert agent.cfg.llm.quantize_base and trainer.step_count == 2
+    fresh = quantize_llama_(fill_module(ContinuousLVLM, agent.cfg, "cpu", seed=42))
+    int8 = {k for k, v in agent.state_dict().items()
+            if v.dtype == torch.int8 or k.endswith("weight_scale")}
+    assert len(int8) == 2 * 7 * agent.cfg.llm.num_hidden_layers
+    assert not int8 & set(trainer.params)
+    after = agent.state_dict()
+    for key in int8:
+        assert torch.equal(after[key], fresh.state_dict()[key]), key
+    lora_b = "llm.model.layers.0.self_attn.q_proj.lora_B.weight"
+    assert not torch.equal(after[lora_b], fresh.state_dict()[lora_b])
+
+    save_params(str(workspace / "agent_int8.pt"), after)
+    other = fill_module(ContinuousLVLM, dataclasses.replace(
+        agent.cfg, llm=dataclasses.replace(agent.cfg.llm, quantize_base=False)), "cpu", seed=9)
+    save_params(str(workspace / "agent_f32.pt"), other.state_dict())
+    want_f32 = quantize_llama_(other).state_dict()
+    for path, want in (("agent_int8.pt", after), ("agent_f32.pt", want_f32)):
+        got = main(argv + ["--output_dir", str(workspace / f"out_{path}"), "--max_steps", "1",
+                           "--pretrained_agent_path", str(workspace / path)],
+                   device="cpu").model.state_dict()
+        for key in int8:
+            assert torch.equal(got[key], want[key]), (path, key)
 
 
 def test_stage3_entry_runs_from_yaml_and_resumes(workspace):
