@@ -47,9 +47,12 @@ product for 1-32 rows (``csrc/int8_linear.cu``, kernel A) at the 7B
 projections' shapes (1 and 5 rows); kernel C, the int8 GEMM for more rows
 (``csrc/int8_gemm.cu``), and its transposed form (the gradient to x) against
 their exact plain versions at every shape of the int8 UNet's CFG step at
-1024x1024, a flagship prefill and the stage-2 batch, with device ms,
-bounds, the plain expression and ``F.linear`` on a bf16 copy of W (which the
-port never calls), and rows of a 2048-row call bit-equal to a 64-row call; and
+1024x1024, a flagship prefill of 900 and of 74 rows and the stage-2 batch,
+with device ms, its launch plan, bounds, the plain expression and
+``F.linear`` on a bf16 copy of W (which the port never calls), the small
+grids also under the plans not taken, rows of a 2048-row call bit-equal to a
+64-row call, and rows of attn2's 128-row products (K slices on a cluster)
+bit-equal to 33-row and 2048-row calls; and
 the small-query cache attention (``csrc/decode_attn.cu``, int8 and bf16
 caches, 1 and 5 queries, GQA and an empty row) against their plain
 versions, with device times, bounds and the library yardsticks (``F.linear``
@@ -99,9 +102,10 @@ each probe kernel's launches counted over them.
 
     python3 chip_smoke.py --baseline LOG
 
-also prints each decode kernel's device time beside the one that LOG (an
-earlier run of this script, e.g. the parent commit's on the same card)
-holds for the same shape.
+also prints each decode kernel's and kernel C's device time beside the one
+that LOG (an earlier run of this script, e.g. the parent commit's on the
+same card) holds for the same shape and form, and kernel C's sums over a
+UNet CFG step and a 900-row prefill beside LOG's.
 
 The line before the last is the kernel report (JSON); the last line is
 ``{"ok": true, "device": {...}}``.
@@ -628,9 +632,11 @@ def phase_int8_kernel(label: str):
 # transposed form). The int8 UNet at 1024x1024 with the CFG pair (M = 2 x
 # 4096 at C = 640, 2 x 1024 at C = 1280; (K, N) = (C, C), (C, 8C), (4C, C);
 # attn2 to_k / to_v at M = 2 x 64 from the 2048-wide context), a flagship
-# prefill's rows at the 7B projections (a context near the smoke's ~900), and
-# the stage-2 batch (2 x 1280 rows), forward and transposed.
+# prefill's rows at the 7B projections (a context near the smoke's ~900, and
+# the flagship's shortest prompt, 74 rows: a small grid), and the stage-2 batch
+# (2 x 1280 rows), forward and transposed.
 PREFILL_ROWS = 900
+SHORT_PREFILL_ROWS = 74
 INT8_GEMM_CASES = [
     ("unet640_qkvo", 8192, 640, 640, False), ("unet640_geglu", 8192, 640, 5120, False),
     ("unet640_ff_out", 8192, 2560, 640, False), ("unet640_attn2_kv", 128, 2048, 640, False),
@@ -639,6 +645,9 @@ INT8_GEMM_CASES = [
     ("prefill_qkvo", PREFILL_ROWS, 4096, 4096, False),
     ("prefill_gate_up", PREFILL_ROWS, 4096, 11008, False),
     ("prefill_down", PREFILL_ROWS, 11008, 4096, False),
+    ("prefill74_qkvo", SHORT_PREFILL_ROWS, 4096, 4096, False),
+    ("prefill74_gate_up", SHORT_PREFILL_ROWS, 4096, 11008, False),
+    ("prefill74_down", SHORT_PREFILL_ROWS, 11008, 4096, False),
     ("train_qkvo", 2560, 4096, 4096, True), ("train_gate_up", 2560, 4096, 11008, True),
     ("train_down", 2560, 11008, 4096, True),
 ]
@@ -650,6 +659,10 @@ INT8_GEMM_CASES = [
 UNET_STEP_COUNTS = {"unet640_qkvo": 6 * 10 + 2 * 5, "unet640_geglu": 10, "unet640_ff_out": 10,
                     "unet640_attn2_kv": 2 * 10, "unet1280_qkvo": 6 * 60 + 2 * 6,
                     "unet1280_geglu": 60, "unet1280_ff_out": 60, "unet1280_attn2_kv": 2 * 60}
+# Small grids, where the launch plan matters most: each is also timed under
+# the plans it did not take (block width, K slices on one block or a cluster).
+INT8_GEMM_OPTIONS = ("unet640_attn2_kv", "unet1280_attn2_kv", "prefill74_qkvo",
+                     "prefill74_gate_up", "prefill74_down", "unet1280_qkvo", "unet1280_ff_out")
 
 
 def exact_transposed_int8(g, w, scale):
@@ -691,7 +704,48 @@ def int8_gemm_row(name, m, n, k, a, w, scale, got, want, transposed) -> dict:
     row["library_ms"] = _profiled_ms(library, iters)["all"][0]
     row["library"] = ("torch.matmul(g * bf16(scale), W_bf16)" if transposed
                       else "F.linear(x, W_bf16)")
+    row["vs_library"] = row["ms"] / row["library_ms"]
+    row["plan"] = list(int8_gemm_kernel.launch_plan(a.device, m, n, k, transposed))
+    if name in INT8_GEMM_OPTIONS:
+        row["options"] = int8_gemm_options(m, n, k, a, w, scale, transposed, row["plan"], iters)
     return row
+
+
+def int8_gemm_options(m, n, k, a, w, scale, transposed, chosen, iters) -> list:
+    """Device ms of kernel C under the launch plans it did not take: the other
+    block width, and K slices on one block or on a cluster (an order of sums
+    the kernel never mixes with another for one N and K; timed only here)."""
+    cols, stages = (k, n // 64) if transposed else (n, k // 64)
+    per_slice = chosen[1]
+    plans = [(128, per_slice, False), (128, stages, False)]
+    if per_slice < stages:
+        plans.append((128, per_slice, True))
+    if cols % 256 == 0:
+        plans += [(256, per_slice, per_slice < stages), (256, stages, False)]
+    out = []
+    for plan in dict.fromkeys(plans):
+        if list(plan) == chosen:
+            continue
+        ms, _ = _profiled_ms(lambda: int8_gemm_kernel._launch(a, w, scale, transposed, plan),
+                             iters, ("int8_gemm_kernel",))["int8_gemm_kernel"]
+        out.append({"plan": list(plan), "ms": ms})
+    return out
+
+
+def int8_gemm_sums(rows) -> dict:
+    """Kernel C's forward times summed over a UNet CFG step and over a
+    prefill of PREFILL_ROWS rows, each with its launches."""
+    forward = {r["name"]: r for r in rows if r["form"] == "forward"}
+    keys = ("ms", "bound_ms", "plain_ms", "library_ms")
+    n_layers = LlamaConfig().num_hidden_layers
+    return {
+        "UNet CFG step": (sum(UNET_STEP_COUNTS.values()),
+                          {key: sum(c * forward[s][key] for s, c in UNET_STEP_COUNTS.items())
+                           for key in keys}),
+        f"prefill of {PREFILL_ROWS} rows": (7 * n_layers, {
+            key: n_layers * sum(PER_LAYER[s] * forward[f"prefill_{s}"][key] for s in PER_LAYER)
+            for key in keys}),
+    }
 
 
 def phase_int8_gemm_kernel(label: str):
@@ -719,17 +773,9 @@ def phase_int8_gemm_kernel(label: str):
                 failed.append(f"{name} ({row['form']})")
             print(f"int8_gemm {name} {row['form']}: {json.dumps(row)} [{label}]", flush=True)
             rows.append(row)
-    forward = {r["name"]: r for r in rows if r["form"] == "forward"}
-    step = {key: sum(c * forward[s][key] for s, c in UNET_STEP_COUNTS.items())
-            for key in ("ms", "bound_ms", "plain_ms", "library_ms")}
-    print(f"int8_gemm per UNet CFG step: {sum(UNET_STEP_COUNTS.values())} launches, "
-          f"{json.dumps(step)} [{label}]", flush=True)
-    n_layers = LlamaConfig().num_hidden_layers
-    prefill = {key: n_layers * sum(PER_LAYER[s] * forward[f"prefill_{s}"][key]
-                                   for s in PER_LAYER)
-               for key in ("ms", "bound_ms", "plain_ms", "library_ms")}
-    print(f"int8_gemm per prefill of {PREFILL_ROWS} rows: {7 * n_layers} launches, "
-          f"{json.dumps(prefill)} [{label}]", flush=True)
+    for what, (launches, total) in int8_gemm_sums(rows).items():
+        print(f"int8_gemm per {what}: {launches} launches, {json.dumps(total)} [{label}]",
+              flush=True)
     x = torch.randn(2048, 4096, generator=gen, device="cuda").to(torch.bfloat16)
     g = torch.randn(2048, 4096, generator=gen, device="cuda").to(torch.bfloat16)
     w = torch.randint(-127, 128, (4096, 4096), generator=gen, device="cuda", dtype=torch.int8)
@@ -742,6 +788,21 @@ def phase_int8_gemm_kernel(label: str):
           f"{equal} [{label}]", flush=True)
     if not equal:
         failed.append("rows of a 2048-row call differ from a 64-row call")
+    # the small grids: attn2's to_k at 128 rows (K slices on a cluster)
+    # against 33 rows and against the 2048-row call (one block a tile)
+    for n in (640, 1280):
+        x = torch.randn(2048, 2048, generator=gen, device="cuda").to(torch.bfloat16)
+        w = torch.randint(-127, 128, (n, 2048), generator=gen, device="cuda", dtype=torch.int8)
+        scale = torch.rand(n, generator=gen, device="cuda") / (127 * 2048 ** 0.5)
+        whole = int8_gemm_kernel(x, w, scale)
+        equal = (torch.equal(int8_gemm_kernel(x[:128].contiguous(), w, scale), whole[:128])
+                 and torch.equal(int8_gemm_kernel(x[:33].contiguous(), w, scale), whole[:33]))
+        print(f"int8_gemm: (N, K) = ({n}, 2048) rows of 128- and 33-row calls (plans "
+              f"{int8_gemm_kernel.launch_plan(x.device, 128, n, 2048, False)}) bit-equal to a "
+              f"2048-row call ({int8_gemm_kernel.launch_plan(x.device, 2048, n, 2048, False)}): "
+              f"{equal} [{label}]", flush=True)
+        if not equal:
+            failed.append(f"rows of ({n}, 2048) small-grid calls differ from a 2048-row call")
     if failed:
         raise AssertionError(f"int8_gemm disagrees with the plain version at {failed}")
     return rows
@@ -2198,29 +2259,45 @@ def probe_entry(name: str, replaces: str, rows: list, launches: int, at) -> dict
                      for r in mine]}
 
 
-def compare_with_baseline(path: str, int8_rows: list, attn_rows: list):
-    """Prints each decode kernel's device ms beside the one an earlier run
-    logged at the same shape (that run's own "int8_linear <name>: {...}" and
-    "decode_attn <name>: {...}" lines, e.g. the parent commit's smoke in the
-    same call)."""
+def compare_with_baseline(path: str, int8_rows: list, attn_rows: list, gemm_rows: list):
+    """Prints each decode kernel's and kernel C's device ms beside the one an
+    earlier run logged at the same shape and form (that run's own
+    "int8_linear <name>: {...}", "decode_attn <name>: {...}" and
+    "int8_gemm <name> <form>: {...}" lines, e.g. the parent commit's smoke in
+    the same call), and kernel C's sums over a UNet CFG step and a prefill
+    beside that run's "int8_gemm per ...: N launches, {...}" lines."""
     with open(path) as f:
-        logged = {(m.group(1), m.group(2)): json.loads(m.group(3)) for m in re.finditer(
-            r"^(int8_linear|decode_attn) (\S+): (\{.*\}) \[", f.read(), re.M)}
-    for kernel, rows in (("int8_linear", int8_rows), ("decode_attn", attn_rows)):
+        text = f.read()
+    logged = {(m.group(1), m.group(2)): json.loads(m.group(3)) for m in re.finditer(
+        r"^(int8_linear|decode_attn|int8_gemm) ([^:]+): (\{.*\}) \[", text, re.M)}
+    sums = {m.group(1): json.loads(m.group(2)) for m in re.finditer(
+        r"^int8_gemm per (.+): \d+ launches, (\{.*\}) \[", text, re.M)}
+    for kernel, rows in (("int8_linear", int8_rows), ("decode_attn", attn_rows),
+                         ("int8_gemm", gemm_rows)):
         for row in rows:
-            old = logged.get((kernel, row["name"]))
+            name = f"{row['name']} {row['form']}" if kernel == "int8_gemm" else row["name"]
+            old = logged.get((kernel, name))
             if old is None:
-                print(f"baseline {kernel} {row['name']}: not in {path}", flush=True)
+                print(f"baseline {kernel} {name}: not in {path}", flush=True)
                 continue
-            print(f"baseline {kernel} {row['name']}: ms {row['ms']:.5f} against "
+            print(f"baseline {kernel} {name}: ms {row['ms']:.5f} against "
                   f"{old['ms']:.5f} ({row['ms'] / old['ms']:.3f}x), roofline "
                   f"{row['roofline']:.3f} against {old['roofline']:.3f}", flush=True)
+    for what, (_, total) in int8_gemm_sums(gemm_rows).items():
+        old = sums.get(what)
+        if old is None:
+            print(f"baseline int8_gemm per {what}: not in {path}", flush=True)
+            continue
+        print(f"baseline int8_gemm per {what}: ms {total['ms']:.3f} against {old['ms']:.3f} "
+              f"({total['ms'] / old['ms']:.3f}x); bound {total['bound_ms']:.3f}, library "
+              f"{total['library_ms']:.3f}", flush=True)
 
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--baseline", help="log of an earlier run of this script (or of the "
-                        "parent commit's) whose decode kernel times to print beside these")
+                        "parent commit's) whose decode kernel and kernel C times to print "
+                        "beside these")
     args = parser.parse_args()
     label = phase_device()
     rows = phase_kernels(label)
@@ -2229,7 +2306,7 @@ def main():
     gemm_rows = phase_int8_gemm_kernel(label)
     attn_rows = phase_decode_attn_kernel(label)
     if args.baseline:
-        compare_with_baseline(args.baseline, int8_rows, attn_rows)
+        compare_with_baseline(args.baseline, int8_rows, attn_rows, gemm_rows)
     probe_rows, probe_launches = phase_probes(label)
     story_launches, stack = phase_story(label)
     flagship_launches, _ = phase_flagship(label, stack)
@@ -2314,8 +2391,8 @@ def main():
          "plain_ms": c_at["plain_ms"], "bound_ms": c_at["bound_ms"],
          "bound_by": c_at["bound_by"], "library_ms": c_at["library_ms"],
          "library": c_at["library"], "at": c_at["name"],
-         "rows": [{k: r[k] for k in ("name", "form", "shape", "ms", "bound_ms", "plain_ms",
-                                     "library_ms", "max_rel")} for r in gemm_rows]},
+         "rows": [{k: r[k] for k in ("name", "form", "shape", "plan", "ms", "bound_ms",
+                                     "plain_ms", "library_ms", "max_rel")} for r in gemm_rows]},
         {"name": "decode_attn", "route": "cuda", "source": "seed_story_torch/csrc/decode_attn.cu",
          "replaces": "seed_story_tpu/ops/attention.py:105 (XLA, no Pallas kernel)",
          "launches": sum(attn_paths.values()), "launches_by_path": attn_paths,

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) pieces shared by the flash-attention kernels
-// (flash_fwd.cu, flash_bwd.cu): mbarriers, TMA loads and the host-side
-// tensor-map builder, wgmma descriptors and products, register fences, and
-// the small conversions around them.
+// (flash_fwd.cu, flash_bwd.cu) and kernel C (int8_gemm.cu): mbarriers, TMA
+// loads and the host-side tensor-map encoders, wgmma descriptors and
+// products, register fences, and the small conversions around them.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and the encoder's types; the encoder is looked up at run time
@@ -63,6 +63,16 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// A 2-D box at (column c0, row c1) of a map from encode_map_2d.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
       : "memory");
 }
 
@@ -334,6 +344,22 @@ inline CUresult encode_map(CUtensorMap* map, const void* ptr, int cols, int s, i
   return encoder()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), gdim,
                    gstride, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
                    CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// A 2-D map of a row-major (rows, cols) matrix of `dtype` with a row pitch of
+// `pitch_bytes` (a multiple of 16), read in boxes of box_cols x box_rows with
+// `swizzle`. Out-of-bounds rows and columns read as zero.
+inline CUresult encode_map_2d(CUtensorMap* map, CUtensorMapDataType dtype, const void* ptr,
+                              unsigned long long cols, unsigned long long rows,
+                              unsigned long long pitch_bytes, unsigned box_cols,
+                              unsigned box_rows, CUtensorMapSwizzle swizzle) {
+  const cuuint64_t gdim[2] = {cols, rows};
+  const cuuint64_t gstride[1] = {pitch_bytes};
+  const cuuint32_t box[2] = {box_cols, box_rows};
+  const cuuint32_t estride[2] = {1, 1};
+  return encoder()(map, dtype, 2, const_cast<void*>(ptr), gdim, gstride, box, estride,
+                   CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                    CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 

@@ -16,9 +16,13 @@ number of rows:
   a cluster; one row takes a CUDA-core kernel), which streams the int8
   bytes once;
 - more than 32 rows (prefill, the int8 UNet, ``quantize_base`` training):
-  kernel C, ``csrc/int8_gemm.cu`` (128 x 128 output tiles of mma.sync, the
-  int8 tile converted to bf16 in shared memory), which never writes a bf16
-  copy of W.
+  kernel C, ``csrc/int8_gemm.cu``: wgmma on 128-row blocks fed by TMA, the
+  int8 tile converted in shared memory into wgmma's swizzled B operand, which
+  never writes a bf16 copy of W to device memory. The tensor cores bound the
+  product and the shared-memory traffic of the conversion and of wgmma's
+  operand reads bounds the kernel first; narrow outputs with a long
+  contracted axis (attn2's to_k / to_v) take K slices on a cluster so that
+  a few rows still fill the card (``Int8Gemm.plan``).
 The gradient to x goes through kernel C's transposed form,
 ``dx = bf16( bf16(g * bf16(scale)) W )`` (``Int8LinearFunction``); W and the
 scale take none. There is no fallback: a CUDA input the kernels do not take
@@ -133,27 +137,86 @@ class Int8Gemm:
     product (``__call__``) and its transposed form (``transposed``, the
     gradient to x). ``launches`` counts every launch of either form (under a
     lock, as ``Int8Linear``), ``transposed_launches`` those of the transposed
-    form; nothing else touches them."""
+    form; nothing else touches them.
 
-    MULTIPLE = 64  # N and K must be multiples of it
+    ``plan`` fixes, from N and K alone, the order in which every output sums
+    its contracted axis: in K slices of whole stages, added in slice order.
+    ``launch_plan`` adds what may depend on M and changes no output's sum:
+    the block's output width (128 or 256 columns; wgmma sums each output's
+    16 products a step alike at either width) and whether one block adds the
+    slices itself or a cluster of blocks takes a slice each. So a row's
+    output does not depend on the rows beside it."""
+
+    MULTIPLE = 64     # N and K must be multiples of it
+    STAGE = 64        # contracted columns of a stage
+    ROWS = 128        # rows of a block
+    MAX_SLICES = 8    # the portable cluster size
+    MIN_SLICE_STAGES = 4
+    WIDE_SPLIT_STAGES = 8  # slices this long amortize a cluster's fill and merge
 
     def __init__(self):
         self.launches = 0
         self.transposed_launches = 0
         self._lock = threading.Lock()
         self._built: Optional[BuiltLibrary] = None
+        self._sms = {}
 
     def build(self) -> BuiltLibrary:
         if self._built is None:
             built = BuiltLibrary("int8_gemm")
             fn = built.lib.int8_gemm_bf16
-            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
             self._built = built
         return self._built
 
+    @classmethod
+    def plan(cls, n: int, k: int, transposed: bool, sms: int) -> Tuple[int, int]:
+        """(stages of 64 contracted columns a K slice, slices) for W (n, k) on a
+        card of ``sms`` multiprocessors. A narrow output (its 128-column tiles
+        fill at most an eighth of the card) that contracts over more than its
+        width gets slices, enough for about one block per multiprocessor with
+        one 128-row tile (at most 8, each at least 4 stages): a few rows of it
+        would otherwise run few long blocks. Others take one slice."""
+        cols, contracted = (k, n) if transposed else (n, k)
+        stages = contracted // cls.STAGE
+        tiles = -(-cols // 128)
+        want = 1
+        if 8 * tiles <= sms and contracted > cols:
+            want = max(1, min(cls.MAX_SLICES, stages // cls.MIN_SLICE_STAGES, -(-sms // tiles)))
+        per_slice = -(-stages // want)
+        return per_slice, -(-stages // per_slice)
+
+    def launch_plan(self, device, m: int, n: int, k: int,
+                    transposed: bool) -> Tuple[int, int, bool]:
+        """(block output width, stages of a K slice, split). Sliced outputs
+        split when one 128-column block a tile would fill at most half the
+        card; else they split on 256-column blocks where the width allows and
+        a slice is long enough to amortize the cluster's fill and merge, or
+        take 128-column blocks that add the slices themselves (one block
+        keeps the finished slices' sum in registers, room it has at 128
+        columns only). Unsliced outputs take 256 columns where the width
+        allows and 256-column tiles fill at least half the card, else 128."""
+        if device not in self._sms:
+            self._sms[device] = torch.cuda.get_device_properties(device).multi_processor_count
+        sms = self._sms[device]
+        cols = k if transposed else n
+        per_slice, slices = self.plan(n, k, transposed, sms)
+        row_tiles = -(-m // self.ROWS)
+        if slices > 1:
+            if 2 * -(-cols // 128) * row_tiles <= sms:
+                return 128, per_slice, True
+            if cols % 256 == 0 and per_slice >= self.WIDE_SPLIT_STAGES:
+                return 256, per_slice, True
+            return 128, per_slice, False
+        wide = cols % 256 == 0 and 2 * (cols // 256) * row_tiles >= sms
+        return (256 if wide else 128), per_slice, False
+
     def _launch(self, a: torch.Tensor, weight: torch.Tensor, scale: torch.Tensor,
-                transposed: bool) -> torch.Tensor:
+                transposed: bool, with_plan=None) -> torch.Tensor:
+        """One launch of either form; ``with_plan`` (block width, stages a
+        slice, split) replaces ``launch_plan``'s, for measurements and tests
+        that compare plans."""
         _check_operands("int8_gemm", (("g" if transposed else "x", a, torch.bfloat16),
                                       ("weight", weight, torch.int8),
                                       ("scale", scale, torch.float32)))
@@ -169,12 +232,14 @@ class Int8Gemm:
         m = a.numel() // inner
         if m < 1:
             raise ValueError("int8_gemm takes at least one row")
+        bn, per_slice, split = with_plan or self.launch_plan(a.device, m, n, k, transposed)
         out = torch.empty((*a.shape[:-1], outer), dtype=torch.bfloat16, device=a.device)
         fn = self.build().lib.int8_gemm_bf16
         with torch.cuda.device(a.device):
             stream = torch.cuda.current_stream(a.device).cuda_stream
             check_launch("int8_gemm", fn(a.data_ptr(), weight.data_ptr(), scale.data_ptr(),
-                                         out.data_ptr(), m, n, k, int(transposed), stream))
+                                         out.data_ptr(), m, n, k, int(transposed), bn,
+                                         per_slice, int(split), stream))
         with self._lock:
             self.launches += 1
             self.transposed_launches += int(transposed)
