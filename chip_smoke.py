@@ -100,6 +100,29 @@ plain version's ms and SDPA's (``q + v`` for the copy); then the three
 probes' ``main()`` (``seed_story_torch.benchmarks.probe_attn_*``), with
 each probe kernel's launches counted over them.
 
+After stage 3, the phases of stage 1, the IP adapters and the variants,
+each at full width on seeded random weights and each freeing its models:
+stage1 (``seed_story_torch.train.train.main`` on a text-to-image jsonl +
+448x448 jpg workspace that this script writes, through
+``build_t2i_datapipe``: the frozen ViT-bigG of ``qwen_vitg_448.yaml`` and a
+VQ ``DiscreteModelDistill`` at the ``DiscreteConfig`` defaults, 4 steps of
+16 images; s/step, images/s, peak GiB, the losses, and the card's VQ codes
+against the f64 argmin), ipa (``IPAdapterSDPipeline`` with
+``IPAdapterConfig(image_embedding_dim=4096)``: the SD-1.5 UNet, the ViT-bigG
+through ``DiscreteModelIdentity``, seeded text embeds, the SDXL VAE,
+512x512, 30 Euler steps at scale 0.8 and 0; s/image, the UNet's CFG step in
+wall and device ms, VAE ms, peak GiB), sd21_edit (3 training steps of
+``SD21Text2ImageAndEditAdapter`` at 768x768, B = 2, under
+``sd21_edit_trainable_mask``), align (3 training steps of
+``SEEDLLaMAAlignGeneration`` at LLaMA-2-7B width under
+``align_trainable_mask`` on the stage-2 batch, then a greedy 64-token
+story with a bf16 cache) and vit_nopool (one forward of the no-pool
+ViT-bigG at 448). The forward kernel phase also holds the shapes those
+phases first give the flash kernels (cross-attention onto 4, 77 and 81
+keys, H = 5 self-attention at S = 4096 and 9216, the SD-1.5 and SD-2.1
+UNets' other levels), and the backward phase the SD-2.1 ones; the kernels
+line lists them under ``new_shapes`` and ``unet_shapes``.
+
     python3 chip_smoke.py --baseline LOG
 
 also prints each decode kernel's and kernel C's device time beside the one
@@ -134,14 +157,19 @@ from torch.nn.attention import SDPBackend, sdpa_kernel
 
 from seed_story_torch.decode.generate import GenerateConfig, StoryGenerator
 from seed_story_torch.inference.common import build_stack, fill_module, quantize_agent_
-from seed_story_torch.models.agent import AgentConfig, ContinuousLVLM
+from seed_story_torch.models.agent import (AgentConfig, ContinuousLVLM, SEEDLLaMAAlignGeneration,
+                                           align_trainable_mask)
+from seed_story_torch.models.discrete import DiscreteModelIdentity
+from seed_story_torch.models.ipa_adapters import (IPAdapterConfig, IPAdapterSD, SD21EditAdapterConfig,
+                                                  SD21Text2ImageAndEditAdapter,
+                                                  sd15_unet_config, sd21_edit_trainable_mask)
 from seed_story_torch.models import llama as llama_module
 from seed_story_torch.models.llama import LlamaConfig, LoRADense, derive_seed, lora_trainable_mask
 from seed_story_torch.models.sdxl.adapter import (SDXLAdapter, SDXLAdapterConfig,
                                                   adapter_trainable_mask, quantize_adapter_)
 from seed_story_torch.models.sdxl.unet import CrossAttention, SDXLUNetConfig, quantized_modules
 from seed_story_torch.models.sdxl.vae import AutoencoderKL, VAEConfig
-from seed_story_torch.models.vit import ViTConfig, VisionTransformerWithAttnPool
+from seed_story_torch.models.vit import VisionTransformer, ViTConfig, VisionTransformerWithAttnPool
 from seed_story_torch.benchmarks import (probe_attn_dma, probe_attn_overhead, probe_attn_variants,
                                           probe_kernels)
 from seed_story_torch.benchmarks.common import bench, card_label
@@ -160,6 +188,7 @@ from seed_story_torch.ops.attention import (
 )
 from seed_story_torch.ops import dense as dense_module
 from seed_story_torch.ops.int8_linear import int8_gemm_kernel, int8_linear, int8_linear_kernel
+from seed_story_torch.pipelines.ipa_pipeline import IPASampleConfig, IPAdapterSDPipeline
 from seed_story_torch.pipelines.serving import DetokenizerPool, PipelinedStoryServer
 from seed_story_torch.pipelines.story_generation import (
     StoryGenerationPipeline,
@@ -173,6 +202,7 @@ from seed_story_torch.train.runner import (LAUNCH_COUNTS, RunnerArgs, kernel_lau
                                            run_training, to_device)
 from seed_story_torch.train.stage2 import make_stage2_loss_fn
 from seed_story_torch.train.stage3 import make_stage3_loss_fn
+from seed_story_torch.train import train as stage1
 from seed_story_torch.train.trainer import TrainConfig
 
 # Kernel against its plain version, both from the same bf16 inputs; the plain
@@ -238,6 +268,27 @@ def phase_device():
     return label
 
 
+# The attention shapes first run by the IP adapters and the SD-2.1 edit
+# adapter (all d = 64, full, in the projections' (B, S, H, D) views).
+NEW_SHAPES = [
+    ("sd15_self_64x64", 2, 5, 5, 4096, 4096, 64, False, None, None, "bshd"),
+    ("sd15_self_32x32", 2, 10, 10, 1024, 1024, 64, False, None, None, "bshd"),
+    ("sd15_self_16x16", 2, 20, 20, 256, 256, 64, False, None, None, "bshd"),
+    ("sd15_self_8x8", 2, 20, 20, 64, 64, 64, False, None, None, "bshd"),
+    ("ipa_cross81_64x64", 2, 5, 5, 4096, 81, 64, False, None, None, "bshd"),
+    ("ipa_cross81_8x8", 2, 20, 20, 64, 81, 64, False, None, None, "bshd"),
+    ("ip_image_attn4_64x64", 2, 5, 5, 4096, 4, 64, False, None, None, "bshd"),
+    ("sd21_self_96x96", 2, 5, 5, 9216, 9216, 64, False, None, None, "bshd"),
+    ("sd21_self_48x48", 2, 10, 10, 2304, 2304, 64, False, None, None, "bshd"),
+    ("sd21_self_24x24", 2, 20, 20, 576, 576, 64, False, None, None, "bshd"),
+    ("sd21_self_12x12", 2, 20, 20, 144, 144, 64, False, None, None, "bshd"),
+    ("sd21_cross77_96x96", 2, 5, 5, 9216, 77, 64, False, None, None, "bshd"),
+    ("sd21_cross77_12x12", 2, 20, 20, 144, 77, 64, False, None, None, "bshd"),
+]
+NEW_SHAPE_NAMES = tuple(case[0] for case in NEW_SHAPES)
+# the SD-2.1 edit adapter's training step runs these backward too
+NEW_BWD_SHAPES = [case for case in NEW_SHAPES if case[0].startswith("sd21_")]
+
 # (name, B, Hq, Hkv, Sq, Skv, D, causal, q_start, kv_len, layout)
 # layout "bhsd" is contiguous (B, H, S, D); "bshd" is the (B, S, H, D)
 # projection output viewed as (B, H, S, D), as the models pass it.
@@ -257,6 +308,12 @@ KERNEL_CASES = [
     ("ragged_gqa_causal", 2, 8, 2, 200, 333, 128, True, [133, 50], [333, 170], "bhsd"),
     ("empty_rows", 2, 4, 4, 100, 300, 80, True, [-10, 5], [300, 0], "bhsd"),
     ("unaligned_d100", 2, 4, 4, 77, 150, 100, False, None, [150, 91], "bshd"),
+    # the IP adapters' SD-1.5 UNet at 512x512 (B = 2 for CFG): self-attention
+    # at 64x64 (H = 5), 32x32 (H = 10), 16x16 and the 8x8 mid block (H = 20),
+    # cross-attention onto 77 text + 4 image keys; IPCrossAttention's image
+    # part onto 4 keys; the SD-2.1 UNet at 768x768: self-attention at 96x96
+    # (H = 5), 48x48 (H = 10), 24x24 and 12x12 (H = 20), cross onto 77 keys
+    *NEW_SHAPES,
 ]
 
 
@@ -388,7 +445,7 @@ def phase_kernels(label: str):
         row = dict(name=name, shape=[b, hq, hkv, sq, skv, d], causal=causal)
         failed += check_forward(name, row, o, lse, o_ref, lse_ref)
         del o_ref, lse_ref
-        iters = 20 if sq * skv >= 1 << 20 else 50
+        iters = 5 if sq * skv >= 1 << 26 else 20 if sq * skv >= 1 << 20 else 50
         t = [_time_ms(lambda: mha(q, k, v, implementation=impl, **kw), iters)
              for impl in ("plain", "kernel", "kernel", "plain")]
         row["call_ms"] = (t[1] + t[2]) / 2  # the whole mha call, host path included
@@ -424,8 +481,9 @@ BWD_CASES = [
     ("unet_self_32x32", 2, 20, 20, 1024, 1024, 64, False, None, None, "bshd"),
     ("unet_cross_64x64", 2, 10, 10, 4096, 64, 64, False, None, None, "bshd"),
     ("unet_cross_32x32", 2, 20, 20, 1024, 64, 64, False, None, None, "bshd"),
+    *NEW_BWD_SHAPES,
 ]
-UNET_BWD_CASES = tuple(case[0] for case in BWD_CASES if case[0].startswith("unet_"))
+UNET_BWD_CASES = tuple(case[0] for case in BWD_CASES if case[0].startswith(("unet_", "sd21_")))
 
 
 def device_events(events) -> list:
@@ -520,7 +578,7 @@ def phase_bwd_kernels(label: str):
             failed.append(f"{name} (dq of empty rows not zero)")
         if any(bool((g[i, :, int(kl[i]):] != 0).any()) for g in got[1:] for i in range(b)):
             failed.append(f"{name} (dk/dv of keys past kv_len not zero)")
-        iters = 10 if sq * skv >= 1 << 22 else 30
+        iters = 3 if sq * skv >= 1 << 26 else 10 if sq * skv >= 1 << 22 else 30
         kernel = lambda: flash_bwd(q, k, v, o, lse, do, qs, kl, causal, scale)  # noqa: E731
         t = [_time_ms(fn, iters) for fn in (plain, kernel, kernel, plain)]
         row["ms"] = (t[1] + t[2]) / 2  # both kernels, as the autograd backward runs
@@ -2225,6 +2283,394 @@ def phase_stage3(label: str):
     return launches
 
 
+def free_memory():
+    """Gives the memory of a finished phase's modules back to the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def steady_steps(logged: list, n_steps: int, what: str) -> tuple:
+    """The runner's logged steps, their losses (which must be finite) and
+    the mean seconds of the steps after the first."""
+    steps = [m for m in logged if "loss" in m]
+    losses = [m["loss"] for m in steps]
+    failures = [] if len(losses) == n_steps and np.all(np.isfinite(losses)) else [
+        f"{what} losses {losses}"]
+    return steps, losses, float(np.mean([m["step_seconds"] for m in steps[1:]])), failures
+
+
+# Stage 1 at full width: train.main on a text-to-image workspace that this
+# script writes (jsonl records and 448x448 jpgs, through build_t2i_datapipe),
+# the frozen ViT-bigG of configs/visual_tokenizer/qwen_vitg_448.yaml and a VQ
+# DiscreteModelDistill at the DiscreteConfig defaults (dim 4096, codebook
+# 8192). Cut: 4 steps of 16 images, random weights, the tiny tokenizer.
+STAGE1_STEPS, STAGE1_BATCH = 4, 16
+
+
+def write_t2i_workspace(root: str) -> str:
+    """STAGE1_BATCH * 2 seeded 448x448 jpgs with captions, the YAMLs of the
+    stage-1 entry's flags; returns the configs' directory."""
+    from PIL import Image
+
+    os.makedirs(os.path.join(root, "images"))
+    os.makedirs(os.path.join(root, "data"))
+    rng = np.random.RandomState(5)
+    with open(os.path.join(root, "data", "t2i.jsonl"), "w") as f:
+        for i in range(2 * STAGE1_BATCH):
+            pixels = (rng.rand(448, 448, 3) * 255).astype(np.uint8)
+            Image.fromarray(pixels).save(os.path.join(root, "images", f"{i}.jpg"))
+            f.write(json.dumps({"image": f"{i}.jpg", "caption": f"george and the dog, scene {i}"})
+                    + "\n")
+    cfg = os.path.join(root, "configs")
+    os.makedirs(cfg)
+    with open(os.path.join(cfg, "discrete.yaml"), "w") as f:
+        f.write("_target_: seed_story_tpu.models.discrete.DiscreteModelDistill\nuse_vq: true\n"
+                "cfg:\n  _target_: seed_story_tpu.models.discrete.DiscreteConfig\n")
+    with open(os.path.join(cfg, "t2i.yaml"), "w") as f:
+        f.write("_target_: seed_story_tpu.data.builders.build_t2i_datapipe\n"
+                f"data_dir: {root}/data\nimage_dir: {root}/images\nmax_length: 128\n"
+                f"batch_size: {STAGE1_BATCH}\nmin_resolution: 180\ncycle_count: 100\n")
+    return cfg
+
+
+def phase_stage1(label: str):
+    """``seed_story_torch.train.train.main`` at full width, as a user runs it:
+    finite losses, the flash forward's launches a step (the frozen ViT's 48
+    layers and its attention pool), the VQ codes of the trained model on the
+    card against the f64 argmin of the same distances."""
+    print(f"stage1 cuts: {STAGE1_STEPS} steps of {STAGE1_BATCH} images, random weights, the "
+          f"tiny tokenizer; widths and depths not cut", flush=True)
+    with tempfile.TemporaryDirectory() as root:
+        cfg = write_t2i_workspace(root)
+        out = os.path.join(root, "out")
+        argv = ["--image_transform", "configs/processer/qwen_448_transform.yaml",
+                "--tokenizer", "configs/tokenizer/tiny_tokenizer.yaml",
+                "--visual_encoder", "configs/visual_tokenizer/qwen_vitg_448.yaml",
+                "--discrete_model", os.path.join(cfg, "discrete.yaml"),
+                "--train_dataset", os.path.join(cfg, "t2i.yaml"), "--output_dir", out,
+                "--learning_rate", "1e-4", "--warmup_steps", "1",
+                "--max_steps", str(STAGE1_STEPS), "--save_steps", "1000", "--log_steps", "1"]
+        flash_fwd.launches = flash_fwd.padded_copies = 0
+        t0 = time.perf_counter()
+        trainer = stage1.main(argv)
+        run_s = time.perf_counter() - t0
+        launches, copies = flash_fwd.launches, flash_fwd.padded_copies
+        with open(os.path.join(out, "metrics.jsonl")) as f:
+            logged = [json.loads(line) for line in f]
+    model = trainer.model
+    n_params = sum(p.numel() for p in model.parameters())
+    steps, losses, step_s, failures = steady_steps(logged, STAGE1_STEPS, "stage1")
+    if copies:
+        failures.append(f"{copies} inputs copied for TMA in stage 1")
+    for i, m in enumerate(steps):
+        if int(m["flash_fwd_launches"]) != 48 + 1:
+            failures.append(f"stage1 step {i + 1}: {m['flash_fwd_launches']} flash launches, "
+                            "expected 49 (the ViT's layers and its pool)")
+        print(f"stage1 step {i + 1}: {m['step_seconds']:.3f} s, loss {m['loss']:.5f} (distill "
+              f"{m['distill_loss']:.5f}, commit {m['commit_loss']:.5f}, codebook "
+              f"{m['codebook_loss']:.5f}), {STAGE1_BATCH / m['step_seconds']:.2f} images/s, "
+              f"peak {m['peak_gib']:.2f} GiB, flash launches {m['flash_fwd_launches']} [{label}]",
+              flush=True)
+    # the codes on the card (TF32 off in the distance product) against f64
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    x = torch.randn(STAGE1_BATCH * 256, model.cfg.dim, generator=gen, device="cuda")
+    with torch.no_grad():
+        codes = model.quantizer(x)[1]
+        cb = model.quantizer.codebook.double()
+        d64 = x.double().square().sum(-1, keepdim=True) - 2 * x.double() @ cb.T + cb.square().sum(-1)
+        top2 = d64.topk(2, dim=-1, largest=False).values
+    differ = codes != d64.argmin(-1)
+    near_tie = (top2[:, 1] - top2[:, 0]) <= 1e-4 * top2[:, 0].abs()
+    if bool((differ & ~near_tie).any()):
+        failures.append(f"{int((differ & ~near_tie).sum())} VQ codes differ from the f64 argmin "
+                        "away from a tie")
+    stats = {"s_per_step": step_s, "images_per_s": STAGE1_BATCH / step_s,
+             "peak_gib": max(m["peak_gib"] for m in steps), "losses": losses,
+             "codes_differing_from_f64": int(differ.sum()), "rows": int(x.shape[0])}
+    print(f"stage1 steady (steps 2-{STAGE1_STEPS}): {json.dumps(stats)}; run {run_s:.3f} s "
+          f"(builds, data and the final checkpoint included); discrete model "
+          f"{n_params / 1e6:.1f} M parameters; {launches} flash launches [{label}]", flush=True)
+    failures += forbidden_imports()
+    if failures:
+        raise AssertionError(f"stage1 phase failed: {failures}")
+    return launches
+
+
+# The IP-Adapter at full width: IPAdapterConfig(image_embedding_dim=4096) (the
+# SD-1.5 UNet, IPAResampler with 4 tokens, cross-attention width 768) on the
+# port's ViT-bigG with attention pool through DiscreteModelIdentity, seeded
+# (77, 768) text embeds, the SDXL VAE; 512x512, 30 Euler steps, guidance 7.5,
+# B = 1, at scale 0.8 and 0. Random bf16 weights.
+IPA_STEPS = 30
+
+
+def phase_ipa(label: str):
+    bf16 = torch.bfloat16
+    t0 = time.perf_counter()
+    vit = fill_module(VisionTransformerWithAttnPool, ViTConfig(param_dtype=bf16), "cuda",
+                      seed=0).eval().requires_grad_(False)
+    ip = fill_module(IPAdapterSD, IPAdapterConfig(unet=sd15_unet_config(param_dtype=bf16),
+                                                  image_embedding_dim=4096),
+                     "cuda", seed=7).eval().requires_grad_(False)
+    vae = fill_module(AutoencoderKL, VAEConfig(param_dtype=bf16), "cuda",
+                      seed=8).eval().requires_grad_(False)
+    discrete = DiscreteModelIdentity()
+    torch.cuda.synchronize()
+    n_ip = sum(p.numel() for p in ip.parameters())
+    print(f"ipa build: {time.perf_counter() - t0:.2f} s, IP-Adapter {n_ip / 1e9:.3f} B "
+          f"parameters, {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated [{label}]",
+          flush=True)
+
+    def encode_text(prompts):
+        return np.stack([np.random.RandomState(sum(map(ord, p)) % 1000).randn(77, 768)
+                         for p in prompts]).astype(np.float32)
+
+    pipe = IPAdapterSDPipeline(ip, vae, encode_text, visual_encode=vit,
+                               encode_discrete=discrete.encode_image_embeds,
+                               cfg=IPASampleConfig(num_inference_steps=IPA_STEPS))
+    clock = StageClock()
+    clock.watch(ip.unet, lambda a, k: "unet_cfg_step", keep_inputs=True)
+    clock.watch(vae.decoder, lambda a, k: "vae_decode")
+    clock.watch(vit, lambda a, k: "vit_encode")
+    finite = []  # the decoded pixels, before they become uint8
+    hook = vae.decoder.register_forward_hook(
+        lambda m, a, out: finite.append(bool(torch.isfinite(out).all())))
+    image = torch.from_numpy(PIXELS).cuda()
+    failures, images, image_s = [], {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    flash_fwd.launches = flash_fwd.padded_copies = 0
+    for scale in (0.8, 0.0):
+        t0 = time.perf_counter()
+        images[scale] = pipe.generate(image, prompt="george flies a kite", scale=scale, seed=3)
+        image_s[scale] = time.perf_counter() - t0
+    launches, copies = flash_fwd.launches, flash_fwd.padded_copies
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    clock.close()
+    hook.remove()
+    if finite != [True, True]:
+        failures.append(f"decoded pixels finite: {finite}")
+    # per image: 2 ViT calls (the image and the zero negative) and 32
+    # attentions (16 transformer blocks) in each of the 30 CFG steps
+    per_image = 2 * (vit.cfg.layers + 1) + IPA_STEPS * 32
+    if launches != 2 * per_image:
+        failures.append(f"{launches} flash launches, expected {2 * per_image}")
+    if copies:
+        failures.append(f"{copies} inputs copied for TMA")
+    for scale, img in images.items():
+        if img.shape != (1, 512, 512, 3) or img.dtype != np.uint8 or img.min() == img.max():
+            failures.append(f"scale {scale}: image {img.shape} {img.dtype} constant or wrong")
+    differ = float(np.abs(images[0.8].astype(int) - images[0.0].astype(int)).mean())
+    if differ == 0.0:
+        failures.append("the images at scale 0.8 and 0 are the same")
+    unet = profile_call(ip.unet, *clock.last_inputs["unet_cfg_step"])
+    stats = {"s_per_image": image_s, "unet_cfg_step_ms": clock.mean_ms("unet_cfg_step"),
+             "unet_cfg_step_device_ms": unet["device_ms"], "unet_flash_ms": unet["flash_ms"],
+             "vae_ms": clock.mean_ms("vae_decode"), "vit_ms": clock.mean_ms("vit_encode"),
+             "peak_gib": peak, "mean_abs_pixel_difference_of_the_scales": differ}
+    print(f"ipa: {json.dumps(stats)}; {launches} flash launches ({per_image} an image), "
+          f"{copies} padded copies; unet_cfg_step profiled {json.dumps(unet)} [{label}]",
+          flush=True)
+    failures += forbidden_imports()
+    if failures:
+        raise AssertionError(f"ipa phase failed: {failures}")
+    return launches
+
+
+# The SD-2.1 edit adapter at full width: SD21Text2ImageAndEditAdapter's
+# default config (resampler=None) at 768x768 (8-channel 96x96 latents), B =
+# 2, seeded text embeds (77 x 1024), trained under sd21_edit_trainable_mask.
+# Cut: 3 steps on one repeated synthetic batch, random weights.
+SD21_STEPS, SD21_SIZE = 3, 768
+
+
+def phase_sd21_edit(label: str):
+    t0 = time.perf_counter()
+    model = fill_module(SD21Text2ImageAndEditAdapter, SD21EditAdapterConfig(), "cuda", seed=9)
+    mask = sd21_edit_trainable_mask(model)
+    params = dict(model.named_parameters())
+    n_train = sum(params[k].numel() for k, m in mask.items() if m)
+    n_attn = sum(isinstance(m, CrossAttention) for m in model.unet.modules())
+    print(f"sd21_edit cuts: {SD21_STEPS} steps on one repeated synthetic batch of 2 at "
+          f"{SD21_SIZE}x{SD21_SIZE}, random weights; build {time.perf_counter() - t0:.2f} s, "
+          f"{sum(p.numel() for p in params.values()) / 1e9:.3f} B parameters "
+          f"({n_train / 1e9:.3f} B trainable), {n_attn} attentions [{label}]", flush=True)
+    rng = np.random.RandomState(4)
+    lat = SD21_SIZE // 8
+    batch = {"noisy_latents": rng.randn(2, lat, lat, 8).astype(np.float32),
+             "timesteps": np.array([500, 20], np.int32),
+             "text_embeds": rng.randn(2, 77, 1024).astype(np.float32),
+             "noise": rng.randn(2, lat, lat, 4).astype(np.float32)}
+    frozen = model.unet.down_blocks[0].resnets[0].conv1.weight
+    trained = model.unet.down_blocks[0].attentions[0].transformer_blocks[0].attn2.to_q.weight
+    before = {"frozen": frozen.detach().clone(), "trained": trained.detach().clone()}
+
+    def loss_fn(b, dropout_seed):
+        out = model(b["noisy_latents"], b["timesteps"], None, b["text_embeds"], b["noise"])
+        return out["total_loss"], {}
+
+    def repeated():
+        while True:
+            yield batch
+
+    with tempfile.TemporaryDirectory() as out:
+        flash_fwd.launches = flash_bwd.dq_launches = flash_bwd.dkv_launches = 0
+        flash_fwd.padded_copies = flash_bwd.padded_copies = 0
+        run_training(RunnerArgs(output_dir=out, max_steps=SD21_STEPS, save_steps=10**9,
+                                log_steps=1, seed=0),
+                     TrainConfig(learning_rate=1e-5, warmup_steps=1, training_steps=SD21_STEPS),
+                     model, loss_fn, repeated(), trainable_mask=mask)
+        launches = kernel_launch_counts()[:3]
+        copies = flash_fwd.padded_copies + flash_bwd.padded_copies
+        with open(os.path.join(out, "metrics.jsonl")) as f:
+            logged = [json.loads(line) for line in f]
+    steps, losses, step_s, failures = steady_steps(logged, SD21_STEPS, "sd21_edit")
+    if copies:
+        failures.append(f"{copies} inputs copied for TMA")
+    if not torch.equal(frozen, before["frozen"]) or torch.equal(trained, before["trained"]):
+        failures.append("a frozen weight changed or a trained one did not")
+    for i, m in enumerate(steps):
+        fwd, dq, dkv, _ = (int(m[k]) for k in LAUNCH_COUNTS)
+        print(f"sd21_edit step {i + 1}: {m['step_seconds']:.3f} s, loss {m['loss']:.5f}, "
+              f"grad_norm {m['grad_norm']:.4g}, launches fwd {fwd} dq {dq} dkv {dkv}, peak "
+              f"{m['peak_gib']:.2f} GiB [{label}]", flush=True)
+        if (fwd, dq, dkv) != (n_attn, n_attn, n_attn):
+            failures.append(f"step {i + 1}: launches fwd {fwd} dq {dq} dkv {dkv}, expected "
+                            f"{n_attn} each")
+    stats = {"s_per_step": step_s, "peak_gib": max(m["peak_gib"] for m in steps),
+             "losses": losses, "launches": launches}
+    print(f"sd21_edit steady (steps 2-{SD21_STEPS}): {json.dumps(stats)} [{label}]", flush=True)
+    failures += forbidden_imports()
+    if failures:
+        raise AssertionError(f"sd21_edit phase failed: {failures}")
+    return launches
+
+
+# The align agent at full width: SEEDLLaMAAlignGeneration over LLaMA-2-7B
+# (configs/clm_models/llama2chat7b_lora.yaml, bf16 parameters) and the
+# frozen ViT-bigG's features as targets, trained under align_trainable_mask
+# on the stage-2 batch; then a text-seeded greedy story of 64 tokens with a
+# bf16 cache. Cut: 3 steps, random weights.
+ALIGN_STEPS, ALIGN_TOKENS = 3, 64
+
+
+def phase_align(label: str):
+    bf16 = torch.bfloat16
+    llm_cfg = LlamaConfig(lora_rank=16, lora_alpha=32.0, lora_dropout=0.05, param_dtype=bf16)
+    agent_cfg = AgentConfig(llm=llm_cfg)
+    t0 = time.perf_counter()
+    vit = fill_module(VisionTransformerWithAttnPool, ViTConfig(param_dtype=bf16), "cuda",
+                      seed=0).eval().requires_grad_(False)
+    agent = fill_module(SEEDLLaMAAlignGeneration, agent_cfg, "cuda", seed=1)
+    mask = align_trainable_mask(agent)
+    params = dict(agent.named_parameters())
+    n_train = sum(params[k].numel() for k, m in mask.items() if m)
+    print(f"align cuts: {ALIGN_STEPS} steps on one repeated synthetic stage-2 batch, random "
+          f"weights; build {time.perf_counter() - t0:.2f} s, agent "
+          f"{sum(p.numel() for p in params.values()) / 1e9:.3f} B parameters "
+          f"({n_train / 1e6:.1f} M trainable) [{label}]", flush=True)
+    batch = train_batch(agent_cfg)
+    q_proj = agent.llm.model.layers[0].self_attn.q_proj.weight
+    q_before = q_proj.detach().clone()
+
+    def loss_fn(b, dropout_seed):
+        with torch.no_grad():
+            image_embeds = vit(b["images"])
+        out = agent(input_ids=b["input_ids"], attention_mask=b["attention_mask"],
+                    labels=b["labels"], image_embeds=image_embeds,
+                    embeds_gen_mask=b["embeds_gen_mask"], embeds_cmp_mask=b["embeds_cmp_mask"],
+                    ids_gen_mask=b["ids_gen_mask"], ids_cmp_mask=b["ids_cmp_mask"],
+                    dropout_seed=dropout_seed)
+        return out["total_loss"], {"rec_loss": out["rec_loss"].detach()}
+
+    def repeated():
+        while True:
+            yield batch
+
+    with tempfile.TemporaryDirectory() as out:
+        flash_fwd.launches = flash_bwd.dq_launches = flash_bwd.dkv_launches = 0
+        flash_fwd.padded_copies = flash_bwd.padded_copies = 0
+        run_training(RunnerArgs(output_dir=out, max_steps=ALIGN_STEPS, save_steps=10**9,
+                                log_steps=1, seed=0),
+                     TrainConfig(learning_rate=1e-3, warmup_steps=1, training_steps=ALIGN_STEPS),
+                     agent, loss_fn, repeated(), trainable_mask=mask)
+        train_launches = kernel_launch_counts()[:3]
+        copies = flash_fwd.padded_copies + flash_bwd.padded_copies
+        with open(os.path.join(out, "metrics.jsonl")) as f:
+            logged = [json.loads(line) for line in f]
+    steps, losses, step_s, failures = steady_steps(logged, ALIGN_STEPS, "align")
+    if copies:
+        failures.append(f"{copies} inputs copied for TMA")
+    if not torch.equal(q_proj, q_before):
+        failures.append("the frozen LLM changed")
+    n_layers = llm_cfg.num_hidden_layers
+    for i, m in enumerate(steps):
+        fwd, dq, dkv, _ = (int(m[k]) for k in LAUNCH_COUNTS)
+        print(f"align step {i + 1}: {m['step_seconds']:.3f} s, loss {m['loss']:.5f}, grad_norm "
+              f"{m['grad_norm']:.4g}, launches fwd {fwd} dq {dq} dkv {dkv}, peak "
+              f"{m['peak_gib']:.2f} GiB [{label}]", flush=True)
+        # the ViT's 48 layers and pool, the LLaMA's layers, the output resampler
+        if (fwd, dq, dkv) != (vit.cfg.layers + 1 + n_layers + 1, 1, 1):
+            failures.append(f"align step {i + 1}: launches fwd {fwd} dq {dq} dkv {dkv}")
+    del vit
+    free_memory()
+
+    agent.eval()
+    generator = StoryGenerator(agent, GenerateConfig(
+        max_new_tokens=ALIGN_TOKENS, num_img_gen_tokens=agent_cfg.num_img_out_tokens,
+        eos_token_id=-1, cache_capacity=256))
+    prompt = np.array([1] + [100 + 37 * i % 31000 for i in range(40)])
+    no_image = np.zeros((1, agent_cfg.num_vit_tokens, agent_cfg.vit_dim), np.float32)
+    args = (prompt, no_image, np.zeros(1, bool), np.zeros(len(prompt), bool))
+    generator.generate(*args)  # warm-up
+    flash_fwd.launches = decode_attn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = generator.generate(*args)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    fwd, attn = flash_fwd.launches, decode_attn.launches
+    if out["num_generated"] != ALIGN_TOKENS:
+        failures.append(f"{out['num_generated']} tokens generated, expected {ALIGN_TOKENS}")
+    if fwd != n_layers or attn != n_layers * (ALIGN_TOKENS - 1):
+        failures.append(f"decode launches: flash {fwd} (prefill), decode_attn {attn}")
+    stats = {"s_per_step": step_s, "peak_gib": max(m["peak_gib"] for m in steps),
+             "losses": losses, "decode_ms_per_token": 1e3 * gen_s / out["num_generated"],
+             "generate_s": gen_s}
+    print(f"align: {json.dumps(stats)}; story flash launches {fwd}, decode_attn {attn} "
+          f"[{label}]", flush=True)
+    failures += forbidden_imports()
+    if failures:
+        raise AssertionError(f"align phase failed: {failures}")
+    return train_launches, fwd, attn
+
+
+def phase_vit_nopool(label: str):
+    """One forward of the no-pool ViT-bigG at 448 (bf16 weights)."""
+    vit = fill_module(VisionTransformer, ViTConfig(param_dtype=torch.bfloat16), "cuda",
+                      seed=0).eval().requires_grad_(False)
+    pixels = torch.from_numpy(PIXELS).cuda()
+    with torch.inference_mode():
+        vit(pixels)  # warm-up
+        flash_fwd.launches = flash_fwd.padded_copies = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        feats = vit(pixels)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+    launches, copies = flash_fwd.launches, flash_fwd.padded_copies
+    failures = []
+    if feats.shape != (1, 1024, 1664) or not bool(torch.isfinite(feats).all()):
+        failures.append(f"features {tuple(feats.shape)} or not finite")
+    if launches != vit.cfg.layers or copies:
+        failures.append(f"{launches} flash launches (expected {vit.cfg.layers}), {copies} copies")
+    print(f"vit_nopool: {ms:.3f} ms a forward at 448, features {tuple(feats.shape)}, "
+          f"{launches} flash launches [{label}]", flush=True)
+    failures += forbidden_imports()
+    if failures:
+        raise AssertionError(f"vit_nopool phase failed: {failures}")
+    return launches
+
+
 # The kernels line's probe entries: (kernel, the TPU kernel it replaces, the
 # row it reports: shape and, for the variants' kernel, variant and tiles).
 PROBE_REPORT = (
@@ -2315,20 +2761,27 @@ def main():
                                         lockstep_stats["lockstep"]["wall_s"])
     unet_int8_launches, _ = phase_unet_int8(label, stack)  # the last phase on the bf16 UNet
     del stack, lockstep_segments
-    gc.collect()  # the story stack is gone; give its memory back before training
-    torch.cuda.empty_cache()
+    free_memory()  # the story stack is gone
     (train_fwd, train_dq, train_dkv, _), train_stats = phase_train(label)
-    gc.collect()  # the stage-2 modules are gone; give their memory back
-    torch.cuda.empty_cache()
+    free_memory()
     (q_fwd, q_dq, q_dkv, q_gemm), q_stats = phase_train(label, quantize_base=True)
     print(f"train_int8 against train (bf16): s/step {q_stats['s_per_step']:.3f} against "
           f"{train_stats['s_per_step']:.3f}, tokens/s {q_stats['tokens_per_s']:.1f} against "
           f"{train_stats['tokens_per_s']:.1f}, peak {q_stats['peak_gib']:.2f} against "
           f"{train_stats['peak_gib']:.2f} GiB, int8_gemm launches a step "
           f"{q_stats['int8_gemm_per_step']} [{label}]", flush=True)
-    gc.collect()  # the stage-2 modules are gone; give their memory back before stage 3
-    torch.cuda.empty_cache()
+    free_memory()
     stage3_fwd, stage3_dq, stage3_dkv = phase_stage3(label)
+    free_memory()
+    stage1_fwd = phase_stage1(label)
+    free_memory()
+    ipa_fwd = phase_ipa(label)
+    free_memory()
+    sd21_fwd, sd21_dq, sd21_dkv = phase_sd21_edit(label)
+    free_memory()
+    (align_fwd, align_dq, align_dkv), align_story_fwd, align_attn = phase_align(label)
+    free_memory()
+    nopool_fwd = phase_vit_nopool(label)
     at = next(r for r in rows if r["name"] == "unet_self_64x64")
     bat = next(r for r in bwd_rows if r["name"] == "llama_train_causal")
     a_at = next(r for r in int8_rows if r["name"] == "gate_up_m5")
@@ -2338,11 +2791,13 @@ def main():
                    "flagship": flagship_launches["flash_fwd"],
                    "lockstep": lockstep_launches["flash_fwd"],
                    "serving": serving_launches["flash_fwd"], "train": train_fwd,
-                   "train_int8": q_fwd, "stage3": stage3_fwd}
+                   "train_int8": q_fwd, "stage3": stage3_fwd, "stage1": stage1_fwd,
+                   "ipa": ipa_fwd, "sd21_edit": sd21_fwd,
+                   "align": align_fwd + align_story_fwd, "vit_nopool": nopool_fwd}
     attn_paths = {"story": story_launches["decode_attn"],
                   "flagship": flagship_launches["decode_attn"],
                   "lockstep": lockstep_launches["decode_attn"],
-                  "serving": serving_launches["decode_attn"]}
+                  "serving": serving_launches["decode_attn"], "align": align_attn}
     int8_paths = {"flagship": flagship_launches["int8_linear"],
                   "lockstep": lockstep_launches["int8_linear"],
                   "serving": serving_launches["int8_linear"]}
@@ -2357,7 +2812,11 @@ def main():
          "launches": sum(flash_paths.values()), "launches_by_path": flash_paths,
          "max_abs_err": max(r["o_max_abs"] for r in rows + bwd_rows), "ms": at["ms"],
          "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
-         "library_ms": at["library_ms"], "library": at["library"], "at": at["name"]},
+         "library_ms": at["library_ms"], "library": at["library"], "at": at["name"],
+         # the IP adapters' and the SD-2.1 UNet's shapes, first run in this slice
+         "new_shapes": {r["name"]: {k: r[k] for k in (
+             "shape", "ms", "bound_ms", "bound_by", "plain_ms", "library_ms", "o_max_abs")}
+             for r in rows if r["name"] in NEW_SHAPE_NAMES}},
         *({"name": f"flash_bwd_{kname}", "route": "cuda",
            "source": "seed_story_torch/csrc/flash_bwd.cu",
            "replaces": f"seed_story_tpu/ops/attention.py:{line}",
@@ -2373,9 +2832,10 @@ def main():
                "library_ms", *(f"{g}_max_rel" for g in grads))}
                for r in bwd_rows if r["name"] in UNET_BWD_CASES}}
           for kname, line, by_path, grads in (
-              ("dq", 398, {"train": train_dq, "train_int8": q_dq, "stage3": stage3_dq}, ("dq",)),
-              ("dkv", 453, {"train": train_dkv, "train_int8": q_dkv, "stage3": stage3_dkv},
-               ("dk", "dv")))),
+              ("dq", 398, {"train": train_dq, "train_int8": q_dq, "stage3": stage3_dq,
+                           "sd21_edit": sd21_dq, "align": align_dq}, ("dq",)),
+              ("dkv", 453, {"train": train_dkv, "train_int8": q_dkv, "stage3": stage3_dkv,
+                            "sd21_edit": sd21_dkv, "align": align_dkv}, ("dk", "dv")))),
         {"name": "int8_linear", "route": "cuda", "source": "seed_story_torch/csrc/int8_linear.cu",
          "replaces": "seed_story_tpu/models/llama.py:294 (XLA-fused, no Pallas kernel)",
          "launches": sum(int8_paths.values()), "launches_by_path": int8_paths,

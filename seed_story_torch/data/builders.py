@@ -1,7 +1,7 @@
 """Datapipe builders with the YAML surface of ``configs/data/*.yaml``; the
 port's own copy of what it uses of ``seed_story_tpu/data/builders.py``:
-``build_long_story_datapipe`` and ``build_multi_datapipes``, keyword for
-keyword."""
+``build_long_story_datapipe``, ``build_t2i_datapipe`` and
+``build_multi_datapipes``, keyword for keyword."""
 
 from __future__ import annotations
 
@@ -10,7 +10,7 @@ import random
 from typing import List, Optional
 
 from .datapipes import JsonlStoryDataset, batched
-from .story_telling import StoryDecodeConfig, decode_long_story_sample
+from .story_telling import StoryDecodeConfig, decode_long_story_sample, decode_t2i_sample
 
 
 class StoryDataPipe:
@@ -50,6 +50,26 @@ def build_long_story_datapipe(data_dir, image_dir, tokenizer=None, story_len=30,
     decode = functools.partial(decode_long_story_sample, image_dir=image_dir,
                                tokenizer=tokenizer, cfg=cfg, image_transform=image_transform,
                                sd_image_transform=sd_image_transform)
+    ds = JsonlStoryDataset(data_dir, decode, cycle_count=cycle_count or 1, seed=seed)
+    return StoryDataPipe(ds, batch_size)
+
+
+def build_t2i_datapipe(data_dir, image_dir, tokenizer=None, max_length=77, batch_size=None,
+                       min_resolution=180, image_transform=None, sd_image_transform=None,
+                       instruction_prompt="[INST] {instruction} [INST]\n", turn_sep="\n",
+                       system_message="", min_aspect_ratio=0.666, num_img_in_tokens=64,
+                       num_img_out_tokens=64, cycle_count=None, seed=0,
+                       max_images: int = 1) -> StoryDataPipe:
+    """Text-to-image records (``decode_t2i_sample``); ``turn_sep`` is
+    accepted for the YAML surface and unused, as in the JAX package."""
+    cfg = StoryDecodeConfig(
+        max_length=max_length, max_images=max_images, num_img_in_tokens=num_img_in_tokens,
+        num_img_out_tokens=num_img_out_tokens, system_message=system_message,
+        min_resolution=min_resolution, min_aspect_ratio=min_aspect_ratio)
+    decode = functools.partial(decode_t2i_sample, image_dir=image_dir, tokenizer=tokenizer,
+                               cfg=cfg, image_transform=image_transform,
+                               sd_image_transform=sd_image_transform,
+                               instruction_prompt=instruction_prompt)
     ds = JsonlStoryDataset(data_dir, decode, cycle_count=cycle_count or 1, seed=seed)
     return StoryDataPipe(ds, batch_size)
 

@@ -15,19 +15,31 @@ import os
 import queue
 import random
 import threading
-from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional
+from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Sequence
 
 import numpy as np
 
 from .story_telling import collate
 
 
-def list_jsonl_files(data_dir) -> List[str]:
+def _list_files(data_dir, suffix: str, recursive: bool) -> List[str]:
     if isinstance(data_dir, (list, tuple)):
-        return sorted(f for d in data_dir for f in list_jsonl_files(d))
+        return sorted(f for d in data_dir for f in _list_files(d, suffix, recursive))
     if os.path.isfile(data_dir):
         return [data_dir]
-    return sorted(glob.glob(os.path.join(data_dir, "**/*.jsonl"), recursive=True))
+    pattern = f"**/*{suffix}" if recursive else f"*{suffix}"
+    return sorted(glob.glob(os.path.join(data_dir, pattern), recursive=recursive))
+
+
+def list_jsonl_files(data_dir, recursive: bool = True) -> List[str]:
+    """The .jsonl files under ``data_dir`` (a file, a directory or a list of
+    either), sorted; ``recursive`` descends into subdirectories."""
+    return _list_files(data_dir, ".jsonl", recursive)
+
+
+def list_tar_files(data_dir, recursive: bool = True) -> List[str]:
+    """The .tar shards under ``data_dir``, as :func:`list_jsonl_files`."""
+    return _list_files(data_dir, ".tar", recursive)
 
 
 def parse_jsonl(path: str) -> Iterator[Dict[str, Any]]:
@@ -44,6 +56,32 @@ def parse_jsonl(path: str) -> Iterator[Dict[str, Any]]:
                     continue
     except OSError:
         return
+
+
+def iter_tar_members(paths: Iterable[str], mode: str = "r:*") -> Iterator[tuple]:
+    """``(inner path, bytes)`` of every file member of every tar shard. A
+    corrupt shard ends that shard with a warning, never the stream (the
+    reference's TarArchiveLoaderWoException)."""
+    import tarfile
+    import warnings
+
+    if isinstance(paths, str):
+        paths = [paths]
+    for pathname in paths:
+        try:
+            with tarfile.open(pathname, mode=mode) as tar:
+                for tarinfo in tar:
+                    if not tarinfo.isfile():
+                        continue
+                    fobj = tar.extractfile(tarinfo)
+                    if fobj is None:
+                        warnings.warn(f"failed to extract file {tarinfo.name} from source "
+                                      f"tarfile {pathname}")
+                        raise tarfile.ExtractError
+                    yield os.path.normpath(os.path.join(pathname, tarinfo.name)), fobj.read()
+        except Exception as e:  # noqa: BLE001 -- a bad shard is skipped, as in the reference
+            warnings.warn(f"Unable to extract files from corrupted tarfile stream {pathname} "
+                          f"due to: {e}, abort!")
 
 
 class JsonlStoryDataset:
@@ -121,6 +159,21 @@ class JsonlStoryDataset:
                 sample = self._emit(record)
                 if sample is not None:
                     yield sample
+
+
+def sample_multiplexer(pipes: Sequence[Iterable], weights: Optional[Sequence[float]] = None,
+                       seed: int = 0) -> Iterator:
+    """Seeded weighted interleave of ``pipes`` (torchdata's
+    SampleMultiplexer); an exhausted pipe drops out of the draw."""
+    iters = [iter(p) for p in pipes]
+    weights = [1.0] * len(iters) if weights is None else list(weights)
+    rng = random.Random(seed)
+    while iters:
+        i = rng.choices(range(len(iters)), weights=weights, k=1)[0]
+        try:
+            yield next(iters[i])
+        except StopIteration:
+            del iters[i], weights[i]
 
 
 def batched(samples: Iterable, batch_size: int) -> Iterator[Dict[str, np.ndarray]]:

@@ -1,6 +1,6 @@
-"""Long-story sample decoding and batching; the port's own copy of what it
-uses of ``seed_story_tpu/data/story_telling.py``. Ragged image counts are a
-static ``max_images`` axis with validity masks:
+"""Long-story and text-to-image sample decoding and batching; the port's own
+copy of what it uses of ``seed_story_tpu/data/story_telling.py``. Ragged
+image counts are a static ``max_images`` axis with validity masks:
 
   text layout   cap0 <img>[64x<img_k>]</img> [INST] cap1 <img>...</img>
                 ... [INST] cap_{t+1} <img>[gen tokens]</img>
@@ -183,6 +183,64 @@ def decode_long_story_sample(value: Dict[str, Any], *, image_dir: str, tokenizer
         "embeds_gen_mask": embeds_gen_mask,
         "images": padded,
         "num_images": np.int32(num_image_given + 2),
+        **extra,
+    }
+
+
+def decode_t2i_sample(value: Dict[str, Any], *, image_dir: str, tokenizer,
+                      cfg: StoryDecodeConfig, image_transform: Optional[Callable] = None,
+                      sd_image_transform: Optional[Callable] = None,
+                      instruction_prompt: str = "[INST] {instruction} [/INST]\n",
+                      ) -> Optional[Dict[str, np.ndarray]]:
+    """One text-to-image record {'image': ..., 'caption': ...} -> sample
+    dict: the caption as the instruction, the image as the one generated
+    target (never context), on image slot 0. None on any decode or filter
+    failure."""
+    if "image" not in value or "caption" not in value:
+        return None
+    from PIL import Image
+
+    try:
+        img = Image.open(os.path.join(image_dir, value["image"]))  # lazy: reads the header
+        width, height = img.size
+        aspect_ratio = height / width
+        if height < cfg.min_resolution or width < cfg.min_resolution:
+            return None
+        if aspect_ratio < cfg.min_aspect_ratio or aspect_ratio > 1 / cfg.min_aspect_ratio:
+            return None
+        extra: Dict[str, np.ndarray] = {}
+        if sd_image_transform is not None:
+            sd_tensor = sd_image_transform(img)
+            extra["time_ids"] = sdxl_micro_conditioning(height, width, sd_tensor.shape[-2])
+            extra["sd_images"] = sd_tensor.astype(np.float32)
+        if image_transform is not None:
+            image = image_transform(img)
+        else:
+            image = np.zeros((3, cfg.image_size, cfg.image_size), np.float32)
+    except Exception:
+        return None
+
+    gen_tokens = image_comprehension_string(cfg.num_img_out_tokens)
+    instruction = instruction_prompt.format_map({"instruction": value["caption"]})
+    input_ids, labels = _encode_spans(tokenizer, instruction, gen_tokens, cfg.system_message)
+    fin = _finalize_sample(tokenizer, input_ids, labels, cfg, num_cmp_images=0)
+    if fin is None:
+        return None
+    input_ids, attention_mask, labels, ids_cmp_mask, ids_gen_mask = fin
+    embeds_gen_mask = np.zeros(cfg.max_images, bool)
+    embeds_gen_mask[0] = True
+    images = np.zeros((cfg.max_images, *image.shape), np.float32)
+    images[0] = image
+    return {
+        "input_ids": input_ids,
+        "attention_mask": attention_mask,
+        "labels": labels,
+        "ids_cmp_mask": ids_cmp_mask,
+        "ids_gen_mask": ids_gen_mask,
+        "embeds_cmp_mask": np.zeros(cfg.max_images, bool),
+        "embeds_gen_mask": embeds_gen_mask,
+        "images": images,
+        "num_images": np.int32(1),
         **extra,
     }
 

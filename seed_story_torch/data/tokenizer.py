@@ -61,6 +61,17 @@ def load_llama_tokenizer(pretrained_model_name_or_path: str):
     return tok
 
 
+def bert_tokenizer(pretrained_model_name_or_path: str):
+    """The BERT tokenizer with a '[DEC]' bos that the contrastive discrete
+    models' text side uses. Needs ``transformers``."""
+    from transformers import BertTokenizer
+
+    tok = BertTokenizer.from_pretrained(pretrained_model_name_or_path=pretrained_model_name_or_path,
+                                        truncation_side="right")
+    tok.add_special_tokens({"bos_token": "[DEC]"})
+    return tok
+
+
 _WORD_RE = re.compile(r"<img_\d{5}>|</?img>|\[INST\]|\[/INST\]|[A-Za-z0-9']+|[^\sA-Za-z0-9]")
 
 

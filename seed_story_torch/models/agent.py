@@ -2,13 +2,15 @@
 slots, and LLM hidden states regressed back to ViT features; counterpart of
 ``seed_story_tpu/models/agent.py``. ``forward`` is the training loss (CE +
 cosine regression); the other methods are the generation surface.
+``SEEDLLaMAAlignGeneration`` is the align-only variant: a frozen LLM whose
+hidden states train the output resampler alone.
 State-dict names follow the reference agent (``llm.*``, ``input_resampler.*``,
 ``output_resampler.*``)."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -88,7 +90,26 @@ class AgentConfig:
         return AgentConfig(**base)
 
 
-class ContinuousLVLM(nn.Module):
+class _GenerationSurface(nn.Module):
+    """What ``decode/generate.py`` calls besides ``embed_with_images``, on an
+    agent with ``llm`` and ``output_resampler``."""
+
+    def llm_step(self, inputs_embeds, cache: KVCache, seq_lengths=None, logits_indices=None):
+        """Appends a right-padded (B, P) block to ``cache``; ``seq_lengths``
+        (B,) host ints are the rows' true lengths (None: P each) and
+        ``logits_indices`` (B,) the position of each row's logits."""
+        return self.llm(inputs_embeds=inputs_embeds, cache=cache, seq_lengths=seq_lengths,
+                        logits_indices=logits_indices)
+
+    def embed_tokens(self, input_ids):
+        return self.llm.embed(input_ids)
+
+    def resample_output(self, hidden_blocks):
+        """(N, num_img_out_tokens, D) hidden states -> (N, 256, vit_dim)."""
+        return self.output_resampler(hidden_blocks)
+
+
+class ContinuousLVLM(_GenerationSurface):
     def __init__(self, cfg: AgentConfig):
         super().__init__()
         self.cfg = cfg
@@ -136,16 +157,49 @@ class ContinuousLVLM(nn.Module):
         return scatter_image_embeds(self.llm.embed(input_ids), self.input_resampler(image_embeds),
                                     ids_cmp_mask, embeds_cmp_mask)
 
-    def llm_step(self, inputs_embeds, cache: KVCache, seq_lengths=None, logits_indices=None):
-        """Appends a right-padded (B, P) block to ``cache``; ``seq_lengths``
-        (B,) host ints are the rows' true lengths (None: P each) and
-        ``logits_indices`` (B,) the position of each row's logits."""
-        return self.llm(inputs_embeds=inputs_embeds, cache=cache, seq_lengths=seq_lengths,
-                        logits_indices=logits_indices)
 
-    def embed_tokens(self, input_ids):
+
+class SEEDLLaMAAlignGeneration(_GenerationSurface):
+    """The align-only agent: a frozen LLM whose hidden states are detached
+    (computed without a graph) and the output resampler trained on the
+    cosine reconstruction loss alone; no CE, no input resampler (captions
+    enter as text). Its generation surface is ``ContinuousLVLM``'s with
+    images ignored, so ``decode/generate.py`` drives it unchanged. Train it
+    under :func:`align_trainable_mask`."""
+
+    def __init__(self, cfg: AgentConfig):
+        super().__init__()
+        self.cfg = cfg
+        d, dt, pd = cfg.llm.hidden_size, cfg.llm.dtype, cfg.llm.param_dtype
+        self.llm = LlamaForCausalLM(cfg.llm)
+        self.output_resampler = Resampler(
+            grid_size=cfg.output_resampler_grid, embed_dim=cfg.vit_dim,
+            num_heads=cfg.resampler_heads, kv_dim=d if d != cfg.vit_dim else None,
+            dtype=dt, param_dtype=pd)
+
+    def forward(self, input_ids, attention_mask, labels, image_embeds, embeds_gen_mask,
+                embeds_cmp_mask, ids_gen_mask, ids_cmp_mask,
+                dropout_seed: Optional[int] = None):
+        """The cosine loss of the resampled gen-slot hidden states against
+        ``image_embeds``; ``labels``, ``embeds_cmp_mask`` and ``ids_cmp_mask``
+        are taken for the reference's signature and unused. Returns
+        {"total_loss", "rec_loss", "recon_image_embeds"}."""
+        del labels, embeds_cmp_mask, ids_cmp_mask
+        with torch.no_grad():  # the frozen LLM: detached hidden states
+            hidden = self.llm.hidden_states(inputs_embeds=self.llm.embed(input_ids),
+                                            attention_mask=attention_mask,
+                                            dropout_seed=dropout_seed)
+        gen_blocks = gather_image_hidden(hidden, ids_gen_mask, embeds_gen_mask,
+                                         self.cfg.num_img_out_tokens)
+        recon = self.output_resampler(gen_blocks)
+        rec_loss = cosine_loss(recon, image_embeds, valid=embeds_gen_mask)
+        return {"total_loss": rec_loss, "rec_loss": rec_loss, "recon_image_embeds": recon}
+
+    def embed_with_images(self, input_ids, image_embeds, ids_cmp_mask, embeds_cmp_mask):
+        """The prompt's token embeddings; the images are ignored."""
         return self.llm.embed(input_ids)
 
-    def resample_output(self, hidden_blocks):
-        """(N, num_img_out_tokens, D) hidden states -> (N, 256, vit_dim)."""
-        return self.output_resampler(hidden_blocks)
+
+def align_trainable_mask(model: nn.Module) -> Dict[str, bool]:
+    """Parameter name -> trainable: the output resampler only."""
+    return {name: name.startswith("output_resampler.") for name, _ in model.named_parameters()}

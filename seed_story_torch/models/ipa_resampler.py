@@ -1,7 +1,9 @@
-"""The de-tokenizer's perceiver head ``ResamplerXLV2`` in PyTorch;
-counterpart of ``seed_story_tpu/models/ipa_resampler.py``. Names follow the
-reference's ``models_ipa/resampler.py`` state dict (``layers.{i}.0`` the
-attention, ``layers.{i}.1`` the feed-forward ``Sequential``,
+"""The de-tokenizer's perceiver heads in PyTorch: ``ResamplerXLV2`` (the
+shipped one), ``ResamplerXL`` (V1: no input normalization),
+``ResamplerXLIdentity`` and the IP-Adapter's ``IPAResampler``; counterpart
+of ``seed_story_tpu/models/ipa_resampler.py``. Names follow the reference's
+``models_ipa/resampler.py`` state dict (``layers.{i}.0`` the attention,
+``layers.{i}.1`` the feed-forward ``Sequential``,
 ``unet_attnpool.{q,k,v,c}_proj``)."""
 
 from __future__ import annotations
@@ -95,9 +97,44 @@ class AttentionPool2d(nn.Module):
         return linear(self.c_proj, out, dt)[:, 0]
 
 
+def _perceiver_layers(dim, depth, dim_head, heads, ff_mult, dtype, param_dtype):
+    return nn.ModuleList(
+        nn.ModuleList([PerceiverAttention(dim, dim_head, heads, dtype, param_dtype),
+                       FeedForward(dim, ff_mult, dtype, param_dtype)])
+        for _ in range(depth))
+
+
+class IPAResampler(nn.Module):
+    """The IP-Adapter's perceiver: learned latents cross-attend to the
+    projected features, then proj_out and an f32 LayerNorm."""
+
+    def __init__(self, dim: int = 1024, depth: int = 8, dim_head: int = 64, heads: int = 16,
+                 num_queries: int = 8, embedding_dim: int = 768, output_dim: int = 1024,
+                 ff_mult: int = 4, dtype=torch.float32, param_dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.latents = nn.Parameter(torch.empty(1, num_queries, dim, dtype=param_dtype))
+        self.proj_in = nn.Linear(embedding_dim, dim, dtype=param_dtype)
+        self.layers = _perceiver_layers(dim, depth, dim_head, heads, ff_mult, dtype, param_dtype)
+        self.proj_out = nn.Linear(dim, output_dim, dtype=param_dtype)
+        self.norm_out = nn.LayerNorm(output_dim)
+
+    def forward(self, x):
+        """x: (B, n, embedding_dim) -> (B, num_queries, output_dim)."""
+        dt = self.dtype
+        latents = self.latents.to(dt).expand(x.shape[0], -1, -1)
+        x = linear(self.proj_in, x, dt)
+        for attn, ff in self.layers:
+            latents = attn(x, latents) + latents
+            latents = ff(latents) + latents
+        return layer_norm(self.norm_out, linear(self.proj_out, latents, dt), dt)
+
+
 class ResamplerXLV2(nn.Module):
     """The shipped de-tokenizer head: dim 1024, depth 4, 64 queries, input
     4096, outputs 768 + 1280 prompt embeds and a 1280-d pooled embed."""
+
+    l2_normalize_input = True  # the V2 difference
 
     def __init__(self, dim: int = 1024, depth: int = 4, dim_head: int = 64, heads: int = 16,
                  num_queries: int = 64, embedding_dim: int = 4096, output1_dim: int = 768,
@@ -107,10 +144,7 @@ class ResamplerXLV2(nn.Module):
         self.dtype = dtype
         self.latents = nn.Parameter(torch.empty(1, num_queries, dim, dtype=param_dtype))
         self.proj_in = nn.Linear(embedding_dim, dim, dtype=param_dtype)
-        self.layers = nn.ModuleList(
-            nn.ModuleList([PerceiverAttention(dim, dim_head, heads, dtype, param_dtype),
-                           FeedForward(dim, ff_mult, dtype, param_dtype)])
-            for _ in range(depth))
+        self.layers = _perceiver_layers(dim, depth, dim_head, heads, ff_mult, dtype, param_dtype)
         self.norm_out = nn.LayerNorm(dim)
         self.unet_proj_1 = nn.Linear(dim, output1_dim, dtype=param_dtype)
         self.unet_proj_2 = nn.Linear(dim, output2_dim, dtype=param_dtype)
@@ -122,11 +156,12 @@ class ResamplerXLV2(nn.Module):
         pooled (B, out2))."""
         dt = self.dtype
         latents = self.latents.to(dt).expand(x.shape[0], -1, -1)
-        # The reference calls F.normalize(x) with torch's default dim=1: the
-        # features are normalized over the TOKEN axis. The released
-        # checkpoints were trained through it, so it is kept as is.
-        xf = x.float()
-        x = xf / torch.sqrt((xf * xf).sum(dim=1, keepdim=True)).clamp(min=1e-12)
+        if self.l2_normalize_input:
+            # The reference calls F.normalize(x) with torch's default dim=1:
+            # the features are normalized over the TOKEN axis. The released
+            # checkpoints were trained through it, so it is kept as is.
+            xf = x.float()
+            x = xf / torch.sqrt((xf * xf).sum(dim=1, keepdim=True)).clamp(min=1e-12)
         x = linear(self.proj_in, x, dt)
         for attn, ff in self.layers:
             latents = attn(x, latents) + latents
@@ -135,3 +170,16 @@ class ResamplerXLV2(nn.Module):
         prompt = torch.cat([linear(self.unet_proj_1, hidden, dt),
                             linear(self.unet_proj_2, hidden, dt)], dim=-1)
         return prompt, self.unet_attnpool(hidden)
+
+
+class ResamplerXL(ResamplerXLV2):
+    """V1: ResamplerXLV2 without the input L2 normalization."""
+
+    l2_normalize_input = False
+
+
+class ResamplerXLIdentity(nn.Module):
+    """Passes the prompt embeds and the pooled embeds through."""
+
+    def forward(self, x, pooled_text_embeds=None):
+        return x, pooled_text_embeds

@@ -1,9 +1,9 @@
-"""Qwen-VL ViT-bigG visual tokenizer with attention pooling, in PyTorch;
-counterpart of ``seed_story_tpu/models/vit.py``.
+"""Qwen-VL ViT-bigG visual tokenizer with attention pooling, and its no-pool
+variant, in PyTorch; counterpart of ``seed_story_tpu/models/vit.py``.
 
 448 px -> 14 px conv patchify (1024 tokens, width 1664) -> + bicubic pos-emb
 -> ln_pre -> 48 pre-LN blocks (fused qkv split per head, exact GELU, eps
-1e-6) -> perceiver attn-pool to 256 queries -> ln_post -> projection.
+1e-6) [-> perceiver attn-pool to 256 queries -> ln_post -> projection].
 Names follow the reference's ``qwen_visual`` state dict.
 """
 
@@ -105,7 +105,13 @@ class Transformer(nn.Module):
         return x
 
 
-class VisionTransformerWithAttnPool(nn.Module):
+class VisionTransformer(nn.Module):
+    """The no-pool ViT: patchify, position table, ln_pre and the block
+    stack, returning every token's features (N, grid * grid, width). Its
+    names are those of :class:`VisionTransformerWithAttnPool`, so that
+    model's weights load here with ``strict=False`` (the pool's tensors
+    left out)."""
+
     def __init__(self, cfg: ViTConfig):
         super().__init__()
         self.cfg = cfg
@@ -115,6 +121,21 @@ class VisionTransformerWithAttnPool(nn.Module):
         self.positional_embedding = nn.Parameter(torch.empty(256, cfg.width, dtype=pd))
         self.ln_pre = nn.LayerNorm(cfg.width, eps=cfg.ln_eps)
         self.transformer = Transformer(cfg)
+
+    def forward(self, pixels: torch.Tensor) -> torch.Tensor:
+        """pixels: (N, 3, H, W) CLIP-normalized -> (N, grid * grid, width)."""
+        cfg, dt = self.cfg, self.cfg.dtype
+        x = F.conv2d(pixels.to(dt), self.conv1.weight.to(dt), stride=cfg.patch_size)
+        x = x.flatten(2).transpose(1, 2)  # (N, grid*grid, width), row-major tokens
+        x = x + interpolate_abs_pos(self.positional_embedding.to(dt), x.shape[1])[None]
+        x = layer_norm(self.ln_pre, x, dt)
+        return self.transformer(x)
+
+
+class VisionTransformerWithAttnPool(VisionTransformer):
+    def __init__(self, cfg: ViTConfig):
+        super().__init__(cfg)
+        pd = cfg.param_dtype
         self.attn_pool = Resampler(
             grid_size=int(math.sqrt(cfg.n_queries)), embed_dim=cfg.output_dim,
             num_heads=max(1, cfg.output_dim // 128), kv_dim=cfg.width, ln_eps=cfg.ln_eps,
@@ -124,11 +145,6 @@ class VisionTransformerWithAttnPool(nn.Module):
 
     def forward(self, pixels: torch.Tensor) -> torch.Tensor:
         """pixels: (N, 3, H, W) CLIP-normalized -> (N, n_queries, output_dim)."""
-        cfg, dt = self.cfg, self.cfg.dtype
-        x = F.conv2d(pixels.to(dt), self.conv1.weight.to(dt), stride=cfg.patch_size)
-        x = x.flatten(2).transpose(1, 2)  # (N, grid*grid, width), row-major tokens
-        x = x + interpolate_abs_pos(self.positional_embedding.to(dt), x.shape[1])[None]
-        x = layer_norm(self.ln_pre, x, dt)
-        x = self.transformer(x)
-        x = layer_norm(self.ln_post, self.attn_pool(x), dt)
+        dt = self.cfg.dtype
+        x = layer_norm(self.ln_post, self.attn_pool(super().forward(pixels)), dt)
         return x @ self.proj.to(dt)

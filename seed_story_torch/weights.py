@@ -2,9 +2,15 @@
 (nested dicts of numpy arrays) turned into ``state_dict``s, and seeded
 random initialisation on the device.
 
-One function per family: :func:`vit_state_dict`, :func:`agent_state_dict`
-(LLaMA with LoRA plus the two resamplers), :func:`adapter_state_dict`
-(ResamplerXLV2 plus the UNet) and :func:`vae_state_dict`. Each walks the
+One function per family: :func:`vit_state_dict` (the ViT with attention
+pool, or the no-pool ``VisionTransformer``), :func:`agent_state_dict`
+(LLaMA with LoRA plus the two resamplers, or the align agent's LLaMA and
+output resampler), :func:`adapter_state_dict`
+(ResamplerXLV2 plus the UNet, or the two latent-image edit adapters),
+:func:`vae_state_dict`, :func:`discrete_state_dict` (the stage-1 discrete
+models) and :func:`ipa_adapter_state_dict` (``IPAdapterSD``: its
+``IPAResampler`` and SD-1.5-layout UNet, a bare IPA resampler, or an
+``IPCrossAttention``). Each walks the
 port module's own state-dict keys, finds the flax leaf each one came from,
 and undoes the layout change ``seed_story_tpu/tools/convert_torch_weights.py``
 makes: flax Dense kernels (in, out) become Linear weights (out, in), flax
@@ -26,10 +32,12 @@ import torch
 from torch import nn
 
 from .models.agent import ContinuousLVLM
-from .models.ipa_resampler import AttentionPool2d, ResamplerXLV2
+from .models.discrete import DiscreteModelStageOneContrastive, VectorQuantizer
+from .models.ipa_resampler import AttentionPool2d, IPAResampler, ResamplerXLV2
 from .models.llama import LoRADense, RMSNorm, quantize_weight
 from .models.resampler import MultiheadAttention, Resampler
-from .models.vit import VisionTransformerWithAttnPool, VisualAttention, VisualMLP
+from .models.vit import (VisionTransformer, VisionTransformerWithAttnPool, VisualAttention,
+                         VisualMLP)
 from .ops.groupnorm import FastGroupNorm
 
 PathFn = Callable[[str], str]
@@ -142,15 +150,17 @@ def _ipa_path(prefix: str) -> str:
     return _dotted(prefix)
 
 
-def vit_state_dict(module: VisionTransformerWithAttnPool, params) -> Dict[str, torch.Tensor]:
-    """JAX ``VisionTransformerWithAttnPool`` params -> the port's state dict."""
+def vit_state_dict(module: VisionTransformer, params) -> Dict[str, torch.Tensor]:
+    """JAX ``VisionTransformerWithAttnPool`` (or no-pool ``VisionTransformer``)
+    params -> the port's state dict of the same model."""
     return _state_dict(module, params, _vit_path)
 
 
-def agent_state_dict(module: ContinuousLVLM, params) -> Dict[str, torch.Tensor]:
+def agent_state_dict(module: nn.Module, params) -> Dict[str, torch.Tensor]:
     """JAX ``ContinuousLVLM`` params (``llm``, ``input_resampler``,
-    ``output_resampler``) -> the port's state dict. Its parts (a bare
-    ``LlamaForCausalLM``, a ``Resampler``) map the same way."""
+    ``output_resampler``) -> the port's state dict. The align agent
+    (``SEEDLLaMAAlignGeneration``: ``llm``, ``output_resampler``) and the
+    parts (a bare ``LlamaForCausalLM``, a ``Resampler``) map the same way."""
     return _state_dict(module, params, _llama_path)
 
 
@@ -169,16 +179,52 @@ def _adapter_path(prefix: str) -> str:
 
 
 def adapter_state_dict(module, params) -> Dict[str, torch.Tensor]:
-    """JAX ``SDXLAdapter`` params (``resampler``, ``unet``) -> state dict."""
+    """JAX ``SDXLAdapter`` params (``resampler``, ``unet``) -> state dict; the
+    two latent-image edit adapters' (``SDXLAdapterWithLatentImage``,
+    ``SD21Text2ImageAndEditAdapter`` with its optional ``resampler``) map
+    the same way."""
     return _state_dict(module, params, _adapter_path)
 
 
 def adapter_flax_paths(module: nn.Module) -> Dict[str, Tuple[str, Callable]]:
-    """Parameter name of the port's ``SDXLAdapter`` -> (flax leaf path joined
-    with '/', the flax -> torch transform), as :func:`adapter_state_dict`
-    pairs them; used to hold gradients and the trainable set of stage 3 to
-    the JAX package's."""
+    """Parameter name of the port's ``SDXLAdapter`` (or an edit adapter) ->
+    (flax leaf path joined with '/', the flax -> torch transform), as
+    :func:`adapter_state_dict` pairs them; used to hold gradients and the
+    trainable sets to the JAX package's."""
     return _flax_paths(module, _adapter_path)
+
+
+def _ipa_adapter_path(prefix: str) -> str:
+    if prefix.partition(".")[0] == "unet" or prefix.startswith("to_"):  # IPCrossAttention
+        return _diffusers_path(prefix)
+    return _ipa_path(prefix)
+
+
+def ipa_adapter_state_dict(module: nn.Module, params) -> Dict[str, torch.Tensor]:
+    """JAX ``IPAdapterSD`` params (``image_proj_model``, ``unet``) -> the
+    port's state dict; a bare ``IPAResampler``'s and an ``IPCrossAttention``'s
+    (``to_q`` ... ``to_v_ip``, ``to_out_0``) map the same way."""
+    return _state_dict(module, params, _ipa_adapter_path)
+
+
+def ipa_adapter_flax_paths(module: nn.Module) -> Dict[str, Tuple[str, Callable]]:
+    """Parameter name of the port's ``IPAdapterSD`` -> (flax leaf path, the
+    flax -> torch transform), to hold gradients to the JAX package's."""
+    return _flax_paths(module, _ipa_adapter_path)
+
+
+def discrete_state_dict(module: nn.Module, params) -> Dict[str, torch.Tensor]:
+    """JAX discrete-model params (``encode_proj``, ``quantizer/codebook``,
+    ``decode_proj``, the contrastive heads and ``logit_scale``, nested under
+    ``distill`` / ``contrastive*`` in the composites) -> the port's state
+    dict."""
+    return _state_dict(module, params, _dotted)
+
+
+def discrete_flax_paths(module: nn.Module) -> Dict[str, Tuple[str, Callable]]:
+    """Parameter name of a port discrete model -> (flax leaf path,
+    transform), to hold its gradients to the JAX package's."""
+    return _flax_paths(module, _dotted)
 
 
 def vae_state_dict(module, params) -> Dict[str, torch.Tensor]:
@@ -208,9 +254,9 @@ def init_random_(model: nn.Module, seed: int) -> nn.Module:
     """Fills every parameter of ``model`` in place from one generator on the
     parameters' device: lecun-normal projections and convolutions (flax's
     default), xavier-uniform where the JAX ViT and Qwen resamplers use it,
-    normal(0.02) embeddings, LoRA A and resampler kv_proj, zero LoRA B and
-    biases, unit norm scales, and the JAX package's scales for learned
-    queries and position tables. Modules are visited children first, so a
+    normal(0.02) embeddings, LoRA A, resampler kv_proj and VQ codebooks, zero
+    LoRA B and biases, unit norm scales, the JAX package's scales for learned
+    queries and position tables, and log(1 / temperature) logit scales. Modules are visited children first, so a
     parent's rule overrides the generic one for its children."""
     device = next(model.parameters()).device
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -246,11 +292,16 @@ def init_random_(model: nn.Module, seed: int) -> nn.Module:
             m.query.normal_(0.0, 0.02, generator=gen).clamp_(-0.04, 0.04)
             if m.kv_proj is not None:
                 m.kv_proj.weight.normal_(0.0, 0.02, generator=gen).clamp_(-0.04, 0.04)
-        elif isinstance(m, VisionTransformerWithAttnPool):
+        elif isinstance(m, VisionTransformer):
             m.positional_embedding.normal_(0.0, m.cfg.width ** -0.5, generator=gen)
-            m.proj.normal_(0.0, m.cfg.output_dim ** -0.5, generator=gen)
-        elif isinstance(m, ResamplerXLV2):
+            if isinstance(m, VisionTransformerWithAttnPool):
+                m.proj.normal_(0.0, m.cfg.output_dim ** -0.5, generator=gen)
+        elif isinstance(m, (ResamplerXLV2, IPAResampler)):
             m.latents.normal_(0.0, m.latents.shape[-1] ** -0.5, generator=gen)
+        elif isinstance(m, VectorQuantizer):
+            m.codebook.normal_(0.0, 0.02, generator=gen)
+        elif isinstance(m, DiscreteModelStageOneContrastive):
+            m.logit_scale.fill_(math.log(1.0 / m.temperature_init))
         elif isinstance(m, AttentionPool2d):
             m.positional_embedding.normal_(0.0, m.positional_embedding.shape[-1] ** -0.5,
                                            generator=gen)

@@ -258,3 +258,130 @@ def test_other_jax_package_targets_are_refused(target):
 def test_shipped_yamls_instantiate_the_port(path):
     obj = port_config.instantiate(port_config.load_config(str(REPO / path)))
     assert type(obj).__module__.startswith("seed_story_torch.data.")
+
+
+@pytest.fixture(scope="module")
+def t2i_workspace(workspace, tmp_path_factory):
+    """Text-to-image records over the workspace's jpgs (the 40 px ones fail
+    the filter), a record without a caption, and one naming a missing file."""
+    root = tmp_path_factory.mktemp("t2i_ws")
+    names = sorted(p.name for p in (workspace / "images").iterdir())
+    with open(root / "t2i.jsonl", "w") as f:
+        for i, name in enumerate(names):
+            f.write(json.dumps({"image": name, "caption": f"picture {i}: a dog's day!"}) + "\n")
+        f.write(json.dumps({"image": names[0]}) + "\n")
+        f.write(json.dumps({"image": "missing.jpg", "caption": "nothing"}) + "\n")
+    return root
+
+
+@pytest.mark.parametrize("with_sd", [False, True])
+def test_t2i_datapipe_matches_the_jax_package(workspace, t2i_workspace, with_sd):
+    """``build_t2i_datapipe`` (``decode_t2i_sample``) gives the same batches
+    in the same order as the JAX package's, with and without the SDXL
+    transform."""
+    def batches(builders, tok, transforms, n=5):
+        pipe = builders.build_t2i_datapipe(
+            data_dir=str(t2i_workspace), image_dir=str(workspace / "images"),
+            tokenizer=tok.TinyTokenizer(), max_length=48, batch_size=3, min_resolution=64,
+            image_transform=transforms.get_transform("clip", True, 28),
+            sd_image_transform=transforms.get_transform("sd", True, 32) if with_sd else None,
+            num_img_out_tokens=4, cycle_count=2, seed=3)
+        it = iter(pipe)
+        return [next(it) for _ in range(n)]
+
+    got = batches(port_builders, port_tok, port_transforms)
+    _assert_same_batches(got, batches(ref_builders, ref_tok, ref_transforms))
+    assert got[0]["images"].shape == (3, 1, 3, 28, 28) and got[0]["embeds_gen_mask"][:, 0].all()
+    assert ("sd_images" in got[0]) == with_sd
+
+
+def test_tar_readers_match_the_jax_package(tmp_path):
+    """``list_tar_files`` (recursive or not) and ``iter_tar_members`` over
+    two good shards and a corrupt one: the same members, the corrupt shard
+    skipped with a warning; ``list_jsonl_files``'s ``recursive``."""
+    import tarfile
+
+    from seed_story_tpu.data import datapipes as ref_datapipes
+
+    (tmp_path / "sub").mkdir()
+    for i, where in enumerate((tmp_path, tmp_path / "sub")):
+        member = tmp_path / f"m{i}.json"
+        member.write_text(json.dumps({"i": i}))
+        with tarfile.open(where / f"shard{i}.tar", "w") as tar:
+            tar.add(member, arcname=f"sample{i}/m.json")
+        (where / f"rec{i}.jsonl").write_text("{}\n")
+    (tmp_path / "bad.tar").write_bytes(b"not a tar archive at all" * 40)
+    for recursive in (True, False):
+        want = ref_datapipes.list_tar_files(str(tmp_path), recursive)
+        assert port_datapipes.list_tar_files(str(tmp_path), recursive) == want
+        assert (port_datapipes.list_jsonl_files(str(tmp_path), recursive)
+                == ref_datapipes.list_jsonl_files(str(tmp_path), recursive))
+    shards = port_datapipes.list_tar_files([str(tmp_path)])
+    assert len(shards) == 3
+    with pytest.warns(UserWarning, match="corrupted tarfile"):
+        got = list(port_datapipes.iter_tar_members(shards))
+    with pytest.warns(UserWarning):
+        want = list(ref_datapipes.iter_tar_members(shards))
+    assert got == want and len(got) == 2
+    assert json.loads(got[0][1]) in ({"i": 0}, {"i": 1})
+
+
+def test_sample_multiplexer_matches_the_jax_package():
+    from seed_story_tpu.data import datapipes as ref_datapipes
+
+    pipes = [range(0, 5), range(100, 103), range(200, 220)]
+    for weights in (None, [0.2, 0.3, 0.5]):
+        got = list(port_datapipes.sample_multiplexer(pipes, weights, seed=4))
+        assert got == list(ref_datapipes.sample_multiplexer(pipes, weights, seed=4))
+        assert sorted(got) == sorted(x for p in pipes for x in p)
+
+
+def test_bert_tokenizer_matches_the_jax_package(tmp_path):
+    vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", "a", "dog", "runs", "in", "the",
+             "park", "##s", ",", "."]
+    (tmp_path / "vocab.txt").write_text("\n".join(vocab) + "\n")
+    port, ref = port_tok.bert_tokenizer(str(tmp_path)), ref_tok.bert_tokenizer(str(tmp_path))
+    assert port.bos_token == ref.bos_token == "[DEC]"
+    assert port.truncation_side == ref.truncation_side == "right"
+    text = "A dog runs in the parks, a cat."
+    assert port(text)["input_ids"] == ref(text)["input_ids"]
+    assert port.convert_tokens_to_ids("[DEC]") == ref.convert_tokens_to_ids("[DEC]") == len(vocab)
+
+
+def test_every_reference_alias_resolves_to_the_ports_counterpart():
+    """Each key of the JAX package's ``TARGET_ALIASES`` resolves in the port
+    to the port's object of the same dotted path under ``seed_story_torch``
+    as the JAX object it resolves to there; a JAX dtype to the torch one."""
+    import importlib
+
+    import torch
+
+    from seed_story_tpu.utils import config as ref_config
+
+    assert sorted(port_config.TARGET_ALIASES) == sorted(ref_config.TARGET_ALIASES)
+    for key, jax_path in ref_config.TARGET_ALIASES.items():
+        jax_obj = ref_config.resolve_target(key)
+        module, _, name = jax_path.replace("seed_story_tpu.", "seed_story_torch.").rpartition(".")
+        want = getattr(importlib.import_module(module), name)
+        got = port_config.resolve_target(key)
+        assert got is want and got.__name__ == jax_obj.__name__, key
+        assert got.__module__.startswith("seed_story_torch."), key
+    assert port_config.resolve_target("jax.numpy.bfloat16") is torch.bfloat16
+
+
+def test_shipped_discrete_yaml_and_discrete_targets_instantiate_the_port():
+    from seed_story_torch.models import discrete as port_discrete
+
+    obj = port_config.instantiate(port_config.load_config(
+        str(REPO / "configs/discrete_model/discrete_identity.yaml")))
+    assert type(obj) is port_discrete.DiscreteModelIdentity
+    model = port_config.instantiate({
+        "_target_": "seed_story_tpu.models.discrete.DiscreteModelDistill", "use_vq": True,
+        "cfg": {"_target_": "seed_story_tpu.models.discrete.DiscreteConfig", "dim": 8,
+                "codebook_size": 4,
+                "dtype": {"_target_": "seed_story_tpu.utils.config.resolve_target",
+                          "path": "jax.numpy.float32"}}}, embed_dim=12)
+    assert type(model) is port_discrete.DiscreteModelDistill
+    assert model.quantizer.codebook.shape == (4, 8) and model.encode_proj.in_features == 12
+    assert port_config.resolve_target("src.models.discrete_models.DiscreteModleIdentity") is (
+        port_discrete.DiscreteModelIdentity)

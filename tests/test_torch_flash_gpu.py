@@ -269,3 +269,45 @@ def test_kernel_rejects_what_it_does_not_take():
     q = torch.randn(1, 2, 8, 160, device="cuda", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dims"):
         mha(q, q, q, implementation="kernel")
+
+
+# The IP adapters' and the SD-1.5 / SD-2.1 UNets' new shapes, all d=64 in
+# the (B, S, H, D) projection views: IPCrossAttention's image part onto 4
+# keys (below one mma tile), the SD-2.1 cross-attention onto 77 text keys,
+# the IP-Adapter's context of 77 text + 4 image keys (ragged key tiles), and
+# the 5-head self-attention at 64x64. (b, sq, skv, h)
+IP_CASES = [
+    (2, 1024, 4, 10),
+    (2, 2304, 77, 10),
+    (2, 4096, 81, 5),
+    (2, 576, 81, 20),
+    (2, 4096, 4096, 5),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,sq,skv,h", IP_CASES)
+def test_ip_adapter_shapes_forward_and_backward_on_gpu(b, sq, skv, h):
+    """Forward (O, LSE) and backward (dq, dk, dv) against the plain versions
+    at the IP adapters' key counts, no input copied for TMA."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the flash kernels have no CPU mode)")
+    gen = torch.Generator(device="cuda").manual_seed(sq + skv)
+    q, do = (_layout(torch.randn(b, h, sq, 64, generator=gen, device="cuda").to(torch.bfloat16),
+                     "bshd") for _ in range(2))
+    k, v = (_layout(torch.randn(b, h, skv, 64, generator=gen, device="cuda").to(torch.bfloat16),
+                    "bshd") for _ in range(2))
+    before = flash_fwd.launches, flash_fwd.padded_copies, flash_bwd.padded_copies
+    out, lse = mha(q, k, v, causal=False, implementation="kernel", with_lse=True)
+    want, want_lse = mha_reference_lse(q.float(), k.float(), v.float(), causal=False)
+    err = (out.float() - want).abs()
+    assert float(err.max()) <= 2e-2 and float(err.mean()) <= 2e-3
+    assert float((lse - want_lse).abs().max()) <= 1e-3
+    q_start = torch.zeros(b, dtype=torch.int32, device="cuda")
+    kv_len = torch.full((b,), skv, dtype=torch.int32, device="cuda")
+    got = flash_bwd(q, k, v, out, lse, do, q_start, kv_len, False, 64 ** -0.5)
+    torch.cuda.synchronize()
+    assert (flash_fwd.launches, flash_fwd.padded_copies, flash_bwd.padded_copies) == (
+        before[0] + 1, before[1], before[2])
+    _assert_grads_close(got, mha_backward_reference(q.float(), k.float(), v.float(), want,
+                                                    want_lse, do.float(), causal=False))

@@ -215,6 +215,23 @@ def workspace(tmp_path_factory):
         "    num_img_in_tokens: 4\n    num_img_out_tokens: 4\n"
         "    cycle_count: 50\n    story_len: 4\n"
         "sample_weights:\n  - 1.0\n")
+    # stage 1: text-to-image records over the same jpgs, a VQ tokenizer
+    (root / "t2i").mkdir()
+    with open(root / "t2i" / "train.jsonl", "w") as f:
+        for s in range(3):
+            for i in range(4):
+                f.write(json.dumps({"image": f"s{s}_{i}.jpg",
+                                    "caption": f"a happy dog in scene {i} of story {s}"}) + "\n")
+    (cfg / "t2i.yaml").write_text(
+        "_target_: seed_story_tpu.data.builders.build_t2i_datapipe\n"
+        f"data_dir: {root}/t2i\nimage_dir: {root}/images\n"
+        "max_length: 64\nbatch_size: 3\nmin_aspect_ratio: 0.2\nmin_resolution: 64\n"
+        "num_img_out_tokens: 4\ncycle_count: 50\n")
+    (cfg / "discrete.yaml").write_text(
+        "_target_: seed_story_tpu.models.discrete.DiscreteModelDistill\n"
+        "use_vq: true\n"
+        "cfg:\n  _target_: seed_story_tpu.models.discrete.DiscreteConfig\n"
+        "  dim: 32\n  codebook_size: 16\n")
     return root
 
 
@@ -291,6 +308,65 @@ def test_stage2_entry_trains_a_quantize_base_agent(workspace):
                    device="cpu").model.state_dict()
         for key in int8:
             assert torch.equal(got[key], want[key]), (path, key)
+
+
+def _stage1_argv(workspace, discrete="discrete.yaml", out="out_discrete"):
+    cfg = workspace / "configs"
+    return ["--image_transform", str(cfg / "transform.yaml"),
+            "--tokenizer", str(cfg / "tokenizer.yaml"),
+            "--visual_encoder", str(cfg / "vit.yaml"),
+            "--discrete_model", str(cfg / discrete),
+            "--train_dataset", str(cfg / "t2i.yaml"),
+            "--output_dir", str(workspace / out), "--learning_rate", "1e-3", "--max_steps", "3",
+            "--save_steps", "2", "--log_steps", "1", "--warmup_steps", "1"]
+
+
+def test_stage1_entry_runs_from_yaml_and_resumes(workspace):
+    """``train.main`` on t2i records: a VQ ``DiscreteModelDistill`` over the
+    frozen pico ViT's features, its loss metrics logged, resumed to step 4;
+    the ViT unchanged."""
+    from seed_story_torch.train.train import main
+
+    out = workspace / "out_discrete"
+    argv = _stage1_argv(workspace)
+    if not torch.cuda.is_available():  # no CPU continuation without being asked
+        with pytest.raises(RuntimeError, match="CUDA"):
+            main(argv)
+    trainer = main(argv, device="cpu")
+    model = trainer.model
+    assert trainer.step_count == 3 and model.use_vq and model.encode_proj.in_features == 64
+    assert sorted(trainer.params) == sorted(name for name, _ in model.named_parameters())
+    logged = [json.loads(line) for line in (out / "metrics.jsonl").read_text().splitlines()]
+    steps = [m for m in logged if "loss" in m]
+    assert len(steps) == 3
+    for key in ("loss", "distill_loss", "commit_loss", "codebook_loss"):
+        assert all(np.isfinite(m[key]) for m in steps), key
+    assert not any("codes" in m or "code_usage" in m for m in steps)  # as the JAX entry
+    with open(out / "3" / "meta.json") as f:
+        assert json.load(f)["data_state"] is not None
+    trainer = main(argv + ["--resume_from_checkpoint", str(out), "--max_steps", "4"],
+                   device="cpu")
+    assert trainer.step_count == 4 and (out / "4").is_dir()
+
+
+def test_stage1_entry_refuses_a_mesh_and_a_model_without_parameters(workspace):
+    """``--mesh_data 2`` in ``train_clm_sft``'s words; the shipped
+    ``discrete_identity.yaml`` (no parameters) with a KeyError, the kind of
+    error the JAX entry raises on its empty parameter tree."""
+    from seed_story_torch.train.train import main
+    from seed_story_tpu.train.train import main as jax_main
+
+    with pytest.raises(ValueError, match="the port trains on one device: --mesh_data"):
+        main(_stage1_argv(workspace) + ["--mesh_data", "2"], device="cpu")
+    shipped = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                           "configs", "discrete_model", "discrete_identity.yaml")
+    argv = _stage1_argv(workspace, out="out_identity")
+    argv[argv.index("--discrete_model") + 1] = shipped
+    with pytest.raises(KeyError, match="params"):
+        main(argv, device="cpu")
+    with pytest.raises(KeyError, match="params"):
+        jax_main(argv)
+    assert not (workspace / "out_identity").exists()
 
 
 def test_stage3_entry_runs_from_yaml_and_resumes(workspace):

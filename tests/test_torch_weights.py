@@ -160,10 +160,11 @@ def test_port_imports_no_jax_flax_yaml_or_pil():
     names = [m.name for m in pkgutil.walk_packages(seed_story_torch.__path__, "seed_story_torch.")]
     assert {f"seed_story_torch.{m}" for m in (
         "inference.common", "inference.gen_george", "inference.vis_george_sink",
-        "pipelines.serving", "pipelines.story_generation")} <= set(names)
+        "pipelines.serving", "pipelines.story_generation", "pipelines.ipa_pipeline",
+        "models.discrete", "models.ipa_adapters")} <= set(names)
     assert {f"seed_story_torch.train.{m}" for m in (
         "trainer", "stage2", "stage3", "checkpoint", "metrics", "runner", "scheduler",
-        "train_clm_sft", "train_sdxl_img2img_llm")} <= set(names)
+        "train_clm_sft", "train_sdxl_img2img_llm", "train")} <= set(names)
     assert {f"seed_story_torch.data.{m}" for m in (
         "tokenizer", "story_telling", "datapipes", "builders", "transforms")} <= set(names)
     assert {f"seed_story_torch.benchmarks.{m}" for m in (
