@@ -67,7 +67,7 @@ checked, then one verify pass of ``run`` profiled (device time of the
 int8 products, the cache attention and the rest, and its wall time), and
 ``run``'s last prefill profiled on kernel C and on the plain int8 product. After
 the flagship phase, on the same stack: the lockstep phase (B = 4 stories
-with different seeds through ``run_batch`` for 2 rounds, kernel A taking the
+with different seeds through ``run_batch`` for 1 round, kernel A taking the
 (4, 5) verify block as 20 rows; each story's tokens against the same story
 alone on the same inputs, which may part only at a near tie: each pass's
 pick in the other's top 8, within two bf16 quanta of its top; ms per
@@ -122,6 +122,27 @@ phases first give the flash kernels (cross-attention onto 4, 77 and 81
 keys, H = 5 self-attention at S = 4096 and 9216, the SD-1.5 and SD-2.1
 UNets' other levels), and the backward phase the SD-2.1 ones; the kernels
 line lists them under ``new_shapes`` and ``unet_shapes``.
+
+The parallel slice's phases (``parallel/*``, ``decode/tensor_parallel.py``):
+tp_decode, after serving on the same stack (``--decode_tp 2`` and ``4``: a
+copy of the int8 agent split over a 1 x tp mesh whose devices are the one
+card, 64 greedy tokens against the agent at tp = 1 under the lockstep tie rule,
+kernel C and the flash forward launched once a layer and projection by
+each shard in the prefill, kernels A and B in every decode pass, ms/token
+of each; the kernel phases hold every kernel at the shapes of a tp = 2 / 4
+shard too, ``tp2_*`` / ``tp4_*``, listed under ``tp_shapes`` in the kernels
+line); and after vit_nopool: world_of_one (a process group of this
+process alone over NCCL: stage 2 at LLaMA-2-7B width with 8 of 32 layers
+and the whole ViT-bigG, 2 steps each of the unwrapped ``Trainer`` and of
+the ``dp`` and ``fsdp`` presets on a 1 x 1 mesh, losses, grad norms and
+every parameter bit-equal, s/step and peak GiB; then ``quantize_base``
+under ``fsdp``: int8 weights and scales bit-equal, 168 kernel C launches a
+step), ranks (two processes sharing the card over gloo, since NCCL refuses
+two ranks on one device: a ``dp`` step at 7B width with 4 layers against
+rank 0's world-of-1 step on the same global batch, and the contrastive
+loss with negatives gathered across the ranks against the global batch's)
+and framework_free (``native_available()`` and the image path taken).
+Each phase prints its wall seconds ("phase NAME: S s").
 
     python3 chip_smoke.py --baseline LOG
 
@@ -203,7 +224,7 @@ from seed_story_torch.train.runner import (LAUNCH_COUNTS, RunnerArgs, kernel_lau
 from seed_story_torch.train.stage2 import make_stage2_loss_fn
 from seed_story_torch.train.stage3 import make_stage3_loss_fn
 from seed_story_torch.train import train as stage1
-from seed_story_torch.train.trainer import TrainConfig
+from seed_story_torch.train.trainer import TrainConfig, Trainer
 
 # Kernel against its plain version, both from the same bf16 inputs; the plain
 # version computes in f32. The bound is set by rounding P to bf16 before PV.
@@ -294,6 +315,9 @@ NEW_BWD_SHAPES = [case for case in NEW_SHAPES if case[0].startswith("sd21_")]
 # projection output viewed as (B, H, S, D), as the models pass it.
 KERNEL_CASES = [
     ("llama_prefill", 1, 32, 32, 384, 640, 128, True, 0, 384, "bshd"),
+    # a --decode_tp 2 / 4 shard's prefill: 16 / 8 of the 32 heads
+    ("tp2_llama_prefill", 1, 16, 16, 384, 640, 128, True, 0, 384, "bshd"),
+    ("tp4_llama_prefill", 1, 8, 8, 384, 640, 128, True, 0, 384, "bshd"),
     ("vit_bigG_self", 1, 16, 16, 1024, 1024, 104, False, None, None, "bshd"),
     ("vit_attn_pool", 1, 32, 32, 256, 1024, 128, False, None, None, "bshd"),
     # the frozen ViT in stage-2 training: 20 images per step
@@ -610,6 +634,13 @@ INT8_CASES = [(f"{name}_m{m}", m, n, k) for m in INT8_ROWS
               for name, n, k in (("qkvo", 4096, 4096), ("gate_up", 11008, 4096),
                                  ("down", 4096, 11008))]
 PER_LAYER = {"qkvo": 4, "gate_up": 2, "down": 1}
+# A --decode_tp 2 / 4 shard's products (decode and verify): q / k / v and
+# gate / up on N / tp rows, o and down on K / tp columns (at tp = 4 gate / up
+# give N = 2752 and down K = 2752, not multiples of 128).
+TP_INT8_SHAPES = tuple((f"tp{tp}_{name}", n, k) for tp in (2, 4) for name, n, k in (
+    ("qkv", 4096 // tp, 4096), ("o", 4096, 4096 // tp), ("gate_up", 11008 // tp, 4096),
+    ("down", 4096, 11008 // tp)))
+INT8_CASES += [(f"{name}_m{m}", m, n, k) for m in (1, 5) for name, n, k in TP_INT8_SHAPES]
 
 
 def exact_plain_int8(x, w, scale):
@@ -663,7 +694,8 @@ def phase_int8_kernel(label: str):
         rows.append(row)
     n_layers = LlamaConfig().num_hidden_layers
     for m in (1, 4, 5, 20):
-        per = {r["name"].rpartition("_m")[0]: r for r in rows if r["shape"][0] == m}
+        per = {r["name"].rpartition("_m")[0]: r for r in rows if r["shape"][0] == m
+               and r["name"].rpartition("_m")[0] in PER_LAYER}
         total = {key: n_layers * sum(PER_LAYER[s] * r[key] for s, r in per.items())
                  for key in ("ms", "bound_ms", "library_ms", "plain_ms", "dequant_ms")}
         print(f"int8_linear per pass of {m} row(s): {7 * n_layers} launches, "
@@ -708,6 +740,10 @@ INT8_GEMM_CASES = [
     ("prefill74_down", SHORT_PREFILL_ROWS, 11008, 4096, False),
     ("train_qkvo", 2560, 4096, 4096, True), ("train_gate_up", 2560, 4096, 11008, True),
     ("train_down", 2560, 11008, 4096, True),
+    # a --decode_tp 2 / 4 shard's prefill of the flagship's shortest prompt
+    *((f"tp{tp}_prefill74_{name}", SHORT_PREFILL_ROWS, k, n, False) for tp in (2, 4)
+      for name, k, n in (("qkv", 4096, 4096 // tp), ("o", 4096 // tp, 4096),
+                         ("gate_up", 4096, 11008 // tp), ("down", 11008 // tp, 4096))),
 ]
 # Launches of each UNet shape in one CFG step of SDXL-base: 10 transformer
 # blocks and 5 Transformer2DModels at C = 640, 60 and 6 at C = 1280; a block
@@ -879,6 +915,11 @@ ATTN_CASES = [
     ("int8_s5_c5248", 1, 32, 32, 5, 5248, True, None),
     ("gqa4_empty_row_int8", 2, 32, 8, 5, 1100, True, [1100, 0]),
     ("gqa4_empty_row_bf16", 2, 32, 8, 1, 1100, False, [700, 0]),
+    # a --decode_tp 2 / 4 shard: 16 / 8 of the 32 heads
+    ("tp2_int8_s1_c900", 1, 16, 16, 1, 900, True, None),
+    ("tp2_int8_s5_c900", 1, 16, 16, 5, 900, True, None),
+    ("tp4_int8_s1_c900", 1, 8, 8, 1, 900, True, None),
+    ("tp4_int8_s5_c900", 1, 8, 8, 5, 900, True, None),
     # the verify pass of 4 stories in lockstep, their contexts apart
     ("int8_s5_b4_unequal", 4, 32, 32, 5, 3600, True, [900, 1800, 2700, 3600]),
 ]
@@ -1483,15 +1524,16 @@ def profile_verify_pass(agent, args, kwargs, lengths, names=VERIFY_KERNELS) -> d
 
 
 # The lockstep phase: B = 4 stories of the flagship configuration in
-# lockstep through run_batch for 2 rounds (story_len 3), each against the
-# same story run alone through run; then the serving phase on the same seeds.
+# lockstep through run_batch for LOCKSTEP_ROUNDS rounds (story_len one more),
+# each against the same story run alone through run; then the serving phase
+# on the same seeds.
 LOCKSTEP_CAPTIONS = ("george the monkey went to the park",
                      "the man with the yellow hat baked a cake",
                      "george found a red kite on the beach",
                      "a parade marched through the city at night")
 LOCKSTEP_PIXELS = [np.random.RandomState(10 + r).randn(1, 3, 448, 448).astype(np.float32)
                    for r in range(len(LOCKSTEP_CAPTIONS))]
-LOCKSTEP_ROUNDS = 2
+LOCKSTEP_ROUNDS = 1  # depth cut so that the whole smoke stays near 600 s
 IMAGE_MAX_ABS = 2  # served images against inline ones, in uint8 steps
 # Where a lockstep story parts from the story alone, each pass's pick must be
 # among the other pass's TOP_K candidates and within TIE_QUANTA bf16 quanta
@@ -2673,6 +2715,408 @@ def phase_vit_nopool(label: str):
 
 # The kernels line's probe entries: (kernel, the TPU kernel it replaces, the
 # row it reports: shape and, for the variants' kernel, variant and tiles).
+# The parallel layer (parallel/*, decode/tensor_parallel.py). Stage 2 at
+# full width (LLaMA-2-7B: 4096 hidden, 32 heads, 11008 MLP; ViT-bigG) with
+# the LLaMA cut to PARALLEL_LAYERS layers, so that three trainers in turn
+# (and two ranks sharing the card) fit the time and the card's memory.
+PARALLEL_LAYERS, PARALLEL_STEPS = 8, 2
+RANK_LAYERS = 4  # each of the two ranks on the one card holds its own agent
+TP_NEW = 64  # greedy tokens of the tensor-parallel decode check
+TP_DEGREES = (2, 4)  # --decode_tp values it checks
+
+
+def parallel_agent_cfg(layers: int, quantize_base: bool = False) -> AgentConfig:
+    return AgentConfig(llm=LlamaConfig(
+        lora_rank=16, lora_alpha=32.0, lora_dropout=0.05, remat=True, ce_chunk_size=256,
+        param_dtype=torch.bfloat16, num_hidden_layers=layers, quantize_base=quantize_base))
+
+
+def stage2_mask(agent) -> dict:
+    mask = lora_trainable_mask(agent)
+    return {k: v or k.startswith(("input_resampler.", "output_resampler.")) for k, v in mask.items()}
+
+
+def local_rows(batch: dict, index: int, count: int) -> dict:
+    """Rows ``index`` of ``count`` equal parts of a stage-2 batch, each
+    sample with its image slots."""
+    b = batch["input_ids"].shape[0] // count
+    n = batch["embeds_cmp_mask"].shape[0] // count
+    per_image = ("images", "image_embeds", "embeds_cmp_mask", "embeds_gen_mask")
+    return {k: v[(n if k in per_image else b) * index:(n if k in per_image else b) * (index + 1)]
+            for k, v in batch.items()}
+
+
+def start_world_of_one():
+    """A process group of this process alone over NCCL (a tcp store on a
+    free local port), as a one-card ``torchrun`` would start it."""
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1, rank=0)
+    return dist
+
+
+def timed_steps(trainer, batch, steps: int) -> list:
+    """``steps`` trainer steps on ``batch``: (loss, grad_norm, seconds,
+    peak GiB, launches (fwd, dq, dkv, int8_gemm)) each."""
+    out = []
+    for step in range(steps):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = kernel_launch_counts()
+        t0 = time.perf_counter()
+        m = trainer.step(batch, derive_seed(0, step))
+        torch.cuda.synchronize()
+        out.append((float(m["loss"]), float(m["grad_norm"]), time.perf_counter() - t0,
+                    torch.cuda.max_memory_allocated() / 2**30,
+                    tuple(a - b for a, b in zip(kernel_launch_counts(), before))))
+    return out
+
+
+def phase_world_of_one(label: str):
+    """A world of one rank over NCCL: the stage-2 steps of the unwrapped
+    ``Trainer`` and of the ``dp`` and ``fsdp`` presets on a 1 x 1 mesh, from
+    the same weights on the same batch: losses, grad norms and every trained
+    parameter bit-equal. Then ``quantize_base`` under ``fsdp``: int8 weights
+    and scales bit-equal after the steps, 3 x 7 kernel C launches a layer a
+    step (forward, remat recompute, transposed backward)."""
+    from seed_story_torch.parallel.mesh import make_mesh
+
+    dist = start_world_of_one()
+    cfg = parallel_agent_cfg(PARALLEL_LAYERS)
+    n = cfg.llm.num_hidden_layers
+    print(f"parallel cuts: world of 1 over NCCL; LLaMA-2-7B width with {n} of 32 layers, "
+          f"ViT-bigG whole; {PARALLEL_STEPS} steps a trainer on the train phase's batch "
+          f"[{label}]", flush=True)
+    vit = fill_module(VisionTransformerWithAttnPool, ViTConfig(param_dtype=torch.bfloat16),
+                      "cuda", seed=0).eval().requires_grad_(False)
+    batch = to_device(train_batch(cfg), torch.device("cuda"))
+    initial = None
+    runs, failures, launches = {}, [], [0, 0, 0, 0]
+    for mode in (None, "dp", "fsdp"):
+        agent = fill_module(ContinuousLVLM, cfg, "cuda", seed=1)
+        if initial is None:
+            initial = {k: v.clone() for k, v in agent.state_dict().items()}
+        else:
+            agent.load_state_dict(initial)
+        mesh = None if mode is None else make_mesh(1, 1)
+        trainer = Trainer(agent, make_stage2_loss_fn(agent, vit),
+                          TrainConfig(learning_rate=1e-3, warmup_steps=0, training_steps=10,
+                                      sharding_preset=mode or "fsdp"),
+                          trainable_mask=stage2_mask(agent), mesh=mesh)
+        steps = timed_steps(trainer, batch, PARALLEL_STEPS)
+        params, _ = trainer.full_state()
+        runs[mode] = (steps, params)
+        for i, (loss, norm, sec, peak, counts) in enumerate(steps):
+            print(f"parallel world1 {mode or 'unwrapped'} step {i + 1}: {sec:.3f} s, loss "
+                  f"{loss:.6f}, grad_norm {norm:.6f}, peak {peak:.2f} GiB, launches fwd "
+                  f"{counts[0]} dq {counts[1]} dkv {counts[2]} [{label}]", flush=True)
+            if counts[1] != n + 2 or counts[2] != n + 2:
+                failures.append(f"{mode} step {i + 1}: {counts[1]} dq / {counts[2]} dkv launches")
+            if mode is not None:
+                launches = [a + b for a, b in zip(launches, counts)]
+        del trainer, agent
+        free_memory()
+    ref_steps, ref_params = runs[None]
+    for mode in ("dp", "fsdp"):
+        steps, params = runs[mode]
+        same_losses = [a[:2] == b[:2] for a, b in zip(steps, ref_steps)]
+        differ = [k for k in ref_params if not torch.equal(ref_params[k], params[k])]
+        print(f"parallel world1 {mode} against unwrapped: losses and grad norms bit-equal "
+              f"{all(same_losses)}, {len(differ)} of {len(ref_params)} parameters differ; "
+              f"s/step {steps[-1][2]:.3f} against {ref_steps[-1][2]:.3f}, peak "
+              f"{max(st[3] for st in steps):.2f} against {max(st[3] for st in ref_steps):.2f} "
+              f"GiB [{label}]", flush=True)
+        if not all(same_losses) or differ:
+            failures.append(f"{mode}: losses equal {same_losses}, parameters differ {differ[:3]}")
+    del runs, ref_params, initial
+    free_memory()
+
+    qcfg = parallel_agent_cfg(PARALLEL_LAYERS)
+    agent = fill_module(ContinuousLVLM, qcfg, "cuda", seed=1)
+    quantize_agent_(agent, base=True, kv=False)
+    frozen = {k: v.detach().clone() for k, v in agent.state_dict().items()
+              if v.dtype == torch.int8 or k.endswith("weight_scale")}
+    trainer = Trainer(agent, make_stage2_loss_fn(agent, vit),
+                      TrainConfig(learning_rate=1e-3, warmup_steps=0, training_steps=10,
+                                  sharding_preset="fsdp"),
+                      trainable_mask=stage2_mask(agent), mesh=make_mesh(1, 1))
+    steps = timed_steps(trainer, batch, PARALLEL_STEPS)
+    params, _ = trainer.full_state()
+    changed = [k for k, v in frozen.items() if not torch.equal(params[k].to(v.device), v)]
+    for i, (loss, norm, sec, peak, counts) in enumerate(steps):
+        print(f"parallel world1 fsdp quantize_base step {i + 1}: {sec:.3f} s, loss {loss:.6f}, "
+              f"peak {peak:.2f} GiB, int8_gemm {counts[3]} launches (expected {3 * 7 * n}) "
+              f"[{label}]", flush=True)
+        if counts[3] != 3 * 7 * n or not np.isfinite(loss):
+            failures.append(f"quantize_base step {i + 1}: {counts[3]} int8_gemm launches, "
+                            f"loss {loss}")
+        launches = [a + b for a, b in zip(launches, counts)]
+    print(f"parallel world1 fsdp quantize_base: {len(frozen)} int8 weights and scales, "
+          f"{len(changed)} changed [{label}]", flush=True)
+    if changed:
+        failures.append(f"quantize_base: {changed[:3]} changed")
+    del trainer, agent, vit, params, frozen
+    dist.destroy_process_group()
+    free_memory()
+    failures += forbidden_imports()
+    if failures:
+        raise AssertionError(f"parallel world-of-1 phase failed: {failures}")
+    return launches
+
+
+def phase_tp_decode(label: str, stack):
+    """``--decode_tp 2`` and ``--decode_tp 4`` on the story stack's int8
+    agent (int8 KV cache), the one card standing in for every device: a copy
+    of the agent decodes TP_NEW greedy tokens over the 1 x tp device mesh,
+    beside the agent itself at tp = 1 on the same prompt. Tokens must agree,
+    or part at a near tie (the lockstep rule: each pick among the other's
+    top 8, within two bf16 quanta of its top); each shard must launch kernel
+    C 7 a layer in the prefill, kernel A 7 and kernel B 1 a layer in every
+    decode pass, and the flash forward 1 a layer in the prefill. This checks
+    correctness and the kernels' shapes, not the speed of several cards."""
+    import copy
+
+    from seed_story_torch.parallel.mesh import make_mesh
+
+    agent = stack.agent
+    n = agent.cfg.llm.num_hidden_layers
+    gcfg = GenerateConfig(max_new_tokens=TP_NEW, num_img_gen_tokens=agent.cfg.num_img_out_tokens,
+                          eos_token_id=-1, cache_capacity=FLAGSHIP_CAPACITY, return_cache=False)
+    pipe = StoryGenerationPipeline(stack.tokenizer, None, stack.visual_encode, None,
+                                   StoryPipelineConfig(num_img_in_tokens=agent.cfg.num_img_in_tokens))
+    prompt = pipe.cfg.instruction_prompt.format_map(
+        {"instruction": CAPTION + image_comprehension_string(agent.cfg.num_img_in_tokens)})
+    ids, ids_cmp = pipe._ids_and_masks(prompt, 1)
+    feats = stack.visual_encode(PIXELS)
+    outs, walls, tops, failures = {}, {}, {}, []
+    tp_launches = defaultdict(int)
+
+    def run(tp: int, gen):
+        gen.automaton = tops[tp] = TopKRecorder(gen.automaton)
+        for kernel in (flash_fwd, int8_linear_kernel, int8_gemm_kernel, decode_attn):
+            kernel.launches = 0
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        outs[tp] = gen.generate(ids, feats, np.ones((1,), bool), ids_cmp)
+        torch.cuda.synchronize()
+        walls[tp] = time.perf_counter() - t1
+
+    run(1, StoryGenerator(agent, gcfg))
+    for tp in TP_DEGREES:
+        t0 = time.perf_counter()
+        tp_agent = copy.deepcopy(agent)
+        tp_gen = StoryGenerator(tp_agent, gcfg, mesh=make_mesh(1, tp, devices=["cuda:0"] * tp))
+        torch.cuda.synchronize()
+        print(f"tp_decode tp={tp} build: {time.perf_counter() - t0:.3f} s, "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated [{label}]", flush=True)
+        shard_counts = [defaultdict(int) for _ in range(tp)]
+        handles = []
+        for layer in tp_agent.llm.model.layers:
+            for r in range(tp):
+                for module in (layer.self_attn.shards[r], layer.mlp.shards[r]):
+                    start = {}
+
+                    def before(mod, args, kwargs, start=start):
+                        start["n"] = {k: c() for k, c in LAUNCHES.items()}
+
+                    def after(mod, args, kwargs, out, start=start, r=r, counts=shard_counts):
+                        rows = args[0].shape[0] * args[0].shape[1]
+                        phase = "prefill" if rows > 32 else "decode"
+                        for k, c in LAUNCHES.items():
+                            counts[r][phase, k] += c() - start["n"][k]
+
+                    handles += [module.register_forward_pre_hook(before, with_kwargs=True),
+                                module.register_forward_hook(after, with_kwargs=True)]
+        run(tp, tp_gen)
+        for k, c in LAUNCHES.items():
+            tp_launches[k] += c()
+        for handle in handles:
+            handle.remove()
+        a, b = outs[1]["generate_ids"], outs[tp]["generate_ids"]
+        parted = next((i for i in range(min(len(a), len(b))) if a[i] != b[i]), None)
+        if parted is not None:
+            top1 = dict(zip(tops[1].calls[parted][1].indices[0].tolist(),
+                            tops[1].calls[parted][1].values[0].tolist()))
+            top2 = dict(zip(tops[tp].calls[parted][1].indices[0].tolist(),
+                            tops[tp].calls[parted][1].values[0].tolist()))
+            ok = (int(b[parted]) in top1 and int(a[parted]) in top2
+                  and max(top1.values()) - top1[int(b[parted])]
+                  <= TIE_QUANTA * bf16_quantum(max(top1.values()))
+                  and max(top2.values()) - top2[int(a[parted])]
+                  <= TIE_QUANTA * bf16_quantum(max(top2.values())))
+            if not ok:
+                failures.append(f"tp={tp} parts from tp=1 at token {parted} beyond the tie rule")
+        passes = len(b) - 1
+        want = {("prefill", "int8_gemm"): 7 * n, ("prefill", "flash_fwd"): n,
+                ("decode", "int8_linear"): 7 * n * passes, ("decode", "decode_attn"): n * passes}
+        for r in range(tp):
+            got = {k: shard_counts[r][k] for k in want}
+            print(f"tp_decode tp={tp} shard {r}: launches "
+                  f"{json.dumps({' '.join(k): v for k, v in got.items()})} over 1 prefill and "
+                  f"{passes} decode passes [{label}]", flush=True)
+            if got != want:
+                failures.append(f"tp={tp} shard {r}: launches {got}, expected {want}")
+        print(f"tp_decode: tp={tp} {len(b)} tokens, {1e3 * walls[tp] / len(b):.2f} ms/token (the "
+              f"shards on one card, in turn) against tp=1 {1e3 * walls[1] / len(a):.2f} ms/token; "
+              f"tokens {'equal' if parted is None else f'part at {parted} (near tie)'} "
+              f"[{label}]", flush=True)
+        del tp_gen, tp_agent
+        free_memory()
+    if failures:
+        raise AssertionError(f"tp_decode phase failed: {failures}")
+    return tp_launches
+
+
+def rank_worker(rank: int, world: int, port: int, out: str):
+    """One of two ranks sharing the card over gloo (NCCL refuses two ranks on
+    one device), CUDA tensors staged through the host: rank 0 first takes
+    the world-of-1 reference step on the global batch; then both take a
+    ``dp`` step on their halves, and the contrastive loss with negatives
+    gathered across the ranks."""
+    import torch.distributed as dist
+
+    from seed_story_torch.models.discrete import contrastive_loss
+    from seed_story_torch.parallel import collectives
+    from seed_story_torch.parallel.mesh import make_mesh
+
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port), RANK=str(rank),
+                      WORLD_SIZE=str(world), LOCAL_RANK=str(rank))
+    collectives.initialize_multihost(device="cuda", backend="gloo")
+    torch.cuda.set_device(0)
+    cfg = parallel_agent_cfg(RANK_LAYERS)
+    batch = train_batch(cfg)
+    rng = np.random.RandomState(5)
+    batch["image_embeds"] = rng.randn(batch["images"].shape[0], cfg.num_vit_tokens,
+                                      cfg.vit_dim).astype(np.float32)
+    del batch["images"]
+    dev = torch.device("cuda", 0)
+    train_cfg = TrainConfig(learning_rate=1e-3, warmup_steps=0, training_steps=10,
+                            sharding_preset="dp")
+    result = {}
+
+    def one_step(trainer, b):
+        before = kernel_launch_counts()
+        trainer.model.train()
+        metrics = trainer.accumulate_grads(b, derive_seed(0, 0))
+        grads = torch.cat([p.grad.float().flatten() for p in trainer.params.values()])
+        metrics.update(trainer.apply_updates())
+        launches = [a - c for a, c in zip(kernel_launch_counts(), before)]
+        return float(metrics["loss"]), float(metrics["grad_norm"]), grads, launches
+
+    if rank == 0:
+        agent = fill_module(ContinuousLVLM, cfg, dev, seed=1)
+        trainer = Trainer(agent, make_stage2_loss_fn(agent), train_cfg,
+                          trainable_mask=stage2_mask(agent))
+        result["world1"] = one_step(trainer, to_device(batch, dev))
+        del trainer, agent
+        free_memory()
+    dist.barrier()
+    agent = fill_module(ContinuousLVLM, cfg, dev, seed=1)
+    trainer = Trainer(agent, make_stage2_loss_fn(agent), train_cfg,
+                      trainable_mask=stage2_mask(agent), mesh=make_mesh(2, 1))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, norm, grads, launches = one_step(trainer, to_device(local_rows(batch, rank, 2), dev))
+    torch.cuda.synchronize()
+    result["dp"] = (collectives.mean_metrics({"loss": loss})["loss"], norm, launches,
+                    time.perf_counter() - t0)
+    if rank == 0:
+        ref = result.pop("world1")
+        result["world1"] = ref[:2] + (ref[3],)
+        result["grad_cos"] = float(torch.nn.functional.cosine_similarity(grads, ref[2], dim=0))
+        result["grad_rel"] = float((grads - ref[2]).norm() / ref[2].norm())
+    del trainer, agent, grads
+    free_memory()
+    feats = torch.from_numpy(np.random.RandomState(6).randn(2, 8, 4096).astype(np.float32)).to(dev)
+    img, txt = feats[0], feats[1]
+    local = contrastive_loss(img[4 * rank:4 * rank + 4], txt[4 * rank:4 * rank + 4],
+                             torch.tensor(10.0, device=dev), axis_name="data")
+    result["contrastive"] = (collectives.mean_metrics({"l": float(local)})["l"],
+                             float(contrastive_loss(img, txt, torch.tensor(10.0, device=dev))))
+    result["forbidden"] = forbidden_imports()
+    torch.save(result, os.path.join(out, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def phase_ranks(label: str):
+    """Two processes on the one card over gloo: the ``dp`` step of two ranks
+    against rank 0's world-of-1 step on the same global batch (the stage-2
+    batch at LLaMA-2-7B width, RANK_LAYERS layers, the ViT features given):
+    losses within 5e-3, grad norms within 1e-2, the averaged gradient's
+    cosine to the global one >= 0.999; the contrastive loss across the
+    ranks against the global batch's within 1e-5."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out:
+        ctx = mp.start_processes(rank_worker, args=(2, port, out), nprocs=2, join=False,
+                                 start_method="spawn")
+        while not ctx.join(timeout=5):
+            if time.perf_counter() - t0 > 300:
+                for proc in ctx.processes:
+                    proc.terminate()
+                raise AssertionError("parallel ranks: the two ranks did not finish in 300 s")
+        ranks = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+                 for r in range(2)]
+    r0 = ranks[0]
+    (loss1, norm1, launches1), (loss2, norm2, launches2, dp_s) = r0["world1"], r0["dp"]
+    print(f"parallel ranks: 2 processes over gloo on one card, {time.perf_counter() - t0:.1f} s "
+          f"in all; dp step {dp_s:.3f} s (gloo stages the gradients through the host); loss "
+          f"{loss2:.6f} against world-of-1 {loss1:.6f}, grad_norm {norm2:.6f} against "
+          f"{norm1:.6f}, gradient cosine {r0['grad_cos']:.6f}, relative difference "
+          f"{r0['grad_rel']:.2e}; launches a rank fwd/dq/dkv {launches2[:3]} against "
+          f"{launches1[:3]} [{label}]", flush=True)
+    con = [r["contrastive"] for r in ranks]
+    print(f"parallel ranks: contrastive loss across the ranks {con[0][0]:.7f} against the global "
+          f"batch's {con[0][1]:.7f} [{label}]", flush=True)
+    failures = [f for r in ranks for f in r["forbidden"]]
+    if not abs(loss2 - loss1) <= 5e-3 * abs(loss1) or not abs(norm2 - norm1) <= 1e-2 * norm1:
+        failures.append(f"dp step: loss {loss2} / grad_norm {norm2} against {loss1} / {norm1}")
+    if not r0["grad_cos"] >= 0.999:
+        failures.append(f"dp gradient cosine {r0['grad_cos']}")
+    if not abs(con[0][0] - con[0][1]) <= 1e-5 * abs(con[0][1]) or con[0][0] != con[1][0]:
+        failures.append(f"contrastive across ranks {con}")
+    if launches2[1] != RANK_LAYERS + 2 or launches2[2] != RANK_LAYERS + 2:
+        failures.append(f"dp step: launches {launches2}")
+    if failures:
+        raise AssertionError(f"parallel ranks phase failed: {failures}")
+    return launches2
+
+
+def phase_framework_free(label: str):
+    """The framework-free copies: which image path the native loader takes
+    here (``native_available``: g++ and libjpeg), against the Python
+    transform on the same jpg."""
+    from PIL import Image
+
+    from seed_story_torch.data import native_loader
+    from seed_story_torch.data.transforms import ImageTransform
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "frame.jpg")
+        Image.fromarray(np.random.RandomState(3).randint(0, 255, (300, 400, 3), np.uint8)).save(
+            path, quality=95)
+        native = native_loader.native_available()
+        out = native_loader.NativeImageTransform("clip", keep_ratio=True, image_size=448)(path)
+        ref = ImageTransform(type="clip", keep_ratio=True, image_size=448)(Image.open(path))
+    diff = float(np.abs(out - ref).mean())
+    print(f"framework_free: native_available() {native}, image path "
+          f"{'native (libjpeg)' if native else 'PIL'}; mean |native - PIL| {diff:.4f} [{label}]",
+          flush=True)
+    if out.shape != (3, 448, 448) or not (diff < 0.12 if native else diff == 0.0):
+        raise AssertionError(f"framework_free: shape {out.shape}, mean difference {diff}")
+
+
 PROBE_REPORT = (
     ("probe_attn", "benchmarks/probe_attn_variants.py:77",
      ((2, 10, 4096, 64), dict(variant="base", block_q=128, block_kv=128))),
@@ -2739,6 +3183,22 @@ def compare_with_baseline(path: str, int8_rows: list, attn_rows: list, gemm_rows
               f"{total['library_ms']:.3f}", flush=True)
 
 
+def tp_shapes(rows: list) -> dict:
+    """A kernel's rows at the shapes of a --decode_tp 2 / 4 shard, for the
+    kernels line."""
+    return {r["name"]: {k: r[k] for k in ("shape", "ms", "bound_ms", "bound_by", "plain_ms",
+                                          "library_ms")}
+            for r in rows if r["name"].startswith(("tp2_", "tp4_"))}
+
+
+def timed(name: str, phase, *args, **kwargs):
+    """Runs one phase and prints its wall seconds."""
+    t0 = time.perf_counter()
+    out = phase(*args, **kwargs)
+    print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--baseline", help="log of an earlier run of this script (or of the "
@@ -2746,42 +3206,50 @@ def main():
                         "beside these")
     args = parser.parse_args()
     label = phase_device()
-    rows = phase_kernels(label)
-    bwd_rows = phase_bwd_kernels(label)
-    int8_rows = phase_int8_kernel(label)
-    gemm_rows = phase_int8_gemm_kernel(label)
-    attn_rows = phase_decode_attn_kernel(label)
+    rows = timed("kernels", phase_kernels, label)
+    bwd_rows = timed("bwd_kernels", phase_bwd_kernels, label)
+    int8_rows = timed("int8_kernel", phase_int8_kernel, label)
+    gemm_rows = timed("int8_gemm_kernel", phase_int8_gemm_kernel, label)
+    attn_rows = timed("decode_attn_kernel", phase_decode_attn_kernel, label)
     if args.baseline:
         compare_with_baseline(args.baseline, int8_rows, attn_rows, gemm_rows)
-    probe_rows, probe_launches = phase_probes(label)
-    story_launches, stack = phase_story(label)
-    flagship_launches, _ = phase_flagship(label, stack)
-    lockstep_launches, lockstep_stats, lockstep_segments = phase_lockstep(label, stack)
-    serving_launches, _ = phase_serving(label, stack, lockstep_segments,
-                                        lockstep_stats["lockstep"]["wall_s"])
-    unet_int8_launches, _ = phase_unet_int8(label, stack)  # the last phase on the bf16 UNet
+    probe_rows, probe_launches = timed("probes", phase_probes, label)
+    story_launches, stack = timed("story", phase_story, label)
+    flagship_launches, _ = timed("flagship", phase_flagship, label, stack)
+    lockstep_launches, lockstep_stats, lockstep_segments = timed("lockstep", phase_lockstep,
+                                                                 label, stack)
+    serving_launches, _ = timed("serving", phase_serving, label, stack, lockstep_segments,
+                                lockstep_stats["lockstep"]["wall_s"])
+    tp_launches = timed("tp_decode", phase_tp_decode, label, stack)
+    unet_int8_launches, _ = timed("unet_int8", phase_unet_int8, label, stack)  # last on the bf16 UNet
     del stack, lockstep_segments
     free_memory()  # the story stack is gone
-    (train_fwd, train_dq, train_dkv, _), train_stats = phase_train(label)
+    (train_fwd, train_dq, train_dkv, _), train_stats = timed("train", phase_train, label)
     free_memory()
-    (q_fwd, q_dq, q_dkv, q_gemm), q_stats = phase_train(label, quantize_base=True)
+    (q_fwd, q_dq, q_dkv, q_gemm), q_stats = timed("train_int8", phase_train, label,
+                                                  quantize_base=True)
     print(f"train_int8 against train (bf16): s/step {q_stats['s_per_step']:.3f} against "
           f"{train_stats['s_per_step']:.3f}, tokens/s {q_stats['tokens_per_s']:.1f} against "
           f"{train_stats['tokens_per_s']:.1f}, peak {q_stats['peak_gib']:.2f} against "
           f"{train_stats['peak_gib']:.2f} GiB, int8_gemm launches a step "
           f"{q_stats['int8_gemm_per_step']} [{label}]", flush=True)
     free_memory()
-    stage3_fwd, stage3_dq, stage3_dkv = phase_stage3(label)
+    stage3_fwd, stage3_dq, stage3_dkv = timed("stage3", phase_stage3, label)
     free_memory()
-    stage1_fwd = phase_stage1(label)
+    stage1_fwd = timed("stage1", phase_stage1, label)
     free_memory()
-    ipa_fwd = phase_ipa(label)
+    ipa_fwd = timed("ipa", phase_ipa, label)
     free_memory()
-    sd21_fwd, sd21_dq, sd21_dkv = phase_sd21_edit(label)
+    sd21_fwd, sd21_dq, sd21_dkv = timed("sd21_edit", phase_sd21_edit, label)
     free_memory()
-    (align_fwd, align_dq, align_dkv), align_story_fwd, align_attn = phase_align(label)
+    (align_fwd, align_dq, align_dkv), align_story_fwd, align_attn = timed("align", phase_align,
+                                                                          label)
     free_memory()
-    nopool_fwd = phase_vit_nopool(label)
+    nopool_fwd = timed("vit_nopool", phase_vit_nopool, label)
+    free_memory()
+    par_fwd, par_dq, par_dkv, par_gemm = timed("world_of_one", phase_world_of_one, label)
+    rank_fwd, rank_dq, rank_dkv, _ = timed("ranks", phase_ranks, label)
+    timed("framework_free", phase_framework_free, label)
     at = next(r for r in rows if r["name"] == "unet_self_64x64")
     bat = next(r for r in bwd_rows if r["name"] == "llama_train_causal")
     a_at = next(r for r in int8_rows if r["name"] == "gate_up_m5")
@@ -2793,18 +3261,23 @@ def main():
                    "serving": serving_launches["flash_fwd"], "train": train_fwd,
                    "train_int8": q_fwd, "stage3": stage3_fwd, "stage1": stage1_fwd,
                    "ipa": ipa_fwd, "sd21_edit": sd21_fwd,
-                   "align": align_fwd + align_story_fwd, "vit_nopool": nopool_fwd}
+                   "align": align_fwd + align_story_fwd, "vit_nopool": nopool_fwd,
+                   "tp_decode": tp_launches["flash_fwd"], "world_of_one": par_fwd,
+                   "ranks": rank_fwd}
     attn_paths = {"story": story_launches["decode_attn"],
                   "flagship": flagship_launches["decode_attn"],
                   "lockstep": lockstep_launches["decode_attn"],
-                  "serving": serving_launches["decode_attn"], "align": align_attn}
+                  "serving": serving_launches["decode_attn"], "align": align_attn,
+                  "tp_decode": tp_launches["decode_attn"]}
     int8_paths = {"flagship": flagship_launches["int8_linear"],
                   "lockstep": lockstep_launches["int8_linear"],
-                  "serving": serving_launches["int8_linear"]}
+                  "serving": serving_launches["int8_linear"],
+                  "tp_decode": tp_launches["int8_linear"]}
     gemm_paths = {"flagship": flagship_launches["int8_gemm"],
                   "lockstep": lockstep_launches["int8_gemm"],
                   "serving": serving_launches["int8_gemm"], "unet_int8": unet_int8_launches,
-                  "train_int8": q_gemm}
+                  "train_int8": q_gemm, "tp_decode": tp_launches["int8_gemm"],
+                  "world_of_one": par_gemm}
     print(label, flush=True)
     print(json.dumps({"kernels": [
         {"name": "flash_fwd", "route": "cuda", "source": "seed_story_torch/csrc/flash_fwd.cu",
@@ -2813,7 +3286,8 @@ def main():
          "max_abs_err": max(r["o_max_abs"] for r in rows + bwd_rows), "ms": at["ms"],
          "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
          "library_ms": at["library_ms"], "library": at["library"], "at": at["name"],
-         # the IP adapters' and the SD-2.1 UNet's shapes, first run in this slice
+         "tp_shapes": tp_shapes(rows),
+         # the IP adapters' and the SD-2.1 UNet's shapes
          "new_shapes": {r["name"]: {k: r[k] for k in (
              "shape", "ms", "bound_ms", "bound_by", "plain_ms", "library_ms", "o_max_abs")}
              for r in rows if r["name"] in NEW_SHAPE_NAMES}},
@@ -2833,16 +3307,19 @@ def main():
                for r in bwd_rows if r["name"] in UNET_BWD_CASES}}
           for kname, line, by_path, grads in (
               ("dq", 398, {"train": train_dq, "train_int8": q_dq, "stage3": stage3_dq,
-                           "sd21_edit": sd21_dq, "align": align_dq}, ("dq",)),
+                           "sd21_edit": sd21_dq, "align": align_dq, "world_of_one": par_dq,
+                           "ranks": rank_dq}, ("dq",)),
               ("dkv", 453, {"train": train_dkv, "train_int8": q_dkv, "stage3": stage3_dkv,
-                            "sd21_edit": sd21_dkv, "align": align_dkv}, ("dk", "dv")))),
+                            "sd21_edit": sd21_dkv, "align": align_dkv, "world_of_one": par_dkv,
+                            "ranks": rank_dkv}, ("dk", "dv")))),
         {"name": "int8_linear", "route": "cuda", "source": "seed_story_torch/csrc/int8_linear.cu",
          "replaces": "seed_story_tpu/models/llama.py:294 (XLA-fused, no Pallas kernel)",
          "launches": sum(int8_paths.values()), "launches_by_path": int8_paths,
          "max_abs_err": max(r["max_abs"] for r in int8_rows), "ms": a_at["ms"],
          "plain_ms": a_at["plain_ms"], "bound_ms": a_at["bound_ms"],
          "bound_by": a_at["bound_by"], "library_ms": a_at["library_ms"],
-         "library": "F.linear on a pre-dequantized bf16 weight", "at": a_at["name"]},
+         "library": "F.linear on a pre-dequantized bf16 weight", "at": a_at["name"],
+         "tp_shapes": tp_shapes(int8_rows)},
         {"name": "int8_gemm", "route": "cuda", "source": "seed_story_torch/csrc/int8_gemm.cu",
          "replaces": "seed_story_tpu/models/llama.py:294 and seed_story_tpu/models/sdxl/unet.py:68 "
                      "(XLA-fused, no Pallas kernel)",
@@ -2850,7 +3327,7 @@ def main():
          "max_abs_err": max(r["max_abs"] for r in gemm_rows), "ms": c_at["ms"],
          "plain_ms": c_at["plain_ms"], "bound_ms": c_at["bound_ms"],
          "bound_by": c_at["bound_by"], "library_ms": c_at["library_ms"],
-         "library": c_at["library"], "at": c_at["name"],
+         "library": c_at["library"], "at": c_at["name"], "tp_shapes": tp_shapes(gemm_rows),
          "rows": [{k: r[k] for k in ("name", "form", "shape", "plan", "ms", "bound_ms",
                                      "plain_ms", "library_ms", "max_rel")} for r in gemm_rows]},
         {"name": "decode_attn", "route": "cuda", "source": "seed_story_torch/csrc/decode_attn.cu",
@@ -2859,7 +3336,8 @@ def main():
          "max_abs_err": max(r["o_max_abs"] for r in attn_rows), "ms": b_at["ms"],
          "plain_ms": b_at["plain_ms"], "bound_ms": b_at["bound_ms"],
          "bound_by": b_at["bound_by"], "library_ms": b_at["library_ms"],
-         "library": f"SDPA on a dequantized cache: {b_at['library']}", "at": b_at["name"]},
+         "library": f"SDPA on a dequantized cache: {b_at['library']}", "at": b_at["name"],
+         "tp_shapes": tp_shapes(attn_rows)},
         *(probe_entry(name, replaces, probe_rows, probe_launches[name], at)
           for name, replaces, at in PROBE_REPORT),
     ]}), flush=True)

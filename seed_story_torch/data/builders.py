@@ -39,9 +39,11 @@ def build_long_story_datapipe(data_dir, image_dir, tokenizer=None, story_len=30,
                               turn_sep="\n",
                               system_message="", min_aspect_ratio=0.666, num_img_in_tokens=64,
                               num_img_out_tokens=64, cycle_count=None, seed=0,
-                              max_images=None) -> StoryDataPipe:
+                              max_images=None, host_index=None,
+                              host_count=None) -> StoryDataPipe:
     """``turn_sep`` is accepted for the YAML surface and unused, as in the
-    JAX package."""
+    JAX package. ``host_index`` / ``host_count``: the files this process
+    reads (None: its data shard, ``datapipes.shard_for_host``)."""
     cfg = StoryDecodeConfig(
         max_length=max_length, max_images=max_images or story_len,
         num_img_in_tokens=num_img_in_tokens, num_img_out_tokens=num_img_out_tokens,
@@ -50,7 +52,8 @@ def build_long_story_datapipe(data_dir, image_dir, tokenizer=None, story_len=30,
     decode = functools.partial(decode_long_story_sample, image_dir=image_dir,
                                tokenizer=tokenizer, cfg=cfg, image_transform=image_transform,
                                sd_image_transform=sd_image_transform)
-    ds = JsonlStoryDataset(data_dir, decode, cycle_count=cycle_count or 1, seed=seed)
+    ds = JsonlStoryDataset(data_dir, decode, cycle_count=cycle_count or 1, seed=seed,
+                           host_index=host_index, host_count=host_count)
     return StoryDataPipe(ds, batch_size)
 
 
@@ -59,9 +62,11 @@ def build_t2i_datapipe(data_dir, image_dir, tokenizer=None, max_length=77, batch
                        instruction_prompt="[INST] {instruction} [INST]\n", turn_sep="\n",
                        system_message="", min_aspect_ratio=0.666, num_img_in_tokens=64,
                        num_img_out_tokens=64, cycle_count=None, seed=0,
-                       max_images: int = 1) -> StoryDataPipe:
+                       max_images: int = 1, host_index=None,
+                       host_count=None) -> StoryDataPipe:
     """Text-to-image records (``decode_t2i_sample``); ``turn_sep`` is
-    accepted for the YAML surface and unused, as in the JAX package."""
+    accepted for the YAML surface and unused, as in the JAX package;
+    ``host_index`` / ``host_count`` as in ``build_long_story_datapipe``."""
     cfg = StoryDecodeConfig(
         max_length=max_length, max_images=max_images, num_img_in_tokens=num_img_in_tokens,
         num_img_out_tokens=num_img_out_tokens, system_message=system_message,
@@ -70,7 +75,8 @@ def build_t2i_datapipe(data_dir, image_dir, tokenizer=None, max_length=77, batch
                                cfg=cfg, image_transform=image_transform,
                                sd_image_transform=sd_image_transform,
                                instruction_prompt=instruction_prompt)
-    ds = JsonlStoryDataset(data_dir, decode, cycle_count=cycle_count or 1, seed=seed)
+    ds = JsonlStoryDataset(data_dir, decode, cycle_count=cycle_count or 1, seed=seed,
+                           host_index=host_index, host_count=host_count)
     return StoryDataPipe(ds, batch_size)
 
 

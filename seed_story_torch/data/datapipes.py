@@ -84,15 +84,29 @@ def iter_tar_members(paths: Iterable[str], mode: str = "r:*") -> Iterator[tuple]
                           f"due to: {e}, abort!")
 
 
+def shard_for_host(items: Sequence, host_index: Optional[int] = None,
+                   host_count: Optional[int] = None) -> List:
+    """Every ``host_count``-th item from ``host_index``; both default to this
+    process's data shard (``parallel.collectives.data_shard``: its rank and
+    the world size in an initialized process group, else 0 and 1), as the
+    JAX function defaults to the process index and count."""
+    if host_index is None or host_count is None:
+        from ..parallel.collectives import data_shard
+
+        host_index, host_count = data_shard()
+    return list(items)[host_index::host_count]
+
+
 class JsonlStoryDataset:
     """Deterministic iterable over decoded samples. One epoch is one pass
     over (files x cycle_count) with seeded shuffles; ``host_index`` /
-    ``host_count`` take every n-th file (one host reads them all)."""
+    ``host_count`` take every n-th file (:func:`shard_for_host`; None: this
+    process's data shard, so the ranks of a run read disjoint files)."""
 
     def __init__(self, data_dir,
                  decode_fn: Callable[..., Optional[Dict[str, np.ndarray]]], *,
-                 cycle_count: int = 1, seed: int = 0, host_index: int = 0,
-                 host_count: int = 1, shuffle_buffer: int = 256):
+                 cycle_count: int = 1, seed: int = 0, host_index: Optional[int] = None,
+                 host_count: Optional[int] = None, shuffle_buffer: int = 256):
         self.files = list_jsonl_files(data_dir)
         if not self.files:
             raise FileNotFoundError(f"no .jsonl under {data_dir}")
@@ -136,7 +150,7 @@ class JsonlStoryDataset:
         rng.shuffle(files)
         files = files * self.cycle_count
         rng.shuffle(files)
-        return files[self.host_index::self.host_count]
+        return shard_for_host(files, self.host_index, self.host_count)
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         # every __iter__ restarts the stream at epoch 0, and the position with

@@ -38,7 +38,9 @@ def load_llama_tokenizer(pretrained_model_name_or_path: str):
     """HF LLaMA tokenizer with the 66 multimodal tokens appended at the
     canonical ids (``configs/tokenizer/clm_llama_tokenizer.yaml``). Needs
     ``transformers``: the fast tokenizer where the directory has a
-    ``tokenizer.json``, the sentencepiece one otherwise."""
+    ``tokenizer.json``, the sentencepiece one otherwise, and when that one
+    raises ``ImportError`` (no sentencepiece library) the pure-Python
+    ``data.spm.SentencePieceTokenizer`` on the ``.model`` file."""
     import os
 
     from transformers import AutoTokenizer, LlamaTokenizer
@@ -47,7 +49,17 @@ def load_llama_tokenizer(pretrained_model_name_or_path: str):
     if os.path.isdir(path) and os.path.exists(os.path.join(path, "tokenizer.json")):
         tok = AutoTokenizer.from_pretrained(path, use_fast=True)
     else:
-        tok = LlamaTokenizer.from_pretrained(path)
+        try:
+            tok = LlamaTokenizer.from_pretrained(path)
+        except ImportError:
+            # the slow tokenizer needs the sentencepiece library; with only
+            # the .model asset, the pure-Python data/spm.py reads it
+            from .spm import SentencePieceTokenizer
+
+            model_file = os.path.join(path, "tokenizer.model") if os.path.isdir(path) else path
+            if not os.path.exists(model_file):
+                raise
+            tok = SentencePieceTokenizer(model_file)
     if len(tok) < MULTIMODAL_VOCAB_SIZE:
         tok.add_tokens(special_tokens())
     if len(tok) != MULTIMODAL_VOCAB_SIZE:

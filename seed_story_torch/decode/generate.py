@@ -74,9 +74,24 @@ class GenerateConfig:
 
 
 class StoryGenerator:
-    def __init__(self, agent, cfg: GenerateConfig):
+    """Generation for one agent. ``mesh``: a ``parallel.mesh.DeviceGrid`` of
+    shape (1, tp) (``make_mesh(1, tp, devices)``); with tp > 1 the agent's
+    LLaMA is split in place over those devices (:func:`~seed_story_torch.
+    decode.tensor_parallel.shard_llama_`; the JAX
+    ``StoryGenerator(mesh=..., sharding_preset="fsdp_tp")``) and its KV
+    caches are split by KV heads."""
+
+    def __init__(self, agent, cfg: GenerateConfig, mesh=None):
         self.agent = agent
         self.cfg = cfg
+        self.tp_devices = None
+        if mesh is not None and mesh.shape["model"] > 1:
+            from .tensor_parallel import shard_llama_
+
+            if mesh.shape["data"] != 1:
+                raise ValueError(f"tensor-parallel decode takes a 1 x tp mesh, got {mesh.shape}")
+            self.tp_devices = mesh.devices[0]
+            shard_llama_(agent.llm, self.tp_devices)
         self.device = next(agent.parameters()).device
         self.automaton = ImageTokenAutomaton(
             agent.cfg.llm.vocab_padded, num_img_gen_tokens=cfg.num_img_gen_tokens,
@@ -177,6 +192,10 @@ class StoryGenerator:
 
     def _new_cache(self, batch: int, capacity: int) -> KVCache:
         llm_cfg = self.agent.cfg.llm
+        if self.tp_devices is not None:
+            from .tensor_parallel import ShardedKVCache
+
+            return ShardedKVCache.create(llm_cfg, self.tp_devices, batch, capacity)
         return KVCache.create(llm_cfg, batch, capacity, dtype=llm_cfg.dtype, device=self.device)
 
     def _run(self, prompts, cmp_masks, image_embeds, embeds_cmp_mask, cache: KVCache,

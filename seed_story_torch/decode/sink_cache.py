@@ -30,11 +30,12 @@ def _compact(cache: KVCache, indices: torch.Tensor, new_len: int) -> KVCache:
     """Gathers capacity slots ``indices`` (length == capacity; the tail
     entries are don't-care) into new buffers, and sets every row's length
     to ``new_len``. Updates ``cache`` in place and returns it."""
-    indices = indices.to(cache.k[0].device)
-    gather = [cache.k, cache.v] + ([cache.k_scale, cache.v_scale] if cache.quantized else [])
-    for buffers in gather:
-        for i, buf in enumerate(buffers):
-            buffers[i] = buf.index_select(2, indices)
+    for shard in getattr(cache, "shards", [cache]):  # a tensor-parallel cache: every shard
+        idx = indices.to(shard.k[0].device)
+        gather = [shard.k, shard.v] + ([shard.k_scale, shard.v_scale] if shard.quantized else [])
+        for buffers in gather:
+            for i, buf in enumerate(buffers):
+                buffers[i] = buf.index_select(2, idx)
     cache.length = [new_len] * len(cache.length)
     return cache
 

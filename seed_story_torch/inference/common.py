@@ -40,6 +40,7 @@ from ..models.llama import quantize_llama_
 from ..models.sdxl.adapter import SDXLAdapter, SDXLAdapterConfig, quantize_adapter_
 from ..models.sdxl.vae import AutoencoderKL, VAEConfig
 from ..models.vit import ViTConfig, VisionTransformerWithAttnPool
+from ..parallel.mesh import make_mesh
 from ..pipelines.sdxl_pipeline import SDXLImagePipeline, SDXLSampleConfig
 from ..train.checkpoint import load_checkpoint_
 from ..utils.config import instantiate, load_config
@@ -162,7 +163,7 @@ def build_stack(vit_cfg: ViTConfig, agent_cfg: AgentConfig,
                 image_transform: Optional[Callable] = None, sdxl_int8: bool = False,
                 vit_ckpt: Optional[str] = None, agent_ckpt: Optional[str] = None,
                 adapter_ckpt: Optional[str] = None,
-                vae_ckpt: Optional[str] = None) -> InferenceStack:
+                vae_ckpt: Optional[str] = None, decode_tp: int = 0) -> InferenceStack:
     """The gen_george stack (and, with ``sink``, the sink flows'). ``weights``:
     None for seeded random weights, or the JAX (float) param trees by family;
     the ``*_ckpt`` parameter files then overwrite what they hold (a float
@@ -176,7 +177,9 @@ def build_stack(vit_cfg: ViTConfig, agent_cfg: AgentConfig,
     (``batch_stories`` <= 1) decoded inline without speculation; with
     ``pipelined_detok`` the stack has no inline de-tokenizer and the pool's
     replicas come from ``detok_factory``. Every image starts from the same
-    noise (seed 42, the JAX pipeline's default)."""
+    noise (seed 42, the JAX pipeline's default). ``decode_tp`` > 1 decodes
+    tensor-parallel over the first ``decode_tp`` visible devices, the rest
+    of the stack staying on ``device`` (``decode/tensor_parallel.py``)."""
     weights = weights or {}
     tokenizer = tokenizer or TinyTokenizer()
     device = _indexed(device)
@@ -193,12 +196,16 @@ def build_stack(vit_cfg: ViTConfig, agent_cfg: AgentConfig,
                    W.agent_state_dict)
     load_checkpoint_(agent, agent_ckpt, (lambda a: quantize_agent_(
         a, base=quantize_base, kv=quantize_kv)) if quantize_base or quantize_kv else None)
+    mesh = None
+    if decode_tp > 1:
+        # over the FIRST decode_tp devices; the tail ones stay free for replicas
+        mesh = make_mesh(1, decode_tp, visible_devices(device)[:decode_tp])
     generator = StoryGenerator(agent, GenerateConfig(
         max_new_tokens=max_new_tokens, num_img_gen_tokens=agent_cfg.num_img_out_tokens,
         eos_token_id=eos_token_id, cache_capacity=cache_capacity, force_boi_at=force_boi_at,
         temperature=temperature, top_p=top_p, speculate_k=speculate_k,
         return_cache=sink or (batch_stories <= 1 and not pipelined_detok
-                              and speculate_k == 0)))
+                              and speculate_k == 0)), mesh=mesh)
 
     stack = InferenceStack(tokenizer=tokenizer, visual_encode=visual_encode,
                            generator=generator, detokenize=None,
@@ -250,12 +257,21 @@ def build_stack(vit_cfg: ViTConfig, agent_cfg: AgentConfig,
     return stack
 
 
-def refuse_unported(args):
-    """Raises SystemExit for a CLI flag whose machinery is not ported, so
-    that none is silently ignored."""
-    if args.decode_tp > 1:
-        raise SystemExit(f"--decode_tp {args.decode_tp}: tensor-parallel decode needs "
-                         "parallel/* (ROADMAP.md, queue A item 12)")
+def check_devices(args, devices) -> None:
+    """Raises SystemExit when the CLI's device flags ask for more devices
+    than ``devices``: ``--decode_tp`` decodes over the first N (a 1 x N mesh
+    larger than the devices is refused, as the JAX ``make_mesh`` refuses
+    it), and ``--detok_devices`` replicas take the last ones, never a
+    decode device."""
+    n_decode = max(args.decode_tp, 1)
+    if n_decode > len(devices):
+        raise SystemExit(f"--decode_tp {args.decode_tp}: mesh 1x{n_decode} > "
+                         f"{len(devices)} devices")
+    if args.detok_devices > 0 and n_decode + args.detok_devices > len(devices):
+        raise SystemExit(f"--decode_tp {args.decode_tp} + --detok_devices "
+                         f"{args.detok_devices} needs {n_decode + args.detok_devices} "
+                         f"devices, have {len(devices)} (decode and SDXL replicas must not "
+                         "share a device)")
 
 
 def visible_devices(device) -> list:

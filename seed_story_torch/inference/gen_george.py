@@ -13,8 +13,10 @@ lockstep decode with N de-tokenizer replicas on the last N devices, which
 never share a device with the decode). Weights are seeded random ones, or the
 port's own parameter files through ``--agent_ckpt``, ``--vit_ckpt``,
 ``--adapter_ckpt`` and ``--vae_ckpt`` (``save_params`` files or training
-checkpoint directories); ``--sdxl_int8`` runs the int8 UNet. ``--decode_tp``
-above 1, whose machinery is not ported, is refused.
+checkpoint directories); ``--sdxl_int8`` runs the int8 UNet. ``--decode_tp N``
+decodes tensor-parallel over the first N visible devices
+(``decode/tensor_parallel.py``), the replicas taking the last ones; more
+devices than there are is refused.
 
   python -m seed_story_torch.inference.gen_george --val_jsonl ... --image_root ...
 """
@@ -25,7 +27,7 @@ import argparse
 import os
 
 from ..pipelines.story_generation import StoryGenerationPipeline, StoryPipelineConfig
-from .common import (add_subtitle, build_stack_from_yaml, read_jsonl, refuse_unported,
+from .common import (add_subtitle, build_stack_from_yaml, check_devices, read_jsonl,
                      visible_devices)
 
 
@@ -75,7 +77,8 @@ def parse_args(argv=None):
                         "scales, quantize_unet_): ~2.4GB less streaming + footprint per "
                         "image; divergence bound pinned in test_torch_unet_int8")
     p.add_argument("--decode_tp", type=int, default=0,
-                   help="tensor-parallel decode over N devices: not ported, refused above 1")
+                   help="tensor-parallel decode over the FIRST N visible devices "
+                        "(pairs with --detok_devices on the tail devices). 0/1 = one device")
     p.add_argument("--detok_devices", type=int, default=0,
                    help="pipelined serving: N de-tokenizer replicas on the LAST N visible "
                         "devices while decode runs on the first (pipelines/serving.py); "
@@ -89,15 +92,11 @@ def main(argv=None, device: str = "cuda"):
     from PIL import Image
 
     args = parse_args(argv)
-    refuse_unported(args)
     if args.sink and (args.batch_stories > 1 or args.detok_devices > 0):
         raise SystemExit("--sink threads ONE story's KV cache across segments; it does not "
                          "compose with --batch_stories > 1 or --detok_devices")
     devices = visible_devices(device)
-    if args.detok_devices > 0 and 1 + args.detok_devices > len(devices):
-        raise SystemExit(f"--detok_devices {args.detok_devices} needs "
-                         f"{1 + args.detok_devices} devices, have {len(devices)} (decode "
-                         f"and SDXL replicas must not share a device)")
+    check_devices(args, devices)
     cache_capacity = args.cache_capacity
     if cache_capacity is None:
         if args.sink:
@@ -119,7 +118,7 @@ def main(argv=None, device: str = "cuda"):
         pipelined_detok=args.detok_devices > 0, speculate_k=args.speculate_k,
         sink=args.sink, cache_capacity=cache_capacity, sdxl_int8=args.sdxl_int8,
         agent_ckpt=args.agent_ckpt, vit_ckpt=args.vit_ckpt, adapter_ckpt=args.adapter_ckpt,
-        vae_ckpt=args.vae_ckpt)
+        vae_ckpt=args.vae_ckpt, decode_tp=args.decode_tp)
 
     serving = args.detok_devices > 0 and stack.detok_factory is not None
     pipe = StoryGenerationPipeline(

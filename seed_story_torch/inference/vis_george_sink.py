@@ -10,8 +10,9 @@ decode goes on (``pipelined_segments``); decode and replicas never share a
 device. Weights are seeded random ones, or the port's own parameter files
 through ``--agent_ckpt``, ``--vit_ckpt``, ``--adapter_ckpt`` and
 ``--vae_ckpt`` (``save_params`` files or training checkpoint directories);
-``--sdxl_int8`` runs the int8 UNet. ``--decode_tp`` above 1, whose
-machinery is not ported, is refused.
+``--sdxl_int8`` runs the int8 UNet. ``--decode_tp N`` decodes
+tensor-parallel over the first N visible devices
+(``decode/tensor_parallel.py``); more than there are is refused.
 
   python -m seed_story_torch.inference.vis_george_sink --val_jsonl ... --image_root ...
 """
@@ -22,7 +23,7 @@ import argparse
 import os
 
 from ..pipelines.story_visualization import StoryVisualizationPipeline, VisPipelineConfig
-from .common import (add_subtitle, build_stack_from_yaml, read_jsonl, refuse_unported,
+from .common import (add_subtitle, build_stack_from_yaml, check_devices, read_jsonl,
                      visible_devices)
 
 
@@ -55,7 +56,8 @@ def parse_args(argv=None):
                         "scales, quantize_unet_): ~2.4GB less streaming + footprint per "
                         "image; divergence bound pinned in test_torch_unet_int8")
     p.add_argument("--decode_tp", type=int, default=0,
-                   help="tensor-parallel decode over N devices: not ported, refused above 1")
+                   help="tensor-parallel decode over the FIRST N visible devices "
+                        "(pairs with --detok_devices on the tail devices). 0/1 = one device")
     p.add_argument("--detok_devices", type=int, default=0,
                    help="pipelined de-tokenization: N replicas on the LAST N visible devices "
                         "render images while the sink-cache decode goes on. 0 = inline")
@@ -70,12 +72,8 @@ def main(argv=None, device: str = "cuda"):
     from ..pipelines.serving import DetokenizerPool, pipelined_segments
 
     args = parse_args(argv)
-    refuse_unported(args)
     devices = visible_devices(device)
-    if args.detok_devices > 0 and 1 + args.detok_devices > len(devices):
-        raise SystemExit(f"--detok_devices {args.detok_devices} needs "
-                         f"{1 + args.detok_devices} devices, have {len(devices)} (decode "
-                         f"and SDXL replicas must not share a device)")
+    check_devices(args, devices)
     stack = build_stack_from_yaml(
         args.tokenizer, args.image_transform, args.visual_encoder, args.llm_model,
         args.agent_model, adapter_cfg_path=None if args.no_images else args.adapter,
@@ -83,7 +81,7 @@ def main(argv=None, device: str = "cuda"):
         num_inference_steps=args.num_inference_steps, image_size=args.image_size,
         force_boi_at=args.force_boi_at, sink=True, sdxl_int8=args.sdxl_int8,
         agent_ckpt=args.agent_ckpt, vit_ckpt=args.vit_ckpt, adapter_ckpt=args.adapter_ckpt,
-        vae_ckpt=args.vae_ckpt)
+        vae_ckpt=args.vae_ckpt, decode_tp=args.decode_tp)
     serving = args.detok_devices > 0 and stack.detok_factory is not None
     pipe = StoryVisualizationPipeline(
         stack.tokenizer, stack.generator, stack.visual_encode,

@@ -15,6 +15,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from ..parallel.collectives import global_mean
 from .llama import KVCache, LlamaConfig, LlamaForCausalLM, cross_entropy_loss
 from .resampler import Resampler
 
@@ -59,7 +60,7 @@ def cosine_loss(rec, target, valid: Optional[torch.Tensor] = None):
     if valid is None:
         return per_token.mean()
     w = valid.float()[:, None]
-    return (per_token * w).sum() / (w.sum() * per_token.shape[1]).clamp_min(1.0)
+    return global_mean((per_token * w).sum(), w.sum() * per_token.shape[1], floor=1.0)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -14,9 +14,9 @@ module takes the width of the features it sees as ``embed_dim`` (and the
 text features' as ``text_dim``), which the stage-1 entry sets from the
 ViT's ``output_dim``.
 
-The contrastive loss gathers its negatives across data-parallel devices in
-the JAX package; the port trains on one device, so ``axis_name`` must be
-None (the local batch is the whole pool).
+The contrastive loss gathers its negatives across the data-parallel ranks
+when ``axis_name`` names a process group, or the ``data`` axis of a running
+step (``parallel.collectives``), as the JAX loss gathers over a mesh axis.
 """
 
 from __future__ import annotations
@@ -27,10 +27,13 @@ import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops.dense import linear
+from ..parallel.collectives import (all_gather, bound_group, concat_all_gather, group_rank,
+                                    resolve_group)
 
 
 def _normalize(x: torch.Tensor) -> torch.Tensor:
@@ -44,16 +47,32 @@ def cosine_distill_loss(student: torch.Tensor, teacher: torch.Tensor) -> torch.T
 
 
 def contrastive_loss(image_feats: torch.Tensor, text_feats: torch.Tensor,
-                     logit_scale: torch.Tensor, axis_name: Optional[str] = None) -> torch.Tensor:
-    """CLIP-style InfoNCE over the batch: L2-normalized (B, D) features, the
-    diagonal as targets, the mean of both directions."""
-    if axis_name is not None:
-        raise ValueError(f"axis_name={axis_name!r}: the port trains on one device, so the "
-                         "negatives are the local batch (axis_name=None)")
+                     logit_scale: torch.Tensor, axis_name=None) -> torch.Tensor:
+    """CLIP-style InfoNCE: L2-normalized (B, D) features, the mean of both
+    directions. With ``axis_name`` (a process group, or an axis name such as
+    ``"data"``) the negative pool is every rank's batch, gathered without
+    gradient (the reference's concat_all_gather), and the targets are the
+    local diagonal offset by ``rank * B``; an axis name with no initialized
+    process group is refused, as JAX refuses an unbound axis. Without it the
+    pool is the batch: the local one, or inside a trainer step over several
+    data ranks the global one, gathered with its gradient, so that the ranks'
+    mean loss and gradient are those of the JAX loss on the global batch."""
     image_feats, text_feats = _normalize(image_feats), _normalize(text_feats)
-    targets = torch.arange(image_feats.shape[0], device=image_feats.device)
-    logits_i2t = logit_scale * image_feats @ text_feats.T
-    logits_t2i = logit_scale * text_feats @ image_feats.T
+    b = image_feats.shape[0]
+    step_group = bound_group("data")
+    if axis_name is not None:
+        group = resolve_group(axis_name)
+        all_image = concat_all_gather(image_feats, group)
+        all_text = concat_all_gather(text_feats, group)
+        offset = group_rank(group) * b
+    elif step_group is not None and dist.get_world_size(step_group) > 1:
+        all_image, all_text = all_gather(image_feats, step_group), all_gather(text_feats, step_group)
+        offset = group_rank(step_group) * b
+    else:
+        all_image, all_text, offset = image_feats, text_feats, 0
+    targets = torch.arange(b, device=image_feats.device) + offset
+    logits_i2t = logit_scale * image_feats @ all_text.T
+    logits_t2i = logit_scale * text_feats @ all_image.T
     return (F.cross_entropy(logits_i2t, targets) + F.cross_entropy(logits_t2i, targets)) / 2.0
 
 

@@ -28,9 +28,10 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -38,6 +39,7 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.attention import decode_attention, mha
 from ..ops.int8_linear import int8_linear
 from ..ops.rope import apply_rope, rope_frequencies
+from ..parallel.collectives import bound_group, copy_to_group, global_mean, reduce_from_group
 
 
 @dataclasses.dataclass(frozen=True)
@@ -182,12 +184,29 @@ def derive_seed(*parts) -> int:
     return int.from_bytes(digest, "little") >> 1
 
 
-def lora_dropout(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
-    """Inverted dropout (kept entries scaled by 1 / (1 - rate)) with the mask
-    drawn from a generator seeded with ``seed`` on x's device, so the same
-    seed gives the same mask again."""
-    gen = torch.Generator(device=x.device).manual_seed(seed)
-    keep = torch.rand(x.shape, generator=gen, device=x.device) >= rate
+def lora_dropout(x: torch.Tensor, rate: float, seed: int,
+                 cols: Tuple[int, int] = (0, 1)) -> torch.Tensor:
+    """Inverted dropout (kept entries scaled by 1 / (1 - rate)). Row g of the
+    global batch (x's leading axis) draws its mask from a generator seeded
+    with ``derive_seed(seed, g)`` on x's device, so the same seed gives the
+    same mask again, and a rank draws only its own rows.
+
+    Inside a step bound to a data-parallel group of n ranks
+    (``parallel.collectives.data_parallel``) x holds rows [r b, (r + 1) b)
+    of the global batch of n b rows; a row-parallel shard's x holds columns
+    ``cols`` = (index, count) of the last axis, and its rows draw every
+    column (``count`` times its own) and keep theirs. So a sharded step
+    draws what the one-process step on the global batch draws."""
+    group = bound_group("data")
+    first = 0 if group is None else dist.get_rank(group) * x.shape[0]
+    col, ncols = cols
+    row_shape = [*x.shape[1:-1], x.shape[-1] * ncols]
+    gen = torch.Generator(device=x.device)
+    keep = torch.empty(x.shape, dtype=torch.bool, device=x.device)
+    for i in range(x.shape[0]):
+        gen.manual_seed(derive_seed(seed, first + i))
+        row = torch.rand(row_shape, generator=gen, device=x.device) >= rate
+        keep[i] = row.narrow(-1, col * x.shape[-1], x.shape[-1])
     return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
@@ -202,7 +221,14 @@ class LoRADense(nn.Module):
     With ``quantize`` (or after :meth:`quantize_`) ``weight`` is int8 (out,
     in) with a per-output-channel f32 ``weight_scale``, both frozen, and the
     base product is ``int8_linear``: y = bf16(x W^T) * bf16(scale) in
-    ``dtype``, then the bias, then the LoRA term (the JAX rounding order)."""
+    ``dtype``, then the bias, then the LoRA term (the JAX rounding order).
+
+    ``tp`` (a ``parallel.sharding.TPSpec`` with a process group, set by
+    ``split_dense``) makes the module one Megatron shard: a column shard
+    takes the whole x, its gradient to x summed over the group, and the
+    LoRA intermediate x A^T whole (its gradient summed, so ``lora_A``'s is
+    whole on every rank); a row shard (which has no bias) sums its partial
+    x_r W_r^T and x_r A_r^T over the group, the latter before ``lora_B``."""
 
     def __init__(self, in_features: int, out_features: int, *, bias: bool = False,
                  lora_rank: int = 0, lora_alpha: float = 32.0, lora_dropout: float = 0.0,
@@ -221,6 +247,7 @@ class LoRADense(nn.Module):
         self.lora_rank = lora_rank
         self.lora_dropout = lora_dropout
         self.dropout_key = ""
+        self.tp = None
         if lora_rank > 0:
             self.scaling = lora_alpha / lora_rank
             self.lora_A = nn.Linear(in_features, lora_rank, bias=False, dtype=param_dtype)
@@ -242,19 +269,27 @@ class LoRADense(nn.Module):
 
     def forward(self, x, dropout_seed: Optional[int] = None):
         dt = self.dtype
+        tp = self.tp if self.tp is not None and self.tp.group is not None else None
+        col, row = tp is not None and tp.style == "col", tp is not None and tp.style == "row"
         bias = None if self.bias is None else self.bias.to(dt)
+        xb = copy_to_group(x, tp.group) if col else x
         if self.quantized:
-            y = int8_linear(x, self.weight, self.weight_scale)
+            y = int8_linear(xb, self.weight, self.weight_scale)
             if bias is not None:
                 y = y + bias
         else:
-            y = F.linear(x, self.weight.to(dt), bias)
+            y = F.linear(xb, self.weight.to(dt), bias)
+        if row:  # a row shard has no bias (split_dense)
+            y = reduce_from_group(y, tp.group)
         if self.lora_rank > 0:
             xl = x
             if self.training and self.lora_dropout > 0 and dropout_seed is not None:
                 xl = lora_dropout(x, self.lora_dropout,
-                                  derive_seed(dropout_seed, self.dropout_key))
+                                  derive_seed(dropout_seed, self.dropout_key),
+                                  cols=(tp.rank, tp.size) if row else (0, 1))
             xa = F.linear(xl, self.lora_A.weight.to(dt))
+            if tp is not None:
+                xa = copy_to_group(xa, tp.group) if col else reduce_from_group(xa, tp.group)
             y = y + self.scaling * F.linear(xa, self.lora_B.weight.to(dt))
         return y
 
@@ -285,10 +320,10 @@ class LlamaAttention(nn.Module):
         lands beyond it."""
         cfg = self.cfg
         b, s, _ = x.shape
-        h, hkv, hd = cfg.num_attention_heads, cfg.kv_heads, cfg.head_dim
-        q = self.q_proj(x, dropout_seed).view(b, s, h, hd).transpose(1, 2)
-        k = self.k_proj(x, dropout_seed).view(b, s, hkv, hd).transpose(1, 2)
-        v = self.v_proj(x, dropout_seed).view(b, s, hkv, hd).transpose(1, 2)
+        hd = cfg.head_dim  # heads follow the projections (a tensor-parallel shard has H / tp)
+        q = self.q_proj(x, dropout_seed).view(b, s, -1, hd).transpose(1, 2)
+        k = self.k_proj(x, dropout_seed).view(b, s, -1, hd).transpose(1, 2)
+        v = self.v_proj(x, dropout_seed).view(b, s, -1, hd).transpose(1, 2)
         q, k = apply_rope(q, k, cos, sin)
 
         if cache is None:
@@ -321,7 +356,7 @@ class LlamaAttention(nn.Module):
                     v_buf = v_buf.to(cfg.dtype) * vs_buf[..., None].to(cfg.dtype)
                 out = mha(q, k_buf.to(cfg.dtype), v_buf.to(cfg.dtype), causal=True,
                           q_start=start, kv_len=end)
-        out = out.transpose(1, 2).reshape(b, s, h * hd)
+        out = out.transpose(1, 2).reshape(b, s, -1)
         return self.o_proj(out, dropout_seed)
 
 
@@ -379,31 +414,7 @@ class LlamaModel(nn.Module):
         ``dropout_seed`` turns on LoRA dropout in training mode."""
         cfg = self.cfg
         x = (self.embed(input_ids) if inputs_embeds is None else inputs_embeds).to(cfg.dtype)
-        b, s, _ = x.shape
-        if cache is not None:
-            if max(cache.length) + s > cache.capacity:
-                raise ValueError(f"KV cache overflow: {max(cache.length)} + {s} tokens "
-                                 f"> capacity {cache.capacity}")
-            start_host = cache.length
-            new_len = [s] * b if seq_lengths is None else [int(n) for n in seq_lengths]
-            if len(new_len) != b or not all(0 <= n <= s for n in new_len):
-                raise ValueError(f"seq_lengths {new_len} must be {b} values in 0..{s}")
-        else:
-            start_host = [0] * b
-        start = torch.tensor(start_host, dtype=torch.int32, device=x.device)
-        kv_len = None
-        if cache is not None:
-            kv_len = (start + s if seq_lengths is None else
-                      torch.tensor([st + n for st, n in zip(start_host, new_len)],
-                                   dtype=torch.int32, device=x.device))
-        elif attention_mask is not None:
-            kv_len = attention_mask.to(torch.int32).sum(dim=-1)
-        positions = start[:, None] + torch.arange(s, device=x.device)[None, :]
-        cos, sin = rope_frequencies(
-            cfg.head_dim, positions, base=cfg.rope_theta, scaling_type=cfg.rope_scaling_type,
-            scaling_factor=cfg.rope_scaling_factor,
-            max_position_embeddings=cfg.max_position_embeddings,
-            seq_len=float(max(start_host) + s))
+        start, kv_len, cos, sin, new_len = step_plan(cfg, x, cache, attention_mask, seq_lengths)
         use_remat = cfg.remat and cache is None and torch.is_grad_enabled()
         for i, layer in enumerate(self.layers):
             kw = dict(layer_idx=i, cache=cache, start=start, kv_len=kv_len,
@@ -417,6 +428,41 @@ class LlamaModel(nn.Module):
         if cache is not None:
             cache.length = [st + n for st, n in zip(cache.length, new_len)]
         return self.norm(x)
+
+
+def step_plan(cfg: LlamaConfig, x: torch.Tensor, cache: Optional[KVCache],
+              attention_mask: Optional[torch.Tensor], seq_lengths: Optional[Sequence[int]]):
+    """What every layer of one forward over x (B, S, D) shares: each row's
+    start (B,) and key count (B,) (None without a cache or mask), the RoPE
+    tables, and each row's new length (host ints; None without a cache).
+    See :meth:`LlamaModel.forward`."""
+    b, s, _ = x.shape
+    new_len = None
+    if cache is not None:
+        if max(cache.length) + s > cache.capacity:
+            raise ValueError(f"KV cache overflow: {max(cache.length)} + {s} tokens "
+                             f"> capacity {cache.capacity}")
+        start_host = cache.length
+        new_len = [s] * b if seq_lengths is None else [int(n) for n in seq_lengths]
+        if len(new_len) != b or not all(0 <= n <= s for n in new_len):
+            raise ValueError(f"seq_lengths {new_len} must be {b} values in 0..{s}")
+    else:
+        start_host = [0] * b
+    start = torch.tensor(start_host, dtype=torch.int32, device=x.device)
+    kv_len = None
+    if cache is not None:
+        kv_len = (start + s if seq_lengths is None else
+                  torch.tensor([st + n for st, n in zip(start_host, new_len)],
+                               dtype=torch.int32, device=x.device))
+    elif attention_mask is not None:
+        kv_len = attention_mask.to(torch.int32).sum(dim=-1)
+    positions = start[:, None] + torch.arange(s, device=x.device)[None, :]
+    cos, sin = rope_frequencies(
+        cfg.head_dim, positions, base=cfg.rope_theta, scaling_type=cfg.rope_scaling_type,
+        scaling_factor=cfg.rope_scaling_factor,
+        max_position_embeddings=cfg.max_position_embeddings,
+        seq_len=float(max(start_host) + s))
+    return start, kv_len, cos, sin, new_len
 
 
 class LlamaForCausalLM(nn.Module):
@@ -474,7 +520,7 @@ class LlamaForCausalLM(nn.Module):
             totals = totals + checkpoint(self._ce_sums, h[:, s0:s0 + chunk],
                                          lab[:, s0:s0 + chunk], ignore_index,
                                          use_reentrant=False, preserve_rng_state=False)
-        return totals[0] / totals[1].clamp_min(1.0)
+        return global_mean(totals[0], totals[1], floor=1.0)
 
     def _ce_sums(self, hidden, labels, ignore_index: int):
         return _nll_sums(self._logits(hidden), labels, ignore_index)
@@ -493,7 +539,7 @@ def cross_entropy_loss(logits, labels, ignore_index: int = -100):
     """Mean next-token CE over supervised positions (logits[:, :-1] against
     labels[:, 1:]), in f32."""
     nll, count = _nll_sums(logits[:, :-1], labels[:, 1:], ignore_index)
-    return nll / count.clamp_min(1.0)
+    return global_mean(nll, count, floor=1.0)
 
 
 def lora_trainable_mask(module: nn.Module) -> Dict[str, bool]:

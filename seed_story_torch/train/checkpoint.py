@@ -1,9 +1,11 @@
 """Checkpoint / resume; counterpart of ``seed_story_tpu/train/checkpoint.py``.
 
 A checkpoint is one directory per step, ``<dir>/<step>/``, holding
-``params.pt`` (the model's state dict), ``opt_state.pt`` (the trainer's
-moments and step) and ``meta.json`` (the step and the data pipeline's
-position). ``save`` takes a consistent host copy of the state, then a
+``params.pt`` (the model's whole state dict), ``opt_state.pt`` (the
+trainer's whole moments and step) and ``meta.json`` (the step and each
+rank's data pipeline position). Under a mesh the shards are gathered and
+rank 0 writes, so a run saved at one world size resumes at another.
+``save`` takes a consistent host copy of the state, then a
 background thread writes it under ``<dir>/<step>.tmp`` and renames it when
 whole, so only complete checkpoints carry a step's name; ``wait`` joins
 that thread. The newest ``max_to_keep`` checkpoints are kept.
@@ -27,19 +29,12 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from .trainer import Trainer
+from ..parallel import collectives
+from .trainer import Trainer, to_host
 
 log = logging.getLogger("seed_story_torch")
 
 PARAMS, OPT_STATE, META = "params.pt", "opt_state.pt", "meta.json"
-
-
-def _to_host(tree):
-    if isinstance(tree, torch.Tensor):
-        return tree.detach().to("cpu", copy=True)
-    if isinstance(tree, dict):
-        return {k: _to_host(v) for k, v in tree.items()}
-    return tree
 
 
 class CheckpointManager:
@@ -60,13 +55,23 @@ class CheckpointManager:
 
     def save(self, step: int, trainer: Trainer, data_state: Optional[Dict] = None) -> bool:
         """Queues a checkpoint of ``trainer`` (model parameters, optimizer
-        state, step) at ``step``; False when that step is already saved."""
+        state, step) at ``step``; False when that step is already saved.
+        In a process group every rank calls it: the state is gathered whole
+        (``Trainer.full_state``) and rank 0 writes it, with every rank's
+        ``data_state`` (``data_states``, in rank order, beside rank 0's)."""
         self.wait()
-        if step in self.steps():
+        if collectives.broadcast_object(step in self.steps()):  # rank 0's view of the disk
             return False
-        params = _to_host(trainer.model.state_dict())
-        opt_state = _to_host(trainer.state_dict())
-        meta = {"step": step, "data_state": data_state}
+        params, opt_state = trainer.full_state()
+        data_states = [data_state]
+        if collectives.world_size() > 1:
+            data_states = [None] * collectives.world_size()
+            torch.distributed.all_gather_object(data_states, data_state)
+        if collectives.rank() != 0:
+            return True
+        meta = {"step": step, "data_state": data_states[0]}
+        if len(data_states) > 1:
+            meta["data_states"] = data_states
         self._thread = threading.Thread(target=self._write, args=(step, params, opt_state, meta),
                                         name=f"checkpoint-{step}")
         self._thread.start()
@@ -99,25 +104,33 @@ class CheckpointManager:
     def restore(self, trainer: Trainer, step: Optional[int] = None) -> Tuple[Optional[int],
                                                                              Optional[Dict]]:
         """Loads the checkpoint at ``step`` (default: the latest) into
-        ``trainer`` and its model. Returns (step, data_state), or (None, None)
-        when there is no checkpoint."""
+        ``trainer`` and its model, whatever world size wrote it. Returns
+        (step, data_state): this rank's saved position when the world size
+        is the one that saved it, else rank 0's (a data pipeline sharded
+        differently reads other files). (None, None) when there is no
+        checkpoint."""
         self.wait()
         step = self.latest_step() if step is None else step
         if step is None:
             return None, None
         path = os.path.join(self.directory, str(step))
-        trainer.model.load_state_dict(torch.load(os.path.join(path, PARAMS), map_location="cpu",
-                                                 weights_only=True))
-        trainer.load_state_dict(torch.load(os.path.join(path, OPT_STATE), map_location="cpu",
-                                           weights_only=True))
+        trainer.load_full_state(
+            torch.load(os.path.join(path, PARAMS), map_location="cpu", weights_only=True),
+            torch.load(os.path.join(path, OPT_STATE), map_location="cpu", weights_only=True))
         with open(os.path.join(path, META)) as f:
             meta = json.load(f)
+        states = meta.get("data_states") or [meta["data_state"]]
+        if len(states) == collectives.world_size():
+            return step, states[collectives.rank()]
+        if meta["data_state"] is not None:
+            log.warning("checkpoint of %d ranks restored at %d: every rank resumes rank 0's "
+                        "data position", len(states), collectives.world_size())
         return step, meta["data_state"]
 
 
 def save_params(path: str, state_dict: Dict[str, torch.Tensor]) -> None:
     """A standalone parameter file (the handoff between stages)."""
-    torch.save(_to_host(state_dict), path)
+    torch.save(to_host(state_dict), path)
 
 
 def load_params_partial(path: str, target: Dict[str, torch.Tensor]

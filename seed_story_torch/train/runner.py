@@ -11,12 +11,21 @@ the launches of the flash kernels and of kernel C (the int8 GEMM of a
 copy and write seconds. The
 dropout seed of step ``s`` is ``derive_seed(seed, s)``, so a resumed run
 draws exactly the masks an uninterrupted one would.
+
+In a process group (``parallel.collectives.initialize_multihost``) the
+runner trains over the ``(mesh_data, mesh_model)`` mesh of the ranks with
+the preset of ``TrainConfig.sharding_preset``; each rank reads its own
+batches. Rank 0 writes ``metrics.jsonl`` and the checkpoints (gathered
+whole); the loss metrics it logs are their means over the ranks
+(``mean_metrics``), the seconds, peak memory and kernel launches its own.
+Each rank profiles its own window (rank r > 0 into ``<output_dir>/rank<r>``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import itertools
+import os
 import time
 from typing import Callable, Dict, Iterator, Optional
 
@@ -28,6 +37,8 @@ from ..data.datapipes import ThreadedLoader
 from ..models.llama import derive_seed
 from ..ops.attention import flash_bwd, flash_fwd
 from ..ops.int8_linear import int8_gemm_kernel
+from ..parallel import collectives
+from ..parallel.mesh import make_mesh
 from .checkpoint import CheckpointManager
 from .metrics import (MetricsWriter, Profiler, Throughput, device_mark, log, seconds_between,
                       setup_logging)
@@ -54,6 +65,8 @@ class RunnerArgs:
     seed: int = 42
     profile_start: int = -1
     profile_stop: int = -1
+    mesh_data: Optional[int] = None
+    mesh_model: int = 1
 
 
 def to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
@@ -90,12 +103,18 @@ def run_training(args: RunnerArgs, train_cfg: TrainConfig, model: nn.Module, los
     train state and restored on resume."""
     setup_logging()
     device = next(model.parameters()).device
-    trainer = Trainer(model, loss_fn, train_cfg, trainable_mask)
-    writer = MetricsWriter(args.output_dir, config=config_record)
-    profiler = Profiler(args.output_dir, args.profile_start, args.profile_stop)
+    mesh = make_mesh(args.mesh_data, args.mesh_model)
+    trainer = Trainer(model, loss_fn, train_cfg, trainable_mask, mesh=mesh)
+    rank = collectives.rank()
+    writer = MetricsWriter(args.output_dir, config=config_record) if rank == 0 else None
+    profiler = Profiler(args.output_dir if rank == 0 else os.path.join(args.output_dir,
+                                                                       f"rank{rank}"),
+                        args.profile_start, args.profile_stop)
     ckpt = CheckpointManager(args.output_dir)
-    log.info("device: %s; %d trainable of %d parameters", device,
-             sum(p.numel() for p in trainer.params.values()),
+    log.info("device: %s; rank %d of %d; mesh %s (%s); %d trainable of %d local parameters",
+             device, rank, collectives.world_size(),
+             None if mesh is None else dict(zip(mesh.mesh_dim_names, mesh.shape)),
+             trainer.preset, sum(p.numel() for p in trainer.params.values()),
              sum(p.numel() for p in model.parameters()))
 
     start_step = 0
@@ -140,7 +159,7 @@ def run_training(args: RunnerArgs, train_cfg: TrainConfig, model: nn.Module, los
 
             profiler.maybe_step(step)
             if step % args.log_steps == 0 or step == 1:
-                host = {k: float(v) for k, v in metrics.items()}
+                host = collectives.mean_metrics({k: float(v) for k, v in metrics.items()})
                 fwd_bwd_s, update_s = seconds_between(marks)
                 host.update(step_seconds=fwd_bwd_s + update_s, fwd_bwd_seconds=fwd_bwd_s,
                             update_seconds=update_s)
@@ -151,7 +170,8 @@ def run_training(args: RunnerArgs, train_cfg: TrainConfig, model: nn.Module, los
                 host.update(throughput.tick())
                 if host_metrics_fn is not None:
                     host.update(host_metrics_fn(batch, metrics))
-                writer.log(host, step)
+                if writer is not None:
+                    writer.log(host, step)
                 log.info("step %d/%d  loss %.4f  %s", step, args.max_steps,
                          host.get("loss", float("nan")),
                          "  ".join(f"{k} {v:.4g}" for k, v in host.items() if k != "loss"))
@@ -165,9 +185,10 @@ def run_training(args: RunnerArgs, train_cfg: TrainConfig, model: nn.Module, los
     saved = ckpt.save(step, trainer, data_state=loader.current_state)
     t1 = time.perf_counter()
     ckpt.wait()
-    if saved:
-        writer.log({"checkpoint_copy_seconds": t1 - t0,
-                    "checkpoint_write_seconds": time.perf_counter() - t1}, step)
-    writer.close()
+    if writer is not None:
+        if saved:
+            writer.log({"checkpoint_copy_seconds": t1 - t0,
+                        "checkpoint_write_seconds": time.perf_counter() - t1}, step)
+        writer.close()
     log.info("done: %d steps in %.1fs", step - start_step, time.time() - t_start)
     return trainer

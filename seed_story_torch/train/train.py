@@ -1,8 +1,8 @@
-"""Stage-1 (discrete visual-tokenizer) training entry point of the port:
-frozen ViT features -> a ``DiscreteModel*`` loss (distillation, VQ,
-contrastive), AdamW with the cosine-min-ratio schedule, on one device;
-counterpart of ``seed_story_tpu/train/train.py`` with the same flags and
-YAML configs.
+"""Stage-1 (discrete visual-tokenizer) training entry point of the port: frozen
+ViT features -> a ``DiscreteModel*`` loss (distillation, VQ, contrastive),
+AdamW with the cosine-min-ratio schedule, on one device or over the ranks of
+a process group; counterpart of ``seed_story_tpu/train/train.py`` with the
+same flags and YAML configs.
 
   python -m seed_story_torch.train.train \\
     --image_transform configs/processer/qwen_448_transform.yaml \\
@@ -20,6 +20,14 @@ ViT's ``output_dim``. The loss metrics logged are those whose names end in
 refused with a ``KeyError``, as the JAX entry fails on its empty parameter
 tree. It trains on the card and raises when there is none;
 ``main(argv, device="cpu")`` trains on the CPU instead.
+
+Under ``torchrun --nproc_per_node N`` (or any launcher that sets
+COORDINATOR_ADDRESS / NUM_PROCESSES / PROCESS_ID) each rank runs ``main``:
+``--mesh_data`` x ``--mesh_model`` must span the N ranks, and
+``--sharding`` (dp / fsdp / fsdp_tp) lays the model out over them
+(``train/trainer.py``); with CUDA the group is NCCL and rank r trains on
+card ``LOCAL_RANK`` modulo the visible cards. Without a process group the
+mesh is 1 x 1 and the model trains unwrapped.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ import torch
 from ..data.story_telling import flatten_images
 from ..inference.common import fill_module
 from ..models.vit import VisionTransformerWithAttnPool
+from ..parallel.mesh import start_ranks
 from ..utils.config import instantiate, load_config
 from .. import weights as W
 from .checkpoint import load_checkpoint_
@@ -60,7 +69,6 @@ def parse_args(argv=None):
     p.add_argument("--save_steps", type=int, default=1000)
     p.add_argument("--log_steps", type=int, default=10)
     p.add_argument("--seed", type=int, default=42)
-    # one device: every preset lays the model out the same; DDP / FSDP later
     p.add_argument("--mesh_data", type=int, default=None)
     p.add_argument("--sharding", default="dp", choices=["dp", "fsdp", "fsdp_tp"])
     return p.parse_args(argv)
@@ -68,9 +76,7 @@ def parse_args(argv=None):
 
 def main(argv=None, device: str = "cuda"):
     args = parse_args(argv)
-    if args.mesh_data not in (None, 1):
-        raise ValueError("the port trains on one device: --mesh_data must be 1")
-    device = torch.device(device)
+    device = start_ranks(device, args.mesh_data)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("stage-1 training needs a CUDA device and none is available")
 
@@ -105,11 +111,12 @@ def main(argv=None, device: str = "cuda"):
         learning_rate=args.learning_rate, weight_decay=args.weight_decay,
         max_grad_norm=args.max_grad_norm, lr_scheduler_type=args.lr_scheduler_type,
         warmup_steps=args.warmup_steps, training_steps=args.max_steps,
-        min_lr_ratio=args.min_lr_ratio, grad_accum_steps=args.gradient_accumulation_steps)
+        min_lr_ratio=args.min_lr_ratio, grad_accum_steps=args.gradient_accumulation_steps,
+        sharding_preset=args.sharding)
     runner_args = RunnerArgs(
         output_dir=args.output_dir, max_steps=args.max_steps, save_steps=args.save_steps,
         log_steps=args.log_steps, resume_from_checkpoint=args.resume_from_checkpoint,
-        seed=args.seed)
+        seed=args.seed, mesh_data=args.mesh_data)
     return run_training(runner_args, train_cfg, discrete, loss_fn, batches(),
                         config_record=vars(args),
                         data_source=datapipe if hasattr(datapipe, "state") else None)

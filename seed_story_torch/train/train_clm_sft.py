@@ -1,7 +1,8 @@
-"""Stage-2 MLLM SFT entry point of the port: frozen ViT -> LoRA'd LLaMA
-agent, CE + cosine losses, AdamW with the cosine-min-ratio schedule, on one
-device; counterpart of ``seed_story_tpu/train/train_clm_sft.py`` with the
-same flags and YAML configs.
+"""Stage-2 MLLM SFT entry point of the port: frozen ViT -> LoRA'd LLaMA agent,
+CE + cosine losses, AdamW with the cosine-min-ratio schedule, on one device
+or over the ranks of a process group; counterpart of
+``seed_story_tpu/train/train_clm_sft.py`` with the same flags and YAML
+configs.
 
   python -m seed_story_torch.train.train_clm_sft \\
     --image_transform configs/processer/qwen_448_transform.yaml \\
@@ -28,6 +29,14 @@ the card going through kernels A and C with the gradient to x through
 kernel C. ``--pretrained_agent_path`` loads a float checkpoint before the
 quantization and an int8 one (a ``quantize_base`` run's) after it. The int8
 weights and their scales never reach the optimizer.
+
+Under ``torchrun --nproc_per_node N`` (or any launcher that sets
+COORDINATOR_ADDRESS / NUM_PROCESSES / PROCESS_ID) each rank runs ``main``:
+``--mesh_data`` x ``--mesh_model`` must span the N ranks, and
+``--sharding`` (dp / fsdp / fsdp_tp) lays the model out over them
+(``train/trainer.py``); with CUDA the group is NCCL and rank r trains on
+card ``LOCAL_RANK`` modulo the visible cards. Without a process group the
+mesh is 1 x 1 and the model trains unwrapped.
 """
 
 from __future__ import annotations
@@ -46,6 +55,7 @@ from ..models.sdxl.adapter import SDXLAdapterConfig
 from ..models.sdxl.unet import SDXLUNetConfig
 from ..models.sdxl.vae import VAEConfig
 from ..models.vit import ViTConfig, VisionTransformerWithAttnPool
+from ..parallel.mesh import start_ranks
 from ..utils.config import instantiate, load_config
 from .checkpoint import load_checkpoint_
 from .runner import RunnerArgs, run_training
@@ -116,7 +126,6 @@ def parse_args(argv=None):
     p.add_argument("--save_steps", type=int, default=1000)
     p.add_argument("--log_steps", type=int, default=10)
     p.add_argument("--seed", type=int, default=42)
-    # one device: every preset lays the model out the same; DDP / FSDP later
     p.add_argument("--mesh_data", type=int, default=None)
     p.add_argument("--sharding", default="fsdp", choices=["dp", "fsdp", "fsdp_tp"])
     p.add_argument("--mesh_model", type=int, default=1)
@@ -127,9 +136,7 @@ def parse_args(argv=None):
 
 def main(argv=None, device: str = "cuda"):
     args = parse_args(argv)
-    if args.mesh_data not in (None, 1) or args.mesh_model != 1:
-        raise ValueError("the port trains on one device: --mesh_data and --mesh_model must be 1")
-    device = torch.device(device)
+    device = start_ranks(device, args.mesh_data, args.mesh_model)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("stage-2 training needs a CUDA device and none is available")
 
@@ -167,11 +174,13 @@ def main(argv=None, device: str = "cuda"):
         learning_rate=args.learning_rate, weight_decay=args.weight_decay,
         max_grad_norm=args.max_grad_norm, lr_scheduler_type=args.lr_scheduler_type,
         warmup_steps=args.warmup_steps, training_steps=args.max_steps,
-        min_lr_ratio=args.min_lr_ratio, grad_accum_steps=args.gradient_accumulation_steps)
+        min_lr_ratio=args.min_lr_ratio, grad_accum_steps=args.gradient_accumulation_steps,
+        sharding_preset=args.sharding)
     runner_args = RunnerArgs(
         output_dir=args.output_dir, max_steps=args.max_steps, save_steps=args.save_steps,
         log_steps=args.log_steps, resume_from_checkpoint=args.resume_from_checkpoint,
-        seed=args.seed, profile_start=args.profile_start, profile_stop=args.profile_stop)
+        seed=args.seed, profile_start=args.profile_start, profile_stop=args.profile_stop,
+        mesh_data=args.mesh_data, mesh_model=args.mesh_model)
     return run_training(runner_args, train_cfg, agent, make_stage2_loss_fn(agent, vit),
                         batches(), trainable_mask=mask, config_record=vars(args),
                         data_source=datapipe if hasattr(datapipe, "state") else None)

@@ -1,8 +1,9 @@
 """Stage-3 de-tokenizer adaptation entry point of the port: frozen ViT ->
 frozen LoRA agent -> frozen VAE encode of the target frames; the SDXLAdapter
 (ResamplerXLV2 and every UNet ``to_k`` / ``to_v``) trains on the eps-MSE, on
-one device. Counterpart of ``seed_story_tpu/train/train_sdxl_img2img_llm.py``
-with the same flags and YAML configs (``scripts/adapt_storystream.sh``):
+one device or over the ranks of a process group. Counterpart of
+``seed_story_tpu/train/train_sdxl_img2img_llm.py`` with the same flags and
+YAML configs (``scripts/adapt_storystream.sh``):
 
   python -m seed_story_torch.train.train_sdxl_img2img_llm \\
     --image_transform configs/processer/qwen_448_transform.yaml \\
@@ -19,6 +20,14 @@ with the same flags and YAML configs (``scripts/adapt_storystream.sh``):
 YAMLs are read as ``train_clm_sft`` reads them. It trains on the card and
 raises when there is none; ``main(argv, device="cpu")`` trains on the CPU
 instead.
+
+Under ``torchrun --nproc_per_node N`` (or any launcher that sets
+COORDINATOR_ADDRESS / NUM_PROCESSES / PROCESS_ID) each rank runs ``main``:
+``--mesh_data`` x ``--mesh_model`` must span the N ranks, and
+``--sharding`` (dp / fsdp / fsdp_tp) lays the model out over them
+(``train/trainer.py``); with CUDA the group is NCCL and rank r trains on
+card ``LOCAL_RANK`` modulo the visible cards. Without a process group the
+mesh is 1 x 1 and the model trains unwrapped.
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ from ..models.agent import ContinuousLVLM
 from ..models.sdxl.adapter import SDXLAdapter, adapter_trainable_mask
 from ..models.sdxl.vae import AutoencoderKL, VAEConfig
 from ..models.vit import VisionTransformerWithAttnPool
+from ..parallel.mesh import start_ranks
 from ..utils.config import instantiate, load_config
 from .checkpoint import load_params_partial
 from .runner import RunnerArgs, run_training
@@ -69,7 +79,6 @@ def parse_args(argv=None):
     p.add_argument("--save_steps", type=int, default=400)
     p.add_argument("--log_steps", type=int, default=10)
     p.add_argument("--seed", type=int, default=42)
-    # one device: every preset lays the model out the same; DDP / FSDP later
     p.add_argument("--mesh_data", type=int, default=None)
     p.add_argument("--sharding", default="fsdp", choices=["dp", "fsdp", "fsdp_tp"])
     p.add_argument("--mesh_model", type=int, default=1)
@@ -86,9 +95,7 @@ def _frozen(module, path):
 
 def main(argv=None, device: str = "cuda"):
     args = parse_args(argv)
-    if args.mesh_data not in (None, 1) or args.mesh_model != 1:
-        raise ValueError("the port trains on one device: --mesh_data and --mesh_model must be 1")
-    device = torch.device(device)
+    device = start_ranks(device, args.mesh_data, args.mesh_model)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("stage-3 training needs a CUDA device and none is available")
 
@@ -126,11 +133,12 @@ def main(argv=None, device: str = "cuda"):
         learning_rate=args.learning_rate, weight_decay=args.weight_decay,
         max_grad_norm=args.max_grad_norm, lr_scheduler_type=args.lr_scheduler_type,
         warmup_steps=args.warmup_steps, training_steps=args.max_steps,
-        min_lr_ratio=args.min_lr_ratio, grad_accum_steps=args.gradient_accumulation_steps)
+        min_lr_ratio=args.min_lr_ratio, grad_accum_steps=args.gradient_accumulation_steps,
+        sharding_preset=args.sharding)
     runner_args = RunnerArgs(
         output_dir=args.output_dir, max_steps=args.max_steps, save_steps=args.save_steps,
         log_steps=args.log_steps, resume_from_checkpoint=args.resume_from_checkpoint,
-        seed=args.seed)
+        seed=args.seed, mesh_data=args.mesh_data, mesh_model=args.mesh_model)
     return run_training(runner_args, train_cfg, adapter,
                         make_stage3_loss_fn(adapter, agent, vae, vit), batches(),
                         trainable_mask=adapter_trainable_mask(adapter, adapter_cfg.full_ft),

@@ -382,12 +382,13 @@ def test_vis_george_sink_cli(ws, tmp_path):
 @pytest.mark.parametrize("main", [gen_george.main, vis_george_sink.main])
 @pytest.mark.parametrize("flag,match", [
     (["--detok_devices", "1"], "must not share a device"),
-    (["--decode_tp", "2"], "parallel"),
+    (["--decode_tp", "2"], "mesh 1x2 > 1 devices"),
 ])
 def test_cli_refuses_what_is_not_ported(ws, tmp_path, main, flag, match):
     """On one device (here the CPU) --detok_devices is refused, as the JAX
-    CLIs refuse a replica on the decode chip; the flags whose machinery is
-    not ported are refused, never ignored."""
+    CLIs refuse a replica on the decode chip, and so is --decode_tp 2: a
+    1 x 2 mesh larger than the visible devices, as the JAX make_mesh
+    refuses it. Both before anything is written."""
     with pytest.raises(SystemExit, match=match):
         main(_argv(ws, tmp_path / "out") + flag, device="cpu")
     assert not (tmp_path / "out").exists()

@@ -350,13 +350,14 @@ def test_stage1_entry_runs_from_yaml_and_resumes(workspace):
 
 
 def test_stage1_entry_refuses_a_mesh_and_a_model_without_parameters(workspace):
-    """``--mesh_data 2`` in ``train_clm_sft``'s words; the shipped
+    """``--mesh_data 2`` on a world of one process: a mesh larger than the
+    world, refused as the JAX ``make_mesh`` refuses it; the shipped
     ``discrete_identity.yaml`` (no parameters) with a KeyError, the kind of
     error the JAX entry raises on its empty parameter tree."""
     from seed_story_torch.train.train import main
     from seed_story_tpu.train.train import main as jax_main
 
-    with pytest.raises(ValueError, match="the port trains on one device: --mesh_data"):
+    with pytest.raises(ValueError, match="mesh 2x1 > 1 devices"):
         main(_stage1_argv(workspace) + ["--mesh_data", "2"], device="cpu")
     shipped = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                            "configs", "discrete_model", "discrete_identity.yaml")
@@ -385,8 +386,10 @@ def test_stage3_entry_runs_from_yaml_and_resumes(workspace):
             "--output_dir", str(out), "--max_steps", "2", "--save_steps", "2",
             "--log_steps", "1", "--warmup_steps", "1", "--gradient_accumulation_steps", "1",
             "--sharding", "dp"]
-    for mesh in (["--mesh_data", "2"], ["--mesh_model", "2"]):
-        with pytest.raises(ValueError, match="one device"):
+    # meshes larger than the world of one process, refused as the JAX make_mesh refuses them
+    for mesh, match in ((["--mesh_data", "2"], "mesh 2x1 > 1 devices"),
+                        (["--mesh_model", "2"], "1 devices not divisible by model=2")):
+        with pytest.raises(ValueError, match=match):
             main(argv + mesh, device="cpu")
     if not torch.cuda.is_available():  # no CPU continuation without being asked
         with pytest.raises(RuntimeError, match="CUDA"):
