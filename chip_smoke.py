@@ -96,8 +96,10 @@ variants at four tile instances, the single pass in its three layouts, the
 copy) against their plain versions at the shapes of the JAX probes
 (``benchmarks/probe_attn_*.py``), with device ms, the chained ``bench``
 time, the bound, the exp floor (the exponentials over the SFU's rate), the
-plain version's ms and SDPA's (``q + v`` for the copy); then the three
-probes' ``main()`` (``seed_story_torch.benchmarks.probe_attn_*``), with
+plain version's ms and SDPA's (``q + v`` for the copy, which is also timed
+with the L2 flushed before each call), and for the single pass and the
+copy the plan each launched and the ms before their redesign; then the
+three probes' ``main()`` (``seed_story_torch.benchmarks.probe_attn_*``), with
 each probe kernel's launches counted over them.
 
 After stage 3, the phases of stage 1, the IP adapters and the variants,
@@ -989,6 +991,21 @@ PROBE_ATTN_SHAPES = ((2, 10, 4096, 64), (2, 20, 1024, 64))
 PROBE_SP_SHAPES = ((2, 20, 1024, 64), (2, 10, 2048, 64))
 PROBE_COPY_SHAPES = ((2, 20, 1024, 64), (2, 10, 2048, 64), (2, 10, 4096, 64), (2, 10, 1024, 128))
 PROBE_ENTRY_POINTS = (probe_attn_variants, probe_attn_overhead, probe_attn_dma)
+# Device ms of the kernels before their redesign (one block a head): this
+# script's probes phase at commit a533027 on an H100 80GB HBM3 at 700.00 W,
+# as PERF.md section 6 records them. Printed beside each row's ms.
+PROBE_BEFORE_MS = {
+    ("probe_single_pass", (2, 20, 1024, 64)): 0.2536,
+    ("probe_single_pass", (2, 10, 2048, 64)): 0.9749,
+    ("probe_single_pass_fused_bh", (2, 20, 1024, 64)): 0.6019,
+    ("probe_single_pass_fused_bh", (2, 10, 2048, 64)): 2.3149,
+    ("probe_attn_packed2", (2, 20, 1024, 64)): 0.5562,
+    ("probe_copy_only", (2, 20, 1024, 64)): 0.0069,
+    ("probe_copy_only", (2, 10, 2048, 64)): 0.0119,
+    ("probe_copy_only", (2, 10, 4096, 64)): 0.0512,
+    ("probe_copy_only", (2, 10, 1024, 128)): 0.0119,
+}
+PROBE_SP_KERNELS = ("probe_single_pass", "probe_single_pass_fused_bh", "probe_attn_packed2")
 
 
 def phase_probes(label: str):
@@ -1027,6 +1044,9 @@ def phase_probes(label: str):
         del got, again, want
         iters = 10 if q.shape[2] >= 4096 else 20
         row["ms"], row["recorded"] = _profiled_ms(lambda: f(q, k, v), iters, ("probe_",))["probe_"]
+        if name != "probe_attn":
+            row["before_ms"] = PROBE_BEFORE_MS.get((name, tuple(shape)))
+            row["plan"] = getattr(probe_kernels, name).last_plan._asdict()  # as launched
         row["bench_ms"] = 1e3 * bench(f, q, k, v)
         row["plain_ms"] = _time_ms(lambda: plain(q, k, v), 3)
         b, h, s, d = q.shape
@@ -1041,6 +1061,18 @@ def phase_probes(label: str):
         else:
             row["library_ms"] = _profiled_ms(lambda: q + v, iters)["all"][0]
             row["library"] = "q + v"
+            # the same calls with the L2 flushed before each by reading 64
+            # MiB (timed apart from the kernel): every input byte comes from
+            # device memory, and the L2 holds no dirty line to write back
+            flush = torch.ones(64 << 20, dtype=torch.uint8, device="cuda")
+
+            def cold():
+                flush.max()
+                f(q, k, v)
+
+            row["cold_ms"] = _profiled_ms(cold, iters, ("probe_",))["probe_"][0]
+            row["cold_roofline"] = row["bound_ms"] / row["cold_ms"]
+            del flush
         print(f"probe {name} {shape}: {json.dumps(row)} [{label}]", flush=True)
         rows.append(row)
 
@@ -1057,12 +1089,9 @@ def phase_probes(label: str):
                                                                   **kw),
                         tensors, 0 if variant == "noexp" else b * h * s * s, **kw)
         del tensors
-    sp_shapes = {"probe_single_pass": PROBE_SP_SHAPES,
-                 "probe_single_pass_fused_bh": PROBE_SP_SHAPES,
-                 "probe_attn_packed2": PROBE_SP_SHAPES[:1]}
-    for name, shapes in sp_shapes.items():
+    for name in PROBE_SP_KERNELS:
         fn = getattr(probe_kernels, name.removeprefix("probe_"))
-        for shape in shapes:
+        for shape in PROBE_SP_SHAPES:
             b, h, s, d = shape
             measure(name, shape, lambda q, k, v: fn(q, k, v, implementation="kernel"),
                     lambda q, k, v: fn(q, k, v, implementation="plain"),
@@ -3124,7 +3153,7 @@ PROBE_REPORT = (
     ("probe_single_pass_fused_bh", "benchmarks/probe_attn_overhead.py:76",
      ((2, 10, 2048, 64), {})),
     ("probe_copy_only", "benchmarks/probe_attn_overhead.py:32 and benchmarks/probe_attn_dma.py:32",
-     ((2, 20, 1024, 64), {})),
+     ((2, 10, 4096, 64), {})),
     ("probe_attn_packed2", "benchmarks/probe_attn_dma.py:51", ((2, 20, 1024, 64), {})),
 )
 
@@ -3144,8 +3173,9 @@ def probe_entry(name: str, replaces: str, rows: list, launches: int, at) -> dict
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "library": row["library"], "exp_floor_ms": row["exp_floor_ms"],
             "at": {"shape": list(shape), **fields},
-            "rows": [{k: r.get(k) for k in ("shape", "variant", "block_q", "block_kv", "ms",
-                                            "bench_ms", "bound_ms", "library_ms")}
+            "rows": [{k: r.get(k) for k in ("shape", "variant", "block_q", "block_kv", "plan",
+                                            "ms", "cold_ms", "bench_ms", "bound_ms",
+                                            "library_ms")}
                      for r in mine]}
 
 

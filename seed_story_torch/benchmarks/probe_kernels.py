@@ -6,10 +6,12 @@ of ``benchmarks/probe_attn_variants.py``, ``probe_attn_overhead.py`` and
   ``block_kv``, in three variants (``base``: natural exp; ``exp2``: the
   scale folded with log2 e; ``noexp``: P = scale * S, no max, alpha = 1).
 - :func:`copy_only`: O = Q + V per head, K brought on chip and unused: the
-  traffic of attention's I/O with no math.
+  traffic of attention's I/O with no math; on the card in blocks of (head,
+  span) (:func:`copy_plan`).
 - :func:`single_pass`: softmax(scale * Q K^T) V with one max per row over
-  the whole sequence, one CUDA block per (b, h).
-- :func:`single_pass_fused_bh`: the same, two heads per block.
+  the whole sequence, one program per (b, h): on the card a cluster of
+  blocks a head (:func:`single_pass_plan`).
+- :func:`single_pass_fused_bh`: the same, two heads per program.
 - :func:`attn_packed2`: two d = 64 heads packed side by side in 128-wide
   rows (the TPU's lane-width trick), each running the single pass.
 
@@ -25,9 +27,10 @@ bf16 (B, H, S, 64) tensors (the copy any head dim whose rows are whole
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import threading
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -53,8 +56,9 @@ def build() -> BuiltLibrary:
             built = BuiltLibrary("probe_attn")
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
             built.lib.probe_attn.argtypes = [ptr] * 4 + [i32] * 6 + [ctypes.c_float, ptr]
-            built.lib.probe_single_pass.argtypes = [ptr] * 4 + [i32] * 4 + [ctypes.c_float, ptr]
-            built.lib.probe_copy_only.argtypes = [ptr] * 4 + [i32, ctypes.c_longlong, ptr]
+            built.lib.probe_single_pass.argtypes = [ptr] * 4 + [i32] * 6 + [ctypes.c_float, ptr]
+            built.lib.probe_copy_only.argtypes = [ptr] * 4 + [i32, ctypes.c_longlong, i32, i32,
+                                                              ptr]
             for name in ("probe_attn", "probe_single_pass", "probe_copy_only"):
                 getattr(built.lib, name).restype = ctypes.c_int
             _lib = built
@@ -63,23 +67,27 @@ def build() -> BuiltLibrary:
 
 class ProbeKernel:
     """One probe kernel's wrapper: ``launches`` counts the calls that
-    launched it (under a lock); nothing else touches the count."""
+    launched it (under a lock); nothing else touches the count.
+    ``last_plan`` is the launch plan of the latest launch (the copy's and
+    the single pass's; None for the online kernel)."""
 
     def __init__(self, name: str, entry: str):
         self.name, self.entry = name, entry
         self.launches = 0
+        self.last_plan: Optional[NamedTuple] = None
         self._lock = threading.Lock()
 
     def build(self) -> BuiltLibrary:
         return build()
 
-    def launch(self, out: torch.Tensor, *args):
+    def launch(self, out: torch.Tensor, *args, plan: Optional[NamedTuple] = None):
         fn = getattr(self.build().lib, self.entry)
         with torch.cuda.device(out.device):
             err = fn(*args, torch.cuda.current_stream(out.device).cuda_stream)
         check_launch(self.name, err)
         with self._lock:
             self.launches += 1
+            self.last_plan = plan
         return out
 
 
@@ -208,6 +216,41 @@ def noexp_error(q, k, got, want) -> float:
 
 # ------------------------------------------------------------ copy_only ---
 
+COPY_MAX_SPAN = 2048  # 16-byte units a block: 32 KB, 8 a thread of the kernel
+COPY_MIN_SPAN = 64  # 1 KB
+COPY_BLOCKS_PER_SM = 4
+
+
+class CopyPlan(NamedTuple):
+    """The copy's grid: blocks of (head, span), each ``span_units`` 16-byte
+    units of its head (the head's last span may be shorter)."""
+
+    head_units: int
+    span_units: int
+    spans_per_head: int
+    blocks: int
+
+
+def copy_plan(b: int, h: int, s: int, d: int, sms: int) -> CopyPlan:
+    """Spans of a power of two of 16-byte units, 1-32 KB, cut so that the
+    grid has at least ``COPY_BLOCKS_PER_SM`` blocks an SM (of ``sms``)
+    wherever the tensors are large enough; a span never crosses a head's
+    end."""
+    head_units = s * d // 8
+    target = b * h * head_units // (COPY_BLOCKS_PER_SM * sms)
+    span = COPY_MIN_SPAN
+    while span * 2 <= min(target, COPY_MAX_SPAN):
+        span *= 2
+    span = min(span, head_units)
+    spans = -(-head_units // span)
+    return CopyPlan(head_units, span, spans, b * h * spans)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def copy_only(q, k, v, *, implementation: str = "auto"):
     """O = Q + V per (b, h) head, with K's block brought on chip and unused;
     the counterpart of ``copy_only`` in ``benchmarks/probe_attn_overhead.py``
@@ -225,13 +268,48 @@ def copy_only(q, k, v, *, implementation: str = "auto"):
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    plan = copy_plan(b, h, s, d, _sms(q.device.index))
     return probe_copy_only.launch(out, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                  out.data_ptr(), b * h, s * d)
+                                  out.data_ptr(), b * h, plan.head_units, plan.span_units,
+                                  plan.spans_per_head, plan=plan)
 
 
 # ---------------------------------------------------------- single pass ---
 
-SINGLE_PASS_SEQ = 64  # the kernel's key tile: S a multiple of it
+SINGLE_PASS_SEQ = 64  # S a multiple of it
+SP_ROWS = 128  # query rows a block of the kernel
+SP_MAX_CLUSTER = 8  # blocks a cluster: the portable limit, and the kernel's
+
+
+class SinglePassPlan(NamedTuple):
+    """The single pass's grid: ``groups`` heads (or head pairs), each on
+    ``clusters_per_group`` clusters of ``cluster`` blocks; block i of a
+    group owns query rows ``SP_ROWS * i`` onward (rows from S on are not
+    stored, and a block wholly past S only helps load its cluster's
+    tiles)."""
+
+    groups: int
+    cluster: int
+    clusters_per_group: int
+    clusters: int
+    blocks: int
+
+
+def single_pass_plan(b: int, h: int, s: int, heads_per_block: int,
+                     max_cluster: int = SP_MAX_CLUSTER) -> SinglePassPlan:
+    """The launch plan of the single pass over B x H heads of S rows,
+    ``heads_per_block`` heads a program (2 for packed pairs): a head's
+    ceil(S / 128) row blocks in as few clusters of at most ``max_cluster``
+    as will hold them, the clusters of one size. A smaller ``max_cluster``
+    than the default is for tests that hold the bits across plans."""
+    if not 1 <= max_cluster <= SP_MAX_CLUSTER:
+        raise ValueError(f"clusters take 1 to {SP_MAX_CLUSTER} blocks, got {max_cluster}")
+    groups = b * h // heads_per_block
+    row_blocks = -(-s // SP_ROWS)
+    per_group = -(-row_blocks // max_cluster)
+    cluster = -(-row_blocks // per_group)
+    return SinglePassPlan(groups, cluster, per_group, groups * per_group,
+                          groups * per_group * cluster)
 
 
 def single_pass_reference(q, k, v):
@@ -245,19 +323,21 @@ def single_pass_reference(q, k, v):
     return (pv / l).to(q.dtype)
 
 
-def _single_pass_launch(kernel: ProbeKernel, q, k, v, heads_per_block: int, packed: bool):
+def _single_pass_launch(kernel: ProbeKernel, q, k, v, heads_per_block: int, packed: bool,
+                        max_cluster: int = SP_MAX_CLUSTER):
     """The single-pass kernel over contiguous (B, H, S, 64), or packed
-    (B, H/2, S, 128) head pairs: ``heads_per_block`` heads a CUDA block."""
+    (B, H/2, S, 128) head pairs: ``heads_per_block`` heads a program, on
+    the clusters of :func:`single_pass_plan`."""
     _kernel_inputs(kernel.name, q, k, v, head_dim=2 * HEAD_DIM if packed else HEAD_DIM,
                    seq_multiple=SINGLE_PASS_SEQ)
     b, h, s, _ = q.shape
-    heads = b * h * (2 if packed else 1)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    plan = single_pass_plan(b, h * (2 if packed else 1), s, heads_per_block, max_cluster)
     return kernel.launch(out, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                         heads // heads_per_block, heads_per_block, int(packed), s,
-                         1.0 / math.sqrt(HEAD_DIM))
+                         plan.groups, heads_per_block, int(packed), s, plan.cluster,
+                         plan.clusters_per_group, 1.0 / math.sqrt(HEAD_DIM), plan=plan)
 
 
 def single_pass(q, k, v, *, implementation: str = "auto"):

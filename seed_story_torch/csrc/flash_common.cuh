@@ -1,7 +1,9 @@
 // Hopper (sm_90a) pieces shared by the flash-attention kernels
-// (flash_fwd.cu, flash_bwd.cu) and kernel C (int8_gemm.cu): mbarriers, TMA
-// loads and the host-side tensor-map encoders, wgmma descriptors and
-// products, register fences, and the small conversions around them.
+// (flash_fwd.cu, flash_bwd.cu), kernel C (int8_gemm.cu) and the probes'
+// single pass and copy (probe_attn.cu): mbarriers (local and across a
+// cluster), TMA loads (multicast too), bulk copies and the host-side
+// tensor-map encoders, wgmma descriptors and products, register fences,
+// and the small conversions around them.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and the encoder's types; the encoder is looked up at run time
@@ -63,6 +65,44 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// tma_load into every block of the cluster that `mask` names (bit i: the block
+// of rank i): the box lands at `dst`'s offset in each block's shared memory
+// and completes on the mbarrier at `bar`'s offset in each.
+__device__ __forceinline__ void tma_load_multicast(uint32_t dst, const CUtensorMap* map,
+                                                   uint32_t bar, uint16_t mask, int c0, int c1,
+                                                   int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%4, %5, %6, %7}], [%2], %3;" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "h"(mask), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+// Arrives on the mbarrier at `bar`'s offset in the shared memory of the
+// cluster's block `rank` (this block too).
+__device__ __forceinline__ void mbar_arrive_remote(uint32_t bar, uint32_t rank) {
+  asm volatile(
+      "{\n"
+      ".reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n"
+      "}\n" ::"r"(bar),
+      "r"(rank)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) from global `src` to shared `dst`, both 16-byte
+// aligned, with no tensor map; completes on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
+          "r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
       : "memory");
 }
 

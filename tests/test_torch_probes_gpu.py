@@ -59,12 +59,15 @@ def test_attn_kernel_matches_plain_on_gpu(variant, block_q, block_kv):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(2, 4, 256, 64), (1, 2, 192, 64), (3, 2, 1024, 64)])
+@pytest.mark.parametrize("shape", [(2, 4, 256, 64), (1, 2, 192, 64), (3, 2, 1024, 64),
+                                   (1, 4, 2048, 64), (2, 2, 64, 64)])
 @pytest.mark.parametrize("name", ["single_pass", "single_pass_fused_bh", "attn_packed2"])
 def test_single_pass_kernels_match_plain_on_gpu(name, shape):
     """Both layouts of the single-pass template (flat heads, one or two a
-    block; packed head pairs), with a last group of query rows that is
-    partly past S (192 rows)."""
+    program; packed head pairs) on the clusters of ``single_pass_plan``:
+    a last block whose query rows are partly past S and a key tile half
+    past it (192 rows), two clusters of 8 a head (2048), a cluster of one
+    (64)."""
     _need_cuda()
     q, k, v = _qkv(shape, seed=shape[2])
     kernel = {"single_pass": pk.probe_single_pass,
@@ -81,7 +84,25 @@ def test_single_pass_kernels_match_plain_on_gpu(name, shape):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(2, 20, 1024, 64), (2, 10, 1024, 128), (1, 3, 40, 8)])
+@pytest.mark.parametrize("max_cluster", [1, 2, 3])
+def test_single_pass_bits_do_not_depend_on_the_plan_on_gpu(max_cluster):
+    """A row's sums run over the keys in one fixed order whatever the
+    clusters: 16 row blocks of S = 2048 in eight clusters of 2, in six of 3
+    (two blocks wholly past S) or one block each (no multicast) give the
+    bits of the two clusters of 8 the plan takes."""
+    _need_cuda()
+    q, k, v = _qkv((1, 2, 2048, 64), seed=3)
+    want = pk.single_pass(q, k, v, implementation="kernel")
+    assert pk.probe_single_pass.last_plan.cluster == pk.SP_MAX_CLUSTER
+    got = pk._single_pass_launch(pk.probe_single_pass, q, k, v, 1, False, max_cluster)
+    torch.cuda.synchronize()
+    assert pk.probe_single_pass.last_plan.cluster == max_cluster
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 20, 1024, 64), (2, 10, 1024, 128), (1, 3, 40, 8),
+                                   (2, 10, 4096, 64)])
 def test_copy_kernel_is_q_plus_v_bitwise_on_gpu(shape):
     _need_cuda()
     q, k, v = _qkv(shape, seed=7)
