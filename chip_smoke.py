@@ -97,10 +97,13 @@ copy) against their plain versions at the shapes of the JAX probes
 (``benchmarks/probe_attn_*.py``), with device ms, the chained ``bench``
 time, the bound, the exp floor (the exponentials over the SFU's rate), the
 plain version's ms and SDPA's (``q + v`` for the copy, which is also timed
-with the L2 flushed before each call), and for the single pass and the
-copy the plan each launched and the ms before their redesign; then the
-three probes' ``main()`` (``seed_story_torch.benchmarks.probe_attn_*``), with
-each probe kernel's launches counted over them.
+with the L2 flushed before each call), the plan each kernel launched (the
+online kernel's held against what the card reports of its instance) and
+the ms before its redesign; one line a shape and tile of what the
+exponentials cost the online kernel (``exp2`` - ``noexp``, ``base`` -
+``exp2``, the exp floor); then the three probes' ``main()``
+(``seed_story_torch.benchmarks.probe_attn_*``), with each probe kernel's
+launches counted over them.
 
 After stage 3, the phases of stage 1, the IP adapters and the variants,
 each at full width on seeded random weights and each freeing its models:
@@ -991,9 +994,11 @@ PROBE_ATTN_SHAPES = ((2, 10, 4096, 64), (2, 20, 1024, 64))
 PROBE_SP_SHAPES = ((2, 20, 1024, 64), (2, 10, 2048, 64))
 PROBE_COPY_SHAPES = ((2, 20, 1024, 64), (2, 10, 2048, 64), (2, 10, 4096, 64), (2, 10, 1024, 128))
 PROBE_ENTRY_POINTS = (probe_attn_variants, probe_attn_overhead, probe_attn_dma)
-# Device ms of the kernels before their redesign (one block a head): this
-# script's probes phase at commit a533027 on an H100 80GB HBM3 at 700.00 W,
-# as PERF.md section 6 records them. Printed beside each row's ms.
+# Device ms of the kernels before their redesign, printed beside each row's
+# ms: the single pass and the copy (one block a head) from this script's
+# probes phase at commit a533027, the online kernel (mma.sync, cp.async) at
+# commit bed7635 by (shape, variant, tile), both on an NVIDIA H100 80GB HBM3
+# at 700.00 W, as PERF.md section 6 records them.
 PROBE_BEFORE_MS = {
     ("probe_single_pass", (2, 20, 1024, 64)): 0.2536,
     ("probe_single_pass", (2, 10, 2048, 64)): 0.9749,
@@ -1005,6 +1010,18 @@ PROBE_BEFORE_MS = {
     ("probe_copy_only", (2, 10, 4096, 64)): 0.0512,
     ("probe_copy_only", (2, 10, 1024, 128)): 0.0119,
 }
+_ATTN_BEFORE_MS = {  # each variant's ms at probe_kernels.TILES, in order
+    (2, 10, 4096, 64): {"base": (0.3974819, 0.3823419, 0.4067723, 0.4012261),
+                        "exp2": (0.3736773, 0.3368480, 0.3431312, 0.3553359),
+                        "noexp": (0.3358637, 0.3026540, 0.3475181, 0.3185004)},
+    (2, 20, 1024, 64): {"base": (0.0665539, 0.0644875, 0.0583639, 0.0589513),
+                        "exp2": (0.0604996, 0.0581252, 0.0502995, 0.0535764),
+                        "noexp": (0.0559942, 0.0538238, 0.0524358, 0.0470811)},
+}
+PROBE_BEFORE_MS.update({("probe_attn", shape, variant, tile): ms
+                        for shape, by_variant in _ATTN_BEFORE_MS.items()
+                        for variant, row in by_variant.items()
+                        for tile, ms in zip(probe_kernels.TILES, row)})
 PROBE_SP_KERNELS = ("probe_single_pass", "probe_single_pass_fused_bh", "probe_attn_packed2")
 
 
@@ -1015,9 +1032,21 @@ def phase_probes(label: str):
     plain version's ms, the bound (4 S^2 d operations a head; Q, K, V and O
     once), the exp floor and one library call on the same inputs (SDPA;
     ``q + v`` for the copy); then the three probes' ``main()`` with the
-    launch counts set to 0 just before and read just after."""
+    launch counts set to 0 just before and read just after. The online
+    kernel's instances are first held against ``attn_plan``: the shared
+    memory, stages, threads and blocks an SM that the card reports."""
     t0 = time.perf_counter()
     rows, failed, library = [], [], {}
+    for variant in probe_kernels.VARIANTS:
+        for tile in probe_kernels.TILES:
+            inst = probe_kernels.attn_instance(variant, *tile)
+            plan = probe_kernels.attn_plan(*PROBE_ATTN_SHAPES[0][:3], *tile,
+                                           probe_kernels._sms(0))
+            print(f"probe_attn instance {variant} {tile}: {json.dumps(inst)} [{label}]", flush=True)
+            if any(inst[k] != getattr(plan, k)
+                   for k in ("smem_bytes", "stages", "threads", "blocks_per_sm")):
+                failed.append(f"probe_attn {variant} {tile}: the card reports {inst}, "
+                              f"attn_plan says {plan}")
 
     def measure(name, shape, f, plain, tensors, exps, **fields):
         q, k, v = tensors
@@ -1044,9 +1073,11 @@ def phase_probes(label: str):
         del got, again, want
         iters = 10 if q.shape[2] >= 4096 else 20
         row["ms"], row["recorded"] = _profiled_ms(lambda: f(q, k, v), iters, ("probe_",))["probe_"]
-        if name != "probe_attn":
-            row["before_ms"] = PROBE_BEFORE_MS.get((name, tuple(shape)))
-            row["plan"] = getattr(probe_kernels, name).last_plan._asdict()  # as launched
+        key = (name, tuple(shape))
+        if name == "probe_attn":
+            key += (fields["variant"], (fields["block_q"], fields["block_kv"]))
+        row["before_ms"] = PROBE_BEFORE_MS.get(key)
+        row["plan"] = getattr(probe_kernels, name).last_plan._asdict()  # as launched
         row["bench_ms"] = 1e3 * bench(f, q, k, v)
         row["plain_ms"] = _time_ms(lambda: plain(q, k, v), 3)
         b, h, s, d = q.shape
@@ -1055,6 +1086,7 @@ def phase_probes(label: str):
         row["roofline"] = row["bound_ms"] / row["ms"]
         row["exp_floor_ms"] = 1e3 * exps / EXP_PER_S if exps else None
         if attention:
+            row["tflops"] = 4 * b * h * s * s * d / row["ms"] / 1e9
             if shape not in library:
                 library[shape] = time_library(q, k, v, iters, False, None, None)
             row["library_ms"], row["library"] = library[shape]
@@ -1089,6 +1121,15 @@ def phase_probes(label: str):
                                                                   **kw),
                         tensors, 0 if variant == "noexp" else b * h * s * s, **kw)
         del tensors
+        # what the exponentials cost the online kernel at each tile
+        for bq, bkv in probe_kernels.TILES:
+            ms = {r["variant"]: r["ms"] for r in rows if r["kernel"] == "probe_attn"
+                  and tuple(r["shape"]) == shape and (r["block_q"], r["block_kv"]) == (bq, bkv)}
+            cost = {"exp2_minus_noexp_ms": ms["exp2"] - ms["noexp"],
+                    "base_minus_exp2_ms": ms["base"] - ms["exp2"],
+                    "exp_floor_ms": 1e3 * b * h * s * s / EXP_PER_S}
+            print(f"probe attn exp cost {shape} ({bq}, {bkv}): {json.dumps(cost)} [{label}]",
+                  flush=True)
     for name in PROBE_SP_KERNELS:
         fn = getattr(probe_kernels, name.removeprefix("probe_"))
         for shape in PROBE_SP_SHAPES:

@@ -4,7 +4,9 @@ of ``benchmarks/probe_attn_variants.py``, ``probe_attn_overhead.py`` and
 
 - :func:`attn`: full-mask online-softmax attention over key blocks of
   ``block_kv``, in three variants (``base``: natural exp; ``exp2``: the
-  scale folded with log2 e; ``noexp``: P = scale * S, no max, alpha = 1).
+  scale folded with log2 e; ``noexp``: P = scale * S, no max, alpha = 1);
+  on the card blocks of ``block_q`` query rows of one head, one or two an
+  SM (:func:`attn_plan`).
 - :func:`copy_only`: O = Q + V per head, K brought on chip and unused: the
   traffic of attention's I/O with no math; on the card in blocks of (head,
   span) (:func:`copy_plan`).
@@ -38,9 +40,10 @@ from ..ops.cuda_lib import BuiltLibrary, check_launch
 
 LOG2E = 1.4426950408889634
 VARIANTS = ("base", "exp2", "noexp")
-# (block_q, block_kv) instances of the online kernel: query rows and keys a
-# tile. The TPU probe's blocks of 256-1024 rows do not fit a block's
-# registers and shared memory on the card; the probe sweeps these instead.
+# (block_q, block_kv) instances of the online kernel: query rows a block (one
+# consumer warpgroup a 64 rows) and keys a tile of its TMA ring. The TPU
+# probe's blocks of 256-1024 rows do not fit a block's registers and shared
+# memory on the card; the probe sweeps these instead.
 TILES = ((128, 128), (128, 64), (64, 128), (64, 64))
 HEAD_DIM = 64
 
@@ -59,7 +62,8 @@ def build() -> BuiltLibrary:
             built.lib.probe_single_pass.argtypes = [ptr] * 4 + [i32] * 6 + [ctypes.c_float, ptr]
             built.lib.probe_copy_only.argtypes = [ptr] * 4 + [i32, ctypes.c_longlong, i32, i32,
                                                               ptr]
-            for name in ("probe_attn", "probe_single_pass", "probe_copy_only"):
+            built.lib.probe_attn_info.argtypes = [i32] * 3 + [ctypes.POINTER(i32)]
+            for name in ("probe_attn", "probe_single_pass", "probe_copy_only", "probe_attn_info"):
                 getattr(built.lib, name).restype = ctypes.c_int
             _lib = built
     return _lib
@@ -68,8 +72,7 @@ def build() -> BuiltLibrary:
 class ProbeKernel:
     """One probe kernel's wrapper: ``launches`` counts the calls that
     launched it (under a lock); nothing else touches the count.
-    ``last_plan`` is the launch plan of the latest launch (the copy's and
-    the single pass's; None for the online kernel)."""
+    ``last_plan`` is the launch plan of the latest launch."""
 
     def __init__(self, name: str, entry: str):
         self.name, self.entry = name, entry
@@ -165,6 +168,71 @@ def attn_reference(q, k, v, variant: str = "base", block_kv: int = 128):
     return (acc / torch.where(l == 0.0, 1.0, l)).to(q.dtype)
 
 
+def _check_tile(s: int, block_q: int, block_kv: int):
+    if (block_q, block_kv) not in TILES:
+        raise ValueError(f"attn: no instance for blocks ({block_q}, {block_kv}) on the card; "
+                         f"one of {TILES}")
+    if s % block_q or s % block_kv:
+        raise ValueError(f"attn: sequence {s} is not a multiple of blocks "
+                         f"({block_q}, {block_kv})")
+
+
+ATTN_WARPGROUP_ROWS = 64  # query rows a consumer warpgroup of the online kernel
+ATTN_ROW_BYTES = 2 * HEAD_DIM  # a bf16 row of Q, K or V in shared memory
+SMEM_PER_BLOCK = 232448  # an H100's shared memory a block may have (227 KB)
+SMEM_PER_SM = 233472  # an SM's (228 KB); each resident block takes 1 KB more
+
+
+class AttnPlan(NamedTuple):
+    """The online kernel's launch: ``blocks`` of ``block_q`` query rows of
+    one head (grid (S / block_q, H, B)), each with ``warpgroups`` consumer
+    warpgroups and a producer warp (``threads``), a ring of ``stages`` K / V
+    stages in ``smem_bytes`` of dynamic shared memory, ``blocks_per_sm``
+    resident on an SM, so the grid takes ``rounds`` rounds on ``sms``
+    SMs."""
+
+    block_q: int
+    block_kv: int
+    warpgroups: int
+    threads: int
+    stages: int
+    smem_bytes: int
+    blocks_per_sm: int
+    grid: tuple
+    blocks: int
+    sms: int
+    rounds: int
+
+
+def attn_plan(b: int, h: int, s: int, block_q: int, block_kv: int, sms: int) -> AttnPlan:
+    """The launch of the online kernel's instance ``(block_q, block_kv)``
+    over B x H heads of S rows on ``sms`` SMs, as ``csrc/probe_attn.cu``
+    sizes it (``online::Smem``): 64-row blocks hold a 96 KB ring so that
+    two share an SM, 128-row blocks a 128 KB ring, one an SM."""
+    _check_tile(s, block_q, block_kv)
+    warpgroups = block_q // ATTN_WARPGROUP_ROWS
+    blocks_per_sm = 2 if warpgroups == 1 else 1
+    stage = 2 * block_kv * ATTN_ROW_BYTES  # a K tile and a V tile
+    stages = (96 << 10 if warpgroups == 1 else 128 << 10) // stage
+    barriers = 8 * (1 + 2 * stages)  # Q's, and a full and an empty one a stage
+    smem = block_q * ATTN_ROW_BYTES + stages * stage + barriers + 1024  # + room to align
+    grid = (s // block_q, h, b)
+    blocks = grid[0] * h * b
+    return AttnPlan(block_q, block_kv, warpgroups, 128 * warpgroups + 32, stages, smem,
+                    blocks_per_sm, grid, blocks, sms, -(-blocks // (sms * blocks_per_sm)))
+
+
+def attn_instance(variant: str, block_q: int, block_kv: int, device=None) -> dict:
+    """What the card says of an instance of the online kernel: its dynamic
+    shared memory, stages, threads, the blocks an SM holds (the runtime's
+    occupancy count) and its registers a thread at launch."""
+    out = (ctypes.c_int * 5)()
+    with torch.cuda.device(device):
+        err = build().lib.probe_attn_info(VARIANTS.index(variant), block_q, block_kv, out)
+    check_launch("probe_attn_info", err)
+    return dict(zip(("smem_bytes", "stages", "threads", "blocks_per_sm", "registers"), out))
+
+
 def attn(q, k, v, variant: str = "base", block_q: int = 128, block_kv: int = 128, *,
          implementation: str = "auto"):
     """Full-mask attention of (B, H, S, 64) q, k, v in one of
@@ -175,22 +243,18 @@ def attn(q, k, v, variant: str = "base", block_q: int = 128, block_kv: int = 128
     _check_qkv("attn", q, k, v)
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}; one of {VARIANTS}")
-    if (block_q, block_kv) not in TILES:
-        raise ValueError(f"attn: no instance for blocks ({block_q}, {block_kv}) on the card; "
-                         f"one of {TILES}")
     b, h, s, d = q.shape
-    if s % block_q or s % block_kv:
-        raise ValueError(f"attn: sequence {s} is not a multiple of blocks "
-                         f"({block_q}, {block_kv})")
+    _check_tile(s, block_q, block_kv)
     if not _route(implementation, q):
         return attn_reference(q, k, v, variant, block_kv)
     _kernel_inputs("probe_attn", q, k, v)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    plan = attn_plan(b, h, s, block_q, block_kv, _sms(q.device.index))
     return probe_attn.launch(out, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                              b, h, s, VARIANTS.index(variant), block_q, block_kv,
-                             1.0 / math.sqrt(d))
+                             1.0 / math.sqrt(d), plan=plan)
 
 
 def noexp_error(q, k, got, want) -> float:

@@ -3,28 +3,36 @@
 // probe_attn_overhead.py and probe_attn_dma.py. They split an attention
 // kernel's time into its parts: the exponentials, one program per head, the
 // traffic of attention's I/O. Plain versions:
-// seed_story_torch/benchmarks/probe_kernels.py; launch plans of the single
-// pass and the copy: single_pass_plan and copy_plan there.
+// seed_story_torch/benchmarks/probe_kernels.py; launch plans: attn_plan,
+// single_pass_plan and copy_plan there.
 //
 // Inputs are contiguous bf16 (B, H, S, 64) q, k, v (the packed layout:
 // (B, H/2, S, 128), head i of a pair at columns 64 i); outputs bf16 in the
 // same layout. Scores and sums are f32; P is rounded to bf16 before PV.
 //
 // Three templates:
-// - probe_attn_online_kernel<Variant, BQ, BKV> replaces `attn`
+// - online::probe_attn_online_kernel<Variant, NWG, BKV> replaces `attn`
 //   (probe_attn_variants.py:77, body make_kernel :23): full-mask online
-//   softmax. Grid (S / BQ, H, B); BQ / 16 warps, each owning 16 query rows
-//   whose Q stays in registers as mma A fragments. K and V tiles of BKV
-//   keys come through a two-stage cp.async double buffer in shared memory
-//   (rows padded to 72 bf16, so fragment reads are free of bank
-//   conflicts). S = Q K^T and O += P V run on mma.sync m16n8k16 bf16 -> f32;
-//   S, the running max and sum and O stay in registers, and the S
-//   accumulators are P's A fragments. V's B fragments come from
-//   ldmatrix.trans. Variants: base = __expf (a multiply by log2 e and
-//   ex2.approx), exp2 = the scale times log2 e folded into one FFMA before
-//   ex2.approx, noexp = P = scale * S with no max, no MUFU and alpha = 1.
-//   The TPU's 256-1024-row blocks do not fit a block's registers; BQ and
-//   BKV are 64 or 128. Simple and correct first; not yet redesigned.
+//   softmax over key tiles of BKV (64 or 128), in three variants: base =
+//   scale, then __expf (a multiply by log2 e and ex2.approx); exp2 = the
+//   scale and log2 e folded into one FFMA before ex2.approx; noexp = P =
+//   scale * S with no max, no MUFU and alpha = 1. The TPU's 256-1024-row
+//   blocks do not fit a block's registers; a block owns BQ = 64 NWG query
+//   rows of one head (grid (S / BQ, H, B)): NWG consumer warpgroups of 64
+//   rows and one producer warp, which loads Q once by TMA and K / V tiles
+//   into a ring of mbarrier stages (128-byte swizzle; 128 KB of ring at BQ =
+//   128, one block an SM; 96 KB at BQ = 64, so that two blocks share an
+//   SM). The consumers need at most 168 registers a thread (ptxas), so
+//   two 160-thread blocks fit an SM's 65,536 and no setmaxnreg is needed.
+//   S = Q K^T is wgmma m64nBKVk16 from shared memory; P, rounded to bf16 in
+//   registers, is the A operand of O += P V (wgmma m64n64k16, V the MN-major
+//   B). S, P, O, the running max and the row sums (f32, a zero sum read as 1)
+//   stay in registers. Every instance pipelines: tile t + 1's Q K^T is issued
+//   with tile t's P V, and tile t + 1's softmax runs while that P V does.
+//   At BQ = 128 the two warpgroups also issue their products in turn (named
+//   barriers), so one's exponentials run under the other's products; at BQ
+//   = 64 the two blocks of an SM overlap the same way, unordered. O / l is
+//   staged through the warpgroup's own Q rows and stored 16 bytes a thread.
 // - sp::probe_single_pass_kernel<HEADS, PACKED> replaces `single_pass`
 //   (probe_attn_overhead.py:48), `single_pass_fused_bh` (:76) and
 //   `attn_packed2` (probe_attn_dma.py:51): softmax(scale Q K^T) V with one
@@ -66,12 +74,13 @@
 // What bounds them on an H100: attention at d = 64 is 4 S^2 d operations
 // a head against 8 S d bytes, so above S ~ 600 the tensor cores bound it
 // (989 TFLOP/s); the exponentials (S^2 a head) need as long on the SFU (16
-// a clock an SM): the exp floor equals the operations' bound at d = 64, so
-// the two warpgroups of a block take turns, one's exponentials beside the
-// other's products. The single pass does 6 S^2 d operations a head (Q K^T
-// twice), so its best is 1.5 x the bound. The copy is bound by bytes (3.35
-// TB/s): enough blocks and bytes in flight on every SM is what its design
-// is for.
+// a clock an SM): the exp floor equals the operations' bound at d = 64, so a
+// kernel reaches either only where every exponential runs under a product.
+// That is what the online kernel's pipeline and its warpgroups' turns are
+// for, and its noexp variant shows what is left without them. The single
+// pass does 6 S^2 d operations a head (Q K^T twice), so its best is 1.5 x
+// the bound. The copy is bound by bytes (3.35 TB/s): enough blocks and
+// bytes in flight on every SM is what its design is for.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -79,30 +88,18 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "flash_common.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kD = 64;         // head dim
-constexpr int kRow = kD + 8;   // a K / V row in shared memory, padded (144 bytes)
+constexpr int kD = 64;  // head dim
 constexpr float kLog2e = 1.4426950408889634f;
 
 enum Variant { kBase = 0, kExp2 = 1, kNoExp = 2 };
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -115,23 +112,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8x8 bf16 matrices, transposed: lanes 8 i .. 8 i + 7 give the row
-// addresses of matrix i; lane (g, t) = (lane / 4, lane % 4) receives
-// elements (2 t, g) and (2 t + 1, g) of each.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
@@ -142,205 +122,347 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// ---- the online kernel: a TMA ring, wgmma, warpgroups in turn ----
+
+namespace online {
+
+using flash::ROW_BYTES;
+
+// Shared memory of one block from a 1024-byte aligned base: Q (64 NWG rows),
+// the ring (a stage is a K tile then a V tile of BKV rows, 128-byte swizzle),
+// the barriers. 64-row blocks (NWG = 1) are sized so that two share an SM.
+template <int kNWG, int kBKV>
+struct Smem {
+  static constexpr int BLOCKS_PER_SM = kNWG == 1 ? 2 : 1;
+  static constexpr int Q_BYTES = kNWG * 64 * ROW_BYTES;
+  static constexpr int TILE = kBKV * ROW_BYTES;  // one K or V tile
+  static constexpr int STAGE = 2 * TILE;
+  static constexpr int STAGES = (kNWG == 1 ? 96 * 1024 : 128 * 1024) / STAGE;
+  static constexpr int Q = 0;
+  static constexpr int K = Q + Q_BYTES;
+  static constexpr int BAR = K + STAGES * STAGE;  // q_full, full[STAGES], empty[STAGES]
+  static constexpr int BYTES = BAR + 8 * (1 + 2 * STAGES) + 1024;  // + room to align the base
+  static_assert(BYTES <= 232448, "more shared memory than a block can have");
+  // an SM has 228 KB, and each block's share of it takes 1 KB more
+  static_assert(BLOCKS_PER_SM * (BYTES + 1024) <= 233472, "the planned blocks do not fit an SM");
+};
+
+struct Params {
+  __nv_bfloat16* o;
+  int s;             // query rows and keys a head
+  int heads;         // H
+  float scale;       // 1 / sqrt(d)
+  float scale_log2;  // scale * log2(e)
+  int perm_q[3], perm_kv[3];  // which of (row, head, batch) each map dim 1..3 holds
+};
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
 }
 
-// A fragments of 16 query rows (row0 .. row0 + 15, row stride `stride`),
-// all four 16-wide steps of d = 64: a0..a3 = (g, 2t), (g + 8, 2t),
-// (g, 2t + 8), (g + 8, 2t + 8) of each step.
-__device__ __forceinline__ void load_q(uint32_t (&qa)[4][4], const __nv_bfloat16* q, int stride,
-                                       int lane) {
-  const int g = lane / 4, t = lane % 4;
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// S = Q K^T of a warpgroup's 64 rows against a tile of N / 2 keys, both K-major
+// and swizzled: four k-steps of 16 over d = 64, committed as one group.
+template <int N>
+__device__ __forceinline__ void issue_scores(float (&sc)[N], uint32_t q_smem, uint32_t k_smem) {
 #pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {
-    const int c = 16 * ks + 2 * t;
-    qa[ks][0] = ld32(q + g * stride + c);
-    qa[ks][1] = ld32(q + (g + 8) * stride + c);
-    qa[ks][2] = ld32(q + g * stride + c + 8);
-    qa[ks][3] = ld32(q + (g + 8) * stride + c + 8);
+  for (int kk = 0; kk < 4; ++kk) {
+    flash::wgmma_ss(sc, flash::make_desc(q_smem + kk * 32, 16, 1024),
+                    flash::make_desc(k_smem + kk * 32, 16, 1024), kk > 0);
   }
+  flash::wgmma_commit();
 }
 
-// `rows` rows of 64 bf16 (global row stride `stride`) into shared memory
-// at `dst` (row stride kRow), 16 bytes a thread and step.
-template <int kThreads>
-__device__ __forceinline__ void copy_rows(uint32_t dst, const __nv_bfloat16* src, int stride,
-                                          int rows) {
-  for (int c = threadIdx.x; c < rows * (kD / 8); c += kThreads) {
-    const int r = c / (kD / 8), col = (c % (kD / 8)) * 8;
-    cp_async16(dst + (r * kRow + col) * 2, src + static_cast<size_t>(r) * stride + col);
+// O += P V: P's bf16 A fragments (16 keys a step, 4 N keys in all), V the
+// MN-major B from shared memory; committed as one group.
+template <int N>
+__device__ __forceinline__ void issue_pv(float (&o)[32], const uint32_t (&pa)[N], uint32_t v_smem) {
+#pragma unroll
+  for (int kb = 0; kb < N / 4; ++kb) {
+    flash::wgmma_rs(o, &pa[kb * 4],
+                    flash::make_desc(v_smem + kb * 16 * ROW_BYTES, 4 * N * ROW_BYTES, 1024));
   }
+  flash::wgmma_commit();
 }
 
-// S = Q K^T for the 16 query rows of a warp against kKeys keys of a K
-// tile in shared memory: n-tile n covers keys 8 n .. 8 n + 7; accumulator
-// c0, c1 = (row g, keys 8 n + 2t, + 1), c2, c3 = row g + 8.
-template <int kKeys>
-__device__ __forceinline__ void scores(float (&sc)[kKeys / 8][4], const uint32_t (&qa)[4][4],
-                                       const __nv_bfloat16* ks, int lane) {
-  const int g = lane / 4, t = lane % 4;
+// One tile's softmax on S in place (sc[n * 4 + r * 2 + j]: row r * 8 + lane /
+// 4 of the warp's 16, key 8 n + 2 (lane % 4) + j): the running max m, the
+// factor alpha for O and l, P in f32 and this thread's part of the tile's
+// row sums ps. base: scale, then __expf (a multiply by log2 e and
+// ex2.approx); exp2: the scale and log2 e folded into one FFMA before
+// ex2.approx; noexp: P = scale * S, no max, no MUFU, alpha = 1.
+template <int kVariant, int N>
+__device__ __forceinline__ void softmax_step(float (&sc)[N], float (&m)[2], float (&alpha)[2],
+                                             float (&ps)[2], float scale, float scale_log2) {
+  ps[0] = ps[1] = 0.f;
+  if constexpr (kVariant == kNoExp) {
 #pragma unroll
-  for (int n = 0; n < kKeys / 8; ++n) {
-    sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
-    const __nv_bfloat16* krow = ks + (8 * n + g) * kRow + 2 * t;
-#pragma unroll
-    for (int kstep = 0; kstep < 4; ++kstep) {
-      mma_bf16(sc[n], qa[kstep], ld32(krow + 16 * kstep), ld32(krow + 16 * kstep + 8));
+    for (int i = 0; i < N; ++i) {
+      sc[i] *= scale;
+      ps[(i / 2) % 2] += sc[i];
     }
-  }
-}
-
-// O += P V: P's A fragments are the score accumulators of n-tiles 2 kk and
-// 2 kk + 1, V's B fragments come by ldmatrix.trans from the V tile.
-template <int kKeys>
-__device__ __forceinline__ void pv(float (&o)[kD / 8][4], const float (&p)[kKeys / 8][4],
-                                   uint32_t vs, int lane) {
-  const int mat = lane / 8, r = lane % 8;
+    alpha[0] = alpha[1] = 1.f;
+  } else {
+    if constexpr (kVariant == kBase) {
 #pragma unroll
-  for (int kk = 0; kk < kKeys / 16; ++kk) {
-    const uint32_t pa[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
-                            pack_bf16(p[2 * kk][2], p[2 * kk][3]),
-                            pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
-                            pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
-    const int key = 16 * kk + (mat & 1) * 8 + r;
-#pragma unroll
-    for (int np = 0; np < kD / 16; ++np) {
-      uint32_t b[4];
-      ldmatrix_x4_trans(b, vs + (key * kRow + 16 * np + (mat >> 1) * 8) * 2);
-      mma_bf16(o[2 * np], pa, b[0], b[1]);
-      mma_bf16(o[2 * np + 1], pa, b[2], b[3]);
+      for (int i = 0; i < N; ++i) sc[i] *= scale;
     }
-  }
-}
-
-// O / l of a warp's 16 rows to bf16 at `out` (row stride `stride`); l is
-// each thread's partial sum of its row (g or g + 8), summed over the quad.
-__device__ __forceinline__ void store_o(__nv_bfloat16* out, int stride, const float (&o)[kD / 8][4],
-                                        float l_g, float l_g8, int lane) {
-  const int g = lane / 4, t = lane % 4;
-  l_g = quad_sum(l_g);
-  l_g8 = quad_sum(l_g8);
-  const float inv_g = 1.f / (l_g == 0.f ? 1.f : l_g);
-  const float inv_g8 = 1.f / (l_g8 == 0.f ? 1.f : l_g8);
+    // base: the max of scale * S; exp2: of raw S, in log2 units after the fold
+    const float f = kVariant == kExp2 ? scale_log2 : 1.f;
 #pragma unroll
-  for (int n = 0; n < kD / 8; ++n) {
-    const int c = 8 * n + 2 * t;
-    *reinterpret_cast<uint32_t*>(out + g * stride + c) =
-        pack_bf16(o[n][0] * inv_g, o[n][1] * inv_g);
-    *reinterpret_cast<uint32_t*>(out + (g + 8) * stride + c) =
-        pack_bf16(o[n][2] * inv_g8, o[n][3] * inv_g8);
-  }
-}
-
-template <int kVariant, int kBQ, int kBKV>
-__global__ void __launch_bounds__(kBQ * 2) probe_attn_online_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int s, float scale) {
-  constexpr int kThreads = kBQ * 2;  // a warp per 16 query rows
-  constexpr int kTile = kBKV * kRow;  // bf16 elements of one K or V tile
-  extern __shared__ __align__(16) __nv_bfloat16 smem[];  // [stage][K, V][kBKV][kRow]
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const size_t head = static_cast<size_t>(blockIdx.z) * gridDim.y + blockIdx.y;
-  const __nv_bfloat16* kh = k + head * s * kD;
-  const __nv_bfloat16* vh = v + head * s * kD;
-  const int row0 = blockIdx.x * kBQ + warp * 16;
-  const uint32_t smem_s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-
-  auto load_tile = [&](int j) {  // K and V of key tile j into stage j % 2
-    const uint32_t st = smem_s + (j & 1) * 2 * kTile * 2;
-    copy_rows<kThreads>(st, kh + static_cast<size_t>(j) * kBKV * kD, kD, kBKV);
-    copy_rows<kThreads>(st + kTile * 2, vh + static_cast<size_t>(j) * kBKV * kD, kD, kBKV);
-  };
-
-  const int n_tiles = s / kBKV;
-  load_tile(0);
-  cp_async_commit();
-  uint32_t qa[4][4];
-  load_q(qa, q + (head * s + row0) * kD, kD, lane);
-
-  float acc[kD / 8][4];
+    for (int r = 0; r < 2; ++r) {
+      float mx = -INFINITY;
 #pragma unroll
-  for (int n = 0; n < kD / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m_g = -INFINITY, m_g8 = -INFINITY, l_g = 0.f, l_g8 = 0.f;
-  const float sc2 = scale * kLog2e;
-
-  for (int j = 0; j < n_tiles; ++j) {
-    if (j + 1 < n_tiles) load_tile(j + 1);
-    cp_async_commit();  // an empty group keeps the count uniform
-    cp_async_wait<1>();
-    __syncthreads();
-    const __nv_bfloat16* ks = smem + (j & 1) * 2 * kTile;
-    float sc[kBKV / 8][4];
-    scores<kBKV>(sc, qa, ks, lane);
-
-    if constexpr (kVariant == kNoExp) {  // P = scale * S: no max, no exponential
-#pragma unroll
-      for (int n = 0; n < kBKV / 8; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) sc[n][e] *= scale;
-        l_g += sc[n][0] + sc[n][1];
-        l_g8 += sc[n][2] + sc[n][3];
+      for (int n = 0; n < N / 4; ++n) {
+        mx = fmaxf(mx, fmaxf(sc[n * 4 + r * 2], sc[n * 4 + r * 2 + 1]));
       }
-    } else {
-      float mx_g = -INFINITY, mx_g8 = -INFINITY;
-      if constexpr (kVariant == kBase) {
+      const float mn = fmaxf(m[r], quad_max(mx) * f);
+      alpha[r] = kVariant == kBase ? __expf(m[r] - mn) : ex2(m[r] - mn);
+      m[r] = mn;
 #pragma unroll
-        for (int n = 0; n < kBKV / 8; ++n) {
+      for (int n = 0; n < N / 4; ++n) {
 #pragma unroll
-          for (int e = 0; e < 4; ++e) sc[n][e] *= scale;
+        for (int j = 0; j < 2; ++j) {
+          float& x = sc[n * 4 + r * 2 + j];
+          x = kVariant == kBase ? __expf(x - mn) : ex2(fmaf(x, scale_log2, -mn));
+          ps[r] += x;
         }
       }
-#pragma unroll
-      for (int n = 0; n < kBKV / 8; ++n) {
-        mx_g = fmaxf(mx_g, fmaxf(sc[n][0], sc[n][1]));
-        mx_g8 = fmaxf(mx_g8, fmaxf(sc[n][2], sc[n][3]));
+    }
+  }
+}
+
+// Grid (S / 64 NWG, H, B): a block owns 64 NWG query rows of one head, NWG
+// consumer warpgroups of 64 rows and one producer warp. Every consumer walks
+// all S / BKV key tiles with tile t + 1's Q K^T in flight beside tile t's
+// P V, and tile t + 1's softmax under that P V.
+template <int kVariant, int kNWG, int kBKV>
+__global__ void __launch_bounds__(128 * kNWG + 32, Smem<kNWG, kBKV>::BLOCKS_PER_SM)
+    probe_attn_online_kernel(const __grid_constant__ CUtensorMap tm_q,
+                             const __grid_constant__ CUtensorMap tm_k,
+                             const __grid_constant__ CUtensorMap tm_v, const Params p) {
+  using L = Smem<kNWG, kBKV>;
+  constexpr int N = kBKV / 2;  // S accumulators a thread
+  extern __shared__ unsigned char smem_raw[];
+  uint32_t base;
+  unsigned char* smem = flash::aligned_smem(smem_raw, base);
+  const uint32_t bar_q = base + L::BAR;
+  const uint32_t bar_full = bar_q + 8;                       // + 8 * stage
+  const uint32_t bar_empty = bar_full + 8 * L::STAGES;       // + 8 * stage
+  const int tid = threadIdx.x, wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  const int q0 = blockIdx.x * 64 * kNWG, h = blockIdx.y, b = blockIdx.z;
+  const int n_tiles = p.s / kBKV;
+
+  if (tid == 0) {
+    flash::mbar_init(bar_q, 1);
+    for (int st = 0; st < L::STAGES; ++st) {
+      flash::mbar_init(bar_full + 8 * st, 1);
+      flash::mbar_init(bar_empty + 8 * st, 4 * kNWG);  // one arrive a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == kNWG) {
+    // The producer warp: one lane loads Q, then keeps the ring full,
+    // refilling a stage once every consumer warp has released it. Every
+    // copy lands before the consumers finish, since they wait for each.
+    if (lane == 0) {
+      flash::mbar_expect_tx(bar_q, L::Q_BYTES);
+      flash::tma_load_tile(base + L::Q, &tm_q, bar_q, p.perm_q, 1, L::Q_BYTES, q0, h, b);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int st = t % L::STAGES;
+        if (t >= L::STAGES) flash::mbar_wait(bar_empty + 8 * st, (t / L::STAGES - 1) & 1);
+        const uint32_t dst = base + L::K + st * L::STAGE;
+        flash::mbar_expect_tx(bar_full + 8 * st, L::STAGE);
+        flash::tma_load_tile(dst, &tm_k, bar_full + 8 * st, p.perm_kv, 1, L::TILE, t * kBKV, h, b);
+        flash::tma_load_tile(dst + L::TILE, &tm_v, bar_full + 8 * st, p.perm_kv, 1, L::TILE,
+                             t * kBKV, h, b);
       }
-      // base: the max of scale * S; exp2: of raw S, in log2 units after the fold
-      const float f = kVariant == kExp2 ? sc2 : 1.f;
-      const float mn_g = fmaxf(m_g, quad_max(mx_g) * f);
-      const float mn_g8 = fmaxf(m_g8, quad_max(mx_g8) * f);
-      float al_g, al_g8;
-      if constexpr (kVariant == kBase) {
-        al_g = __expf(m_g - mn_g);
-        al_g8 = __expf(m_g8 - mn_g8);
-      } else {
-        al_g = ex2(m_g - mn_g);
-        al_g8 = ex2(m_g8 - mn_g8);
-      }
-      m_g = mn_g;
-      m_g8 = mn_g8;
-      float ps_g = 0.f, ps_g8 = 0.f;
+    }
+  } else {
+    const int row_in_block = wg * 64 + warp * 16 + lane / 4;
+    const uint32_t q_smem = base + L::Q + wg * 64 * ROW_BYTES;
+    auto k_smem = [&](int t) { return base + L::K + (t % L::STAGES) * L::STAGE; };
+    auto wait_full = [&](int t) {
+      flash::mbar_wait(bar_full + 8 * (t % L::STAGES), (t / L::STAGES) & 1);
+    };
+    auto release = [&](int t) {
+      __syncwarp();
+      if (lane == 0) flash::mbar_arrive(bar_empty + 8 * (t % L::STAGES));
+    };
+    // Two warpgroups issue their products in turn: warpgroup w waits on
+    // named barrier 1 + w until the other has issued, so one's softmax runs
+    // while the other's products hold the tensor cores. Each issues S / BKV
+    // + 1 times; warpgroup 1 opens with an arrive and skips its last, so the
+    // counts on both barriers match.
+    auto my_turn = [&]() {
+      if constexpr (kNWG == 2) bar_sync(1 + wg, 256);
+    };
+    auto your_turn = [&]() {
+      if constexpr (kNWG == 2) bar_arrive(2 - wg, 256);
+    };
+
+    float o[32], m[2] = {-INFINITY, -INFINITY}, l[2], alpha[2], ps[2];
 #pragma unroll
-      for (int n = 0; n < kBKV / 8; ++n) {
+    for (int i = 0; i < 32; ++i) o[i] = 0.f;
+    float sc[N];
+    uint32_t pa[N / 2];  // P in bf16 as wgmma A fragments
+    flash::mbar_wait(bar_q, 0);
+    if constexpr (kNWG == 2) {
+      if (wg == 1) bar_arrive(1, 256);  // warpgroup 0 issues first
+    }
+
+    wait_full(0);
+    my_turn();
+    flash::wgmma_fence();
+    issue_scores(sc, q_smem, k_smem(0));
+    your_turn();
+    wgmma_wait<0>();
+    flash::fence_regs(sc);
+    softmax_step<kVariant>(sc, m, alpha, ps, p.scale, p.scale_log2);
+    l[0] = ps[0];
+    l[1] = ps[1];
+    flash::pack_a(sc, pa);
+    for (int t = 1; t < n_tiles; ++t) {
+      wait_full(t);
+      my_turn();
+      flash::wgmma_fence();
+      issue_scores(sc, q_smem, k_smem(t));
+      issue_pv(o, pa, k_smem(t - 1) + L::TILE);
+      your_turn();
+      wgmma_wait<1>();  // S of tile t; P V of tile t - 1 still runs
+      flash::fence_regs(sc);
+      softmax_step<kVariant>(sc, m, alpha, ps, p.scale, p.scale_log2);
+      wgmma_wait<0>();
+      flash::fence_regs(o);
+      flash::fence_regs(pa);
+      release(t - 1);
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          if constexpr (kVariant == kBase) {
-            sc[n][e] = __expf(sc[n][e] - mn_g);
-            sc[n][2 + e] = __expf(sc[n][2 + e] - mn_g8);
-          } else {
-            sc[n][e] = ex2(fmaf(sc[n][e], sc2, -mn_g));
-            sc[n][2 + e] = ex2(fmaf(sc[n][2 + e], sc2, -mn_g8));
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + ps[r];
+      if constexpr (kVariant != kNoExp) {
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            o[n * 4 + r * 2] *= alpha[r];
+            o[n * 4 + r * 2 + 1] *= alpha[r];
           }
-          ps_g += sc[n][e];
-          ps_g8 += sc[n][2 + e];
         }
       }
-      l_g = l_g * al_g + ps_g;
-      l_g8 = l_g8 * al_g8 + ps_g8;
-#pragma unroll
-      for (int n = 0; n < kD / 8; ++n) {
-        acc[n][0] *= al_g;
-        acc[n][1] *= al_g;
-        acc[n][2] *= al_g8;
-        acc[n][3] *= al_g8;
-      }
+      flash::pack_a(sc, pa);
     }
-    pv<kBKV>(acc, sc, smem_s + ((j & 1) * 2 * kTile + kTile) * 2, lane);
-    __syncthreads();  // the next iteration refills this stage
+    my_turn();
+    flash::wgmma_fence();
+    issue_pv(o, pa, k_smem(n_tiles - 1) + L::TILE);
+    if (wg == 0) your_turn();
+    wgmma_wait<0>();
+    flash::fence_regs(o);
+    flash::fence_regs(pa);
+    // (the last stage needs no release: the producer has issued every tile)
+
+    // O / l (a zero sum read as 1) staged in this warpgroup's own Q rows,
+    // then 16-byte stores.
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float sum = quad_sum(l[r]);
+      inv[r] = 1.f / (sum == 0.f ? 1.f : sum);
+    }
+    flash::stage_rows<8>(smem + L::Q, L::Q_BYTES, o, inv, row_in_block, lane);
+    bar_sync(3 + wg, 128);
+    const long long row0 = (static_cast<long long>(b) * p.heads + h) * p.s + q0;
+    flash::store_rows<8>(smem + L::Q, L::Q_BYTES, wg * 64, p.o + row0 * kD, 64 * kNWG, kD,
+                         tid % 128);
   }
-  store_o(o + (head * s + row0) * kD, kD, acc, l_g, l_g8, lane);
 }
+
+// Raises the instance's dynamic shared-memory limit and asks for the largest
+// shared-memory carveout (two 64-row blocks an SM need 2 x 106 KB), once a
+// device.
+template <int kVariant, int kNWG, int kBKV>
+cudaError_t configure() {
+  auto kernel = probe_attn_online_kernel<kVariant, kNWG, kBKV>;
+  static unsigned long long configured = 0;  // a bit per device
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess || (device < 64 && (configured >> device & 1))) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             Smem<kNWG, kBKV>::BYTES);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  }
+  if (err == cudaSuccess && device < 64) configured |= 1ull << device;
+  return err;
+}
+
+template <int kVariant, int kNWG, int kBKV>
+cudaError_t launch(const CUtensorMap& q, const CUtensorMap& k, const CUtensorMap& v,
+                   const Params& p, int batch, cudaStream_t stream) {
+  cudaError_t err = configure<kVariant, kNWG, kBKV>();
+  if (err != cudaSuccess) return err;
+  probe_attn_online_kernel<kVariant, kNWG, kBKV>
+      <<<dim3(p.s / (64 * kNWG), p.heads, batch), 128 * kNWG + 32, Smem<kNWG, kBKV>::BYTES,
+         stream>>>(q, k, v, p);
+  return cudaGetLastError();
+}
+
+// What the instance is: its dynamic shared memory, ring stages, threads, the
+// blocks an SM holds by the runtime's occupancy count, and its registers.
+template <int kVariant, int kNWG, int kBKV>
+cudaError_t info(int* out) {
+  cudaError_t err = configure<kVariant, kNWG, kBKV>();
+  if (err != cudaSuccess) return err;
+  auto kernel = probe_attn_online_kernel<kVariant, kNWG, kBKV>;
+  constexpr int threads = 128 * kNWG + 32;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads,
+                                                      Smem<kNWG, kBKV>::BYTES);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  out[0] = Smem<kNWG, kBKV>::BYTES;
+  out[1] = Smem<kNWG, kBKV>::STAGES;
+  out[2] = threads;
+  out[3] = blocks;
+  out[4] = attr.numRegs;
+  return cudaSuccess;
+}
+
+// Calls fn(variant, warpgroups, keys a tile) with the three as integral
+// constants for one of the 12 instances; cudaErrorInvalidValue for none.
+template <typename Fn>
+cudaError_t dispatch(int variant, int block_q, int block_kv, Fn&& fn) {
+  auto tiles = [&](auto v) -> cudaError_t {
+    using I2 = std::integral_constant<int, 2>;
+    using I1 = std::integral_constant<int, 1>;
+    using K128 = std::integral_constant<int, 128>;
+    using K64 = std::integral_constant<int, 64>;
+    if (block_q == 128 && block_kv == 128) return fn(v, I2{}, K128{});
+    if (block_q == 128 && block_kv == 64) return fn(v, I2{}, K64{});
+    if (block_q == 64 && block_kv == 128) return fn(v, I1{}, K128{});
+    if (block_q == 64 && block_kv == 64) return fn(v, I1{}, K64{});
+    return cudaErrorInvalidValue;
+  };
+  switch (variant) {
+    case kBase: return tiles(std::integral_constant<int, kBase>{});
+    case kExp2: return tiles(std::integral_constant<int, kExp2>{});
+    case kNoExp: return tiles(std::integral_constant<int, kNoExp>{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace online
 
 // ---- the single pass: a cluster of blocks a head, K / V multicast by TMA ----
 
@@ -687,53 +809,61 @@ __global__ void __launch_bounds__(kCopyThreads) probe_copy_only_kernel(
   if (threadIdx.x == 0) flash::mbar_wait(bar, 0);
 }
 
-template <int kVariant, int kBQ, int kBKV>
-cudaError_t launch_online(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
-                          __nv_bfloat16* o, int b, int h, int s, float scale, cudaStream_t stream) {
-  constexpr int smem = 2 * 2 * kBKV * kRow * 2;
-  auto kernel = probe_attn_online_kernel<kVariant, kBQ, kBKV>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3(s / kBQ, h, b), kBQ * 2, smem, stream>>>(q, k, v, o, s, scale);
-  return cudaGetLastError();
-}
-
-template <int kVariant>
-cudaError_t launch_variant(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
-                           __nv_bfloat16* o, int b, int h, int s, int block_q, int block_kv,
-                           float scale, cudaStream_t stream) {
-  if (block_q == 128 && block_kv == 128)
-    return launch_online<kVariant, 128, 128>(q, k, v, o, b, h, s, scale, stream);
-  if (block_q == 128 && block_kv == 64)
-    return launch_online<kVariant, 128, 64>(q, k, v, o, b, h, s, scale, stream);
-  if (block_q == 64 && block_kv == 128)
-    return launch_online<kVariant, 64, 128>(q, k, v, o, b, h, s, scale, stream);
-  if (block_q == 64 && block_kv == 64)
-    return launch_online<kVariant, 64, 64>(q, k, v, o, b, h, s, scale, stream);
-  return cudaErrorInvalidValue;
-}
-
 }  // namespace
 
 extern "C" {
 
-// Full-mask attention, one of the three variants (0 base, 1 exp2, 2 noexp),
-// tiles (block_q, block_kv) in {64, 128}^2; s a multiple of both.
+// Full-mask attention of contiguous bf16 (b, h, s, 64) q, k, v into o, one of
+// the three variants (0 base, 1 exp2, 2 noexp), tiles (block_q, block_kv) in
+// {64, 128}^2, s a multiple of both. Returns 0, a cudaError_t code, or 1000 +
+// the CUresult of a tensor map that could not be encoded.
 int probe_attn(const void* q, const void* k, const void* v, void* o, int b, int h, int s,
                int variant, int block_q, int block_kv, float scale, void* stream) {
-  if (s % block_q || s % block_kv) return cudaErrorInvalidValue;
-  const auto* qb = static_cast<const __nv_bfloat16*>(q);
-  const auto* kb = static_cast<const __nv_bfloat16*>(k);
-  const auto* vb = static_cast<const __nv_bfloat16*>(v);
-  auto* ob = static_cast<__nv_bfloat16*>(o);
-  auto st = static_cast<cudaStream_t>(stream);
-  switch (variant) {
-    case kBase: return launch_variant<kBase>(qb, kb, vb, ob, b, h, s, block_q, block_kv, scale, st);
-    case kExp2: return launch_variant<kExp2>(qb, kb, vb, ob, b, h, s, block_q, block_kv, scale, st);
-    case kNoExp:
-      return launch_variant<kNoExp>(qb, kb, vb, ob, b, h, s, block_q, block_kv, scale, st);
-    default: return cudaErrorInvalidValue;
+  if (!((block_q == 64 || block_q == 128) && (block_kv == 64 || block_kv == 128)) || b < 1 ||
+      h < 1 || s < 1 || s % block_q || s % block_kv || !(scale > 0.f)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (flash::encoder() == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  // the encoder needs the device's context current on this thread
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  online::Params p;
+  p.o = static_cast<__nv_bfloat16*>(o);
+  p.s = s;
+  p.heads = h;
+  p.scale = scale;
+  p.scale_log2 = scale * kLog2e;
+  const long long ss = kD, sh = static_cast<long long>(s) * kD, sb = sh * h;
+  CUtensorMap tq, tk, tv;
+  CUresult r = flash::encode_map(&tq, q, kD, s, h, b, ss, sh, sb, block_q, p.perm_q);
+  if (r == CUDA_SUCCESS) {
+    r = flash::encode_map(&tk, k, kD, s, h, b, ss, sh, sb, block_kv, p.perm_kv);
+  }
+  if (r == CUDA_SUCCESS) {
+    r = flash::encode_map(&tv, v, kD, s, h, b, ss, sh, sb, block_kv, p.perm_kv);
+  }
+  if (r != CUDA_SUCCESS) return 1000 + static_cast<int>(r);
+  auto st = static_cast<cudaStream_t>(stream);
+  err = online::dispatch(variant, block_q, block_kv, [&](auto vr, auto nwg, auto bkv) {
+    return online::launch<decltype(vr)::value, decltype(nwg)::value, decltype(bkv)::value>(
+        tq, tk, tv, p, b, st);
+  });
+  return static_cast<int>(err);
+}
+
+// The online kernel's instance for (variant, block_q, block_kv): out[0] its
+// dynamic shared memory in bytes, out[1] its ring's stages, out[2] its
+// threads, out[3] the blocks an SM holds (the runtime's occupancy count),
+// out[4] its registers a thread at launch. Returns 0 or a cudaError_t code.
+int probe_attn_info(int variant, int block_q, int block_kv, int* out) {
+  const cudaError_t err =
+      online::dispatch(variant, block_q, block_kv, [&](auto vr, auto nwg, auto bkv) {
+        return online::info<decltype(vr)::value, decltype(nwg)::value, decltype(bkv)::value>(
+            out);
+      });
+  return static_cast<int>(err);
 }
 
 // The single pass over `groups` head groups of `heads_per_block` heads (1 or

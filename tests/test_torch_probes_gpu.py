@@ -38,17 +38,28 @@ def _close(got, want):
     assert float(err.max()) <= O_MAX_ABS and float(err.mean()) <= O_MEAN_ABS
 
 
+# One tile of 128 keys (two of 64), one of 64 keys (the (64, 64) tile
+# only), 4096 keys of one head (the ring wraps 11-21 times), and 135 heads
+# (B x H not a multiple of the 132 SMs).
+ATTN_SHAPES = [(2, 4, 512, 64), (1, 3, 128, 64), (3, 1, 64, 64), (1, 1, 4096, 64),
+               (5, 27, 256, 64)]
+ATTN_CASES = [(variant, block_q, block_kv, shape) for shape in ATTN_SHAPES
+              for variant in pk.VARIANTS for block_q, block_kv in pk.TILES
+              if shape[2] % block_q == 0 and shape[2] % block_kv == 0]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("block_q,block_kv", pk.TILES)
-@pytest.mark.parametrize("variant", pk.VARIANTS)
-def test_attn_kernel_matches_plain_on_gpu(variant, block_q, block_kv):
+@pytest.mark.parametrize("variant,block_q,block_kv,shape", ATTN_CASES)
+def test_attn_kernel_matches_plain_on_gpu(variant, block_q, block_kv, shape):
     _need_cuda()
-    q, k, v = _qkv((2, 4, 512, 64), seed=block_q + block_kv)
+    q, k, v = _qkv(shape, seed=block_q + block_kv + shape[2])
     before = pk.probe_attn.launches
     got = pk.attn(q, k, v, variant, block_q, block_kv, implementation="kernel")
     again = pk.attn(q, k, v, variant, block_q, block_kv, implementation="kernel")
     torch.cuda.synchronize()
     assert pk.probe_attn.launches == before + 2
+    assert pk.probe_attn.last_plan == pk.attn_plan(*shape[:3], block_q, block_kv,
+                                                   pk._sms(q.device.index))
     assert torch.equal(got, again)
     want = pk.attn(q, k, v, variant, block_q, block_kv, implementation="plain")
     if variant == "noexp":
@@ -56,6 +67,20 @@ def test_attn_kernel_matches_plain_on_gpu(variant, block_q, block_kv):
         assert pk.noexp_error(q, k, got, want) <= O_MAX_ABS
     else:
         _close(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block_q,block_kv", pk.TILES)
+@pytest.mark.parametrize("variant", pk.VARIANTS)
+def test_attn_plan_is_what_the_card_runs_on_gpu(variant, block_q, block_kv):
+    """The instance's shared memory, stages and threads are attn_plan's,
+    and the card holds the planned blocks an SM (two 64-row blocks)."""
+    _need_cuda()
+    got = pk.attn_instance(variant, block_q, block_kv)
+    plan = pk.attn_plan(1, 1, 128, block_q, block_kv, 132)
+    assert {k: got[k] for k in ("smem_bytes", "stages", "threads", "blocks_per_sm")} == {
+        "smem_bytes": plan.smem_bytes, "stages": plan.stages, "threads": plan.threads,
+        "blocks_per_sm": plan.blocks_per_sm}
 
 
 @pytest.mark.gpu

@@ -1,5 +1,10 @@
-"""The launch plans of the probes' single-pass and copy kernels
+"""The launch plans of the probes' online, single-pass and copy kernels
 (``seed_story_torch.benchmarks.probe_kernels``), on the CPU.
+
+The online kernel runs blocks of ``block_q`` query rows of one head; its
+plan must cover every query tile of every head once and keep each
+block's shared memory within a block's limit, and two 64-row blocks
+within an SM's.
 
 The single pass runs each head (or head pair) on clusters of blocks of
 128 query rows; its plan must keep a cluster within Hopper's portable
@@ -97,3 +102,68 @@ def test_copy_plan_tiles_every_head_once(shape):
         assert plan.blocks >= 4 * SMS
     if shape == (1, 3, 40, 8):  # a head of 640 bytes: one span of 40 units
         assert (plan.span_units, plan.spans_per_head, plan.blocks) == (40, 1, 3)
+
+
+ATTN_SHAPES = [(2, 10, 4096, 64), (2, 20, 1024, 64)]  # the JAX variants probe's shapes
+
+
+@pytest.mark.parametrize("tile", pk.TILES)
+@pytest.mark.parametrize("shape", ATTN_SHAPES + [(1, 1, 128, 64), (3, 5, 256, 64),
+                                                 (5, 27, 256, 64), (1, 1, 4096, 64)])
+def test_attn_plan_covers_every_query_tile_once(shape, tile):
+    """Block (x, y, z) of the grid owns query rows block_q x .. block_q (x
+    + 1) - 1 of head y of batch row z, as the kernel reads blockIdx."""
+    b, h, s, _ = shape
+    block_q, block_kv = tile
+    plan = pk.attn_plan(b, h, s, block_q, block_kv, SMS)
+    assert plan.grid == (s // block_q, h, b) and plan.blocks == s // block_q * h * b
+    seen = {}
+    for z in range(plan.grid[2]):
+        for y in range(plan.grid[1]):
+            for x in range(plan.grid[0]):
+                for row in range(block_q * x, block_q * (x + 1)):
+                    seen[z, y, row] = seen.get((z, y, row), 0) + 1
+    assert set(seen) == {(z, y, r) for z in range(b) for y in range(h) for r in range(s)}
+    assert set(seen.values()) == {1}
+
+
+@pytest.mark.parametrize("tile", pk.TILES)
+def test_attn_plan_fits_a_block_and_an_sm(tile):
+    """A block's shared memory (Q, the ring, the barriers and 1 KB to align
+    the base) within 232,448 bytes; the blocks planned an SM, each with
+    the 1 KB the card keeps, within its 233,472; a ring of at least three
+    stages (tile t + 1's K and tile t's V in use while one refills)."""
+    block_q, block_kv = tile
+    plan = pk.attn_plan(2, 10, 4096, block_q, block_kv, SMS)
+    assert plan.warpgroups == block_q // 64
+    assert plan.threads == 128 * plan.warpgroups + 32
+    assert plan.blocks_per_sm == (2 if block_q == 64 else 1)
+    ring = plan.stages * 2 * block_kv * 128
+    assert plan.stages >= 3
+    assert plan.smem_bytes == block_q * 128 + ring + 8 * (1 + 2 * plan.stages) + 1024
+    assert plan.smem_bytes <= pk.SMEM_PER_BLOCK == 232448
+    assert plan.blocks_per_sm * (plan.smem_bytes + 1024) <= pk.SMEM_PER_SM == 233472
+
+
+@pytest.mark.parametrize("tile,want", [
+    ((128, 128), [(32, 10, 2), 640, 5, (8, 20, 2), 320, 3]),
+    ((128, 64), [(32, 10, 2), 640, 5, (8, 20, 2), 320, 3]),
+    ((64, 128), [(64, 10, 2), 1280, 5, (16, 20, 2), 640, 3]),
+    ((64, 64), [(64, 10, 2), 1280, 5, (16, 20, 2), 640, 3]),
+])
+def test_attn_plan_grid_at_the_probe_shapes(tile, want):
+    """One block a query tile: 640 (or 1280 of 64 rows, two an SM) at
+    (2, 10, 4096, 64) take 5 rounds of 132 SMs, 320 (640) at (2, 20, 1024,
+    64) take 3 rounds for 2.4 of work."""
+    got = []
+    for b, h, s, _ in ATTN_SHAPES:
+        plan = pk.attn_plan(b, h, s, *tile, SMS)
+        got += [plan.grid, plan.blocks, plan.rounds]
+    assert got == want
+
+
+def test_attn_plan_refuses_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError, match="no instance"):
+        pk.attn_plan(1, 1, 1024, 256, 128, SMS)
+    with pytest.raises(ValueError, match="not a multiple"):
+        pk.attn_plan(1, 1, 192, 128, 128, SMS)
