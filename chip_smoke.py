@@ -147,6 +147,21 @@ two ranks on one device: a ``dp`` step at 7B width with 4 layers against
 rank 0's world-of-1 step on the same global batch, and the contrastive
 loss with negatives gathered across the ranks against the global batch's)
 and framework_free (``native_available()`` and the image path taken).
+
+The converter's phase, converted (after unet_int8, once the story stack is
+gone): a 7B-width agent (``agent_7b_sft.yaml`` / ``llama2chat7b_lora.yaml``,
+2 of 32 layers, seeded random bf16 weights with trained-looking norms and
+LoRA B) written as zero_to_fp32 leaves a stage-2 agent (PEFT names, the
+layernorms' ``modules_to_save`` copies beside ``original_module`` ones, 32066
+rows with the 66 added tokens in a seeded released order and their
+added_tokens.json), converted by ``tools/convert_torch_weights.main`` with
+``--int8`` and without; the float file loaded through ``load_checkpoint_``
+(every entry and the prefill logits equal to the in-memory agent's), the int8
+file through ``build_stack``'s call (``quantize_agent_(base=True, kv=True)``:
+int8 weights and scales bit-equal to quantizing the agent in memory), then
+the flagship decode (int8 KV cache, ``speculate_k=4``, EOS banned) for
+CONVERTED_NEW tokens, equal to the in-memory agent's, with kernel C and the
+flash forward in the prefill and kernels A and B in every decode pass.
 Each phase prints its wall seconds ("phase NAME: S s").
 
     python3 chip_smoke.py --baseline LOG
@@ -190,7 +205,8 @@ from seed_story_torch.models.ipa_adapters import (IPAdapterConfig, IPAdapterSD, 
                                                   SD21Text2ImageAndEditAdapter,
                                                   sd15_unet_config, sd21_edit_trainable_mask)
 from seed_story_torch.models import llama as llama_module
-from seed_story_torch.models.llama import LlamaConfig, LoRADense, derive_seed, lora_trainable_mask
+from seed_story_torch.models.llama import (LlamaConfig, LoRADense, RMSNorm, derive_seed,
+                                           lora_trainable_mask)
 from seed_story_torch.models.sdxl.adapter import (SDXLAdapter, SDXLAdapterConfig,
                                                   adapter_trainable_mask, quantize_adapter_)
 from seed_story_torch.models.sdxl.unet import CrossAttention, SDXLUNetConfig, quantized_modules
@@ -200,7 +216,8 @@ from seed_story_torch.benchmarks import (probe_attn_dma, probe_attn_overhead, pr
                                           probe_kernels)
 from seed_story_torch.benchmarks.common import bench, card_label
 from seed_story_torch.benchmarks.common import qkv as probe_qkv
-from seed_story_torch.data.tokenizer import image_comprehension_string
+from seed_story_torch.data.tokenizer import (LLAMA_VOCAB_SIZE, TinyTokenizer,
+                                             image_comprehension_string, special_tokens)
 from seed_story_torch.ops.attention import (
     _normalize_lens,
     _visible,
@@ -224,6 +241,8 @@ from seed_story_torch.pipelines.story_visualization import (
     StoryVisualizationPipeline,
     VisPipelineConfig,
 )
+from seed_story_torch.tools.convert_torch_weights import main as convert_weights
+from seed_story_torch.train.checkpoint import load_checkpoint_
 from seed_story_torch.train.runner import (LAUNCH_COUNTS, RunnerArgs, kernel_launch_counts,
                                            run_training, to_device)
 from seed_story_torch.train.stage2 import make_stage2_loss_fn
@@ -2792,6 +2811,9 @@ def phase_vit_nopool(label: str):
 PARALLEL_LAYERS, PARALLEL_STEPS = 8, 2
 RANK_LAYERS = 4  # each of the two ranks on the one card holds its own agent
 TP_NEW = 64  # greedy tokens of the tensor-parallel decode check
+CONVERTED_LAYERS = 2  # of LLaMA-2-7B's 32, at full width
+CONVERTED_NEW = 64  # tokens the converted agent decodes
+PEFT_NORMS = ("input_layernorm", "post_attention_layernorm", "norm")  # modules_to_save
 TP_DEGREES = (2, 4)  # --decode_tp values it checks
 
 
@@ -3187,6 +3209,175 @@ def phase_framework_free(label: str):
         raise AssertionError(f"framework_free: shape {out.shape}, mean difference {diff}")
 
 
+def released_agent_state_dict(agent, added_tokens: dict) -> dict:
+    """``agent``'s state dict as zero_to_fp32 leaves a stage-2 agent (the
+    reference's PEFT-wrapped llm), f32 on the host: ``llm.base_model.model.``
+    names, ``base_layer`` / ``lora_A.default`` for the LoRA projections, each
+    layernorm as a ``modules_to_save.default`` copy beside an
+    ``original_module`` one (ones: the frozen original), and the true vocab's
+    rows in the released order that ``added_tokens`` ({token: released id})
+    gives. The resamplers keep their names and sin-cos tables."""
+    vocab = agent.cfg.llm.vocab_size
+    released_ids = torch.arange(vocab)
+    for i, tok in enumerate(special_tokens()):
+        released_ids[LLAMA_VOCAB_SIZE + i] = added_tokens[tok]
+    lora = {name for name, m in agent.llm.named_modules()
+            if isinstance(m, LoRADense) and m.lora_rank > 0}
+    out = {}
+    for key, value in agent.state_dict().items():
+        value = value.detach().to("cpu", torch.float32)
+        if not key.startswith("llm."):
+            out[key] = value
+            continue
+        owner, _, leaf = key[len("llm."):].rpartition(".")
+        name = f"llm.base_model.model.{owner}"
+        if owner in ("model.embed_tokens", "lm_head"):
+            rows = torch.empty((vocab,) + tuple(value.shape[1:]))
+            rows[released_ids] = value[:vocab]
+            out[f"{name}.{leaf}"] = rows
+        elif owner in lora:
+            out[f"{name}.base_layer.{leaf}"] = value
+        elif owner.rpartition(".")[2] in ("lora_A", "lora_B"):
+            out[f"{name}.default.{leaf}"] = value
+        elif owner.rpartition(".")[2] in PEFT_NORMS:
+            out[f"{name}.original_module.{leaf}"] = torch.ones_like(value)
+            out[f"{name}.modules_to_save.default.{leaf}"] = value
+        else:
+            out[f"{name}.{leaf}"] = value
+    return out
+
+
+def phase_converted(label: str):
+    """A released-layout agent bin at 7B width (CONVERTED_LAYERS layers)
+    through ``tools/convert_torch_weights`` (``--int8`` and float), loaded as
+    ``build_stack`` loads ``--agent_ckpt`` and decoded on the flagship
+    configuration, against the same agent quantized in memory. Returns the
+    converted agent's kernel launches in its decode (prefill included)."""
+    bf16, n = torch.bfloat16, CONVERTED_LAYERS
+    cfg = AgentConfig(llm=LlamaConfig(lora_rank=16, lora_alpha=32.0, lora_dropout=0.05,
+                                      param_dtype=bf16, num_hidden_layers=n))
+
+    def agent_of(seed: int):
+        return fill_module(ContinuousLVLM, cfg, "cuda", seed=seed).eval().requires_grad_(False)
+
+    ref = agent_of(11)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    with torch.no_grad():  # trained norms and LoRA B (the initialisation has ones and zeros)
+        for w in (ref.llm.model.embed_tokens.weight, ref.llm.lm_head.weight):
+            w[cfg.llm.vocab_size:] = 0  # the padding rows, zero in a converted file
+        for m in ref.llm.modules():
+            if isinstance(m, RMSNorm):
+                m.weight.normal_(1.0, 0.1, generator=gen)
+            elif isinstance(m, LoRADense) and m.lora_rank > 0:
+                m.lora_B.weight.normal_(0.0, 0.02, generator=gen)
+    order = np.random.RandomState(13).permutation(len(special_tokens()))
+    added = {tok: LLAMA_VOCAB_SIZE + int(order[i]) for i, tok in enumerate(special_tokens())}
+    n_in = cfg.num_img_in_tokens
+    tok = TinyTokenizer()
+    ids = np.asarray([tok.bos_token_id] + tok.encode(CAPTION + image_comprehension_string(n_in),
+                                                     add_special_tokens=False))
+    ids_cmp = np.zeros(len(ids), bool)
+    ids_cmp[-n_in - 1:-1] = True
+    failures, secs = [], {}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {name: os.path.join(tmp, name) for name in (
+            "pytorch_model.bin", "added_tokens.json", "agent_int8.pt", "agent.pt")}
+        t0 = time.perf_counter()
+        torch.save(released_agent_state_dict(ref, added), paths["pytorch_model.bin"])
+        with open(paths["added_tokens.json"], "w") as f:
+            json.dump(added, f)
+        secs["write_bin"] = time.perf_counter() - t0
+        argv = ["--family", "agent", "--input", paths["pytorch_model.bin"], "--num_layers",
+                str(n), "--added_tokens_json", paths["added_tokens.json"]]
+        reports = {}
+        for name, extra in (("agent_int8.pt", ["--int8"]), ("agent.pt", [])):
+            t0 = time.perf_counter()
+            reports[name] = convert_weights(argv + ["--output", paths[name]] + extra)
+            secs[name] = time.perf_counter() - t0
+        gib = {name: os.path.getsize(path) / 2**30 for name, path in paths.items()}
+        counts = {name: (len(m), len(u)) for name, (m, u) in reports.items()}
+        if any(c != (0, 0) for c in counts.values()):
+            failures.append(f"converter missing / unexpected keys: {reports}")
+
+        # the float file against the in-memory bf16 agent
+        loaded = agent_of(14)
+        load_checkpoint_(loaded, paths["agent.pt"])
+        want_sd, got_sd = ref.state_dict(), loaded.state_dict()
+        differ = [k for k, v in want_sd.items() if not torch.equal(got_sd[k], v)]
+        with torch.no_grad():
+            x = torch.as_tensor(ids[None], device="cuda")
+            logits_diff = float((loaded.llm(x)["logits"].float()
+                                 - ref.llm(x)["logits"].float()).abs().max())
+        if differ or logits_diff != 0.0:
+            failures.append(f"float file: {len(differ)} entries differ ({differ[:4]}), prefill "
+                            f"logits max |diff| {logits_diff}")
+        del loaded, want_sd, got_sd
+        free_memory()
+
+        # the int8 file as build_stack loads --agent_ckpt, against quantizing in memory
+        quantize_agent_(ref, base=True, kv=True)
+        agent = agent_of(15)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        load_checkpoint_(agent, paths["agent_int8.pt"],
+                         lambda a: quantize_agent_(a, base=True, kv=True))
+        torch.cuda.synchronize()
+        secs["load_int8"] = time.perf_counter() - t0
+    want_sd, got_sd = ref.state_dict(), agent.state_dict()
+    differ = [k for k, v in want_sd.items() if got_sd[k].dtype != v.dtype
+              or not torch.equal(got_sd[k], v)]
+    n_int8 = sum(v.dtype == torch.int8 for v in got_sd.values())
+    n_scales = sum(k.endswith("weight_scale") for k in got_sd)
+    if differ or n_int8 != 7 * n or n_scales != 7 * n:
+        failures.append(f"int8 file: {len(differ)} entries differ from in-memory quantization "
+                        f"({differ[:4]}); {n_int8} int8 weights, {n_scales} scales")
+    del want_sd, got_sd
+
+    gcfg = GenerateConfig(max_new_tokens=CONVERTED_NEW, num_img_gen_tokens=cfg.num_img_out_tokens,
+                          eos_token_id=-1, cache_capacity=FLAGSHIP_CAPACITY,
+                          speculate_k=FLAGSHIP_K)
+    feats = torch.randn((1, cfg.num_vit_tokens, cfg.vit_dim), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(16)).to(bf16)
+    want = StoryGenerator(ref, gcfg).generate(ids, feats, np.ones((1,), bool),
+                                              ids_cmp)["generate_ids"]
+    clock = StageClock()
+    clock.watch(agent.llm, lambda a, k: "prefill" if k["inputs_embeds"].shape[1] > FLAGSHIP_K + 1
+                else "decode_pass")
+    for kernel in (flash_fwd, int8_linear_kernel, int8_gemm_kernel, decode_attn):
+        kernel.launches = 0
+    got = StoryGenerator(agent, gcfg).generate(ids, feats, np.ones((1,), bool),
+                                               ids_cmp)["generate_ids"]
+    launches = {k: count() for k, count in LAUNCHES.items()}
+    clock.close()
+    equal = [int(t) for t in got] == [int(t) for t in want]
+    passes = len(clock.calls["decode_pass"])
+    per_pass = {k: clock.launches("decode_pass", k) for k in ("int8_linear", "decode_attn")}
+    if not equal:
+        failures.append(f"tokens of the converted agent ({len(got)}) against the in-memory "
+                        f"agent's ({len(want)}): equal {equal}")
+    if (clock.launches("prefill", "int8_gemm") != 7 * n or clock.launches("prefill") < n
+            or per_pass != {"int8_linear": 7 * n * passes, "decode_attn": n * passes}):
+        failures.append(f"launches: prefill int8_gemm {clock.launches('prefill', 'int8_gemm')}, "
+                        f"flash_fwd {clock.launches('prefill')}; decode {per_pass} over "
+                        f"{passes} passes")
+    print(f"converted: {n} of 32 layers at 7B width; released bin {gib['pytorch_model.bin']:.2f} "
+          f"GiB written in {secs['write_bin']:.2f} s; convert --int8 {secs['agent_int8.pt']:.2f} "
+          f"s -> {gib['agent_int8.pt']:.2f} GiB, float {secs['agent.pt']:.2f} s -> "
+          f"{gib['agent.pt']:.2f} GiB; missing / unexpected keys {counts['agent_int8.pt']} and "
+          f"{counts['agent.pt']}; load --int8 {secs['load_int8']:.2f} s, {n_int8} int8 weights "
+          f"and {n_scales} scales bit-equal to in-memory quantization; float file prefill "
+          f"logits max |diff| {logits_diff}; decode {len(got)} tokens in {passes} passes, "
+          f"{1e3 * clock.total_s('decode_pass') / max(len(got) - 1, 1):.2f} ms/token, prefill "
+          f"{1e3 * clock.total_s('prefill'):.2f} ms; tokens equal {equal}; launches "
+          f"{json.dumps(launches)} [{label}]", flush=True)
+    del ref, agent
+    free_memory()
+    if failures:
+        raise AssertionError(f"converted phase failed: {failures}")
+    return launches
+
+
 PROBE_REPORT = (
     ("probe_attn", "benchmarks/probe_attn_variants.py:77",
      ((2, 10, 4096, 64), dict(variant="base", block_q=128, block_kv=128))),
@@ -3295,6 +3486,7 @@ def main():
     unet_int8_launches, _ = timed("unet_int8", phase_unet_int8, label, stack)  # last on the bf16 UNet
     del stack, lockstep_segments
     free_memory()  # the story stack is gone
+    converted = timed("converted", phase_converted, label)
     (train_fwd, train_dq, train_dkv, _), train_stats = timed("train", phase_train, label)
     free_memory()
     (q_fwd, q_dq, q_dkv, q_gemm), q_stats = timed("train_int8", phase_train, label,
@@ -3334,21 +3526,21 @@ def main():
                    "ipa": ipa_fwd, "sd21_edit": sd21_fwd,
                    "align": align_fwd + align_story_fwd, "vit_nopool": nopool_fwd,
                    "tp_decode": tp_launches["flash_fwd"], "world_of_one": par_fwd,
-                   "ranks": rank_fwd}
+                   "ranks": rank_fwd, "converted": converted["flash_fwd"]}
     attn_paths = {"story": story_launches["decode_attn"],
                   "flagship": flagship_launches["decode_attn"],
                   "lockstep": lockstep_launches["decode_attn"],
                   "serving": serving_launches["decode_attn"], "align": align_attn,
-                  "tp_decode": tp_launches["decode_attn"]}
+                  "tp_decode": tp_launches["decode_attn"], "converted": converted["decode_attn"]}
     int8_paths = {"flagship": flagship_launches["int8_linear"],
                   "lockstep": lockstep_launches["int8_linear"],
                   "serving": serving_launches["int8_linear"],
-                  "tp_decode": tp_launches["int8_linear"]}
+                  "tp_decode": tp_launches["int8_linear"], "converted": converted["int8_linear"]}
     gemm_paths = {"flagship": flagship_launches["int8_gemm"],
                   "lockstep": lockstep_launches["int8_gemm"],
                   "serving": serving_launches["int8_gemm"], "unet_int8": unet_int8_launches,
                   "train_int8": q_gemm, "tp_decode": tp_launches["int8_gemm"],
-                  "world_of_one": par_gemm}
+                  "world_of_one": par_gemm, "converted": converted["int8_gemm"]}
     print(label, flush=True)
     print(json.dumps({"kernels": [
         {"name": "flash_fwd", "route": "cuda", "source": "seed_story_torch/csrc/flash_fwd.cu",

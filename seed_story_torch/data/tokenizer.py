@@ -69,7 +69,10 @@ def load_llama_tokenizer(pretrained_model_name_or_path: str):
            if tok.convert_tokens_to_ids(t) != LLAMA_VOCAB_SIZE + i]
     if bad:
         raise ValueError(f"tokenizer at {path!r} maps {bad[0]!r} (+{len(bad) - 1} more) "
-                         "away from the canonical 32000+ ids")
+                         "away from the canonical 32000+ ids. Convert the model with python -m "
+                         "seed_story_torch.tools.convert_torch_weights --added_tokens_json "
+                         "<released added_tokens.json> to permute rows 32000+ into the canonical "
+                         "special_tokens() order, and re-save the tokenizer in canonical order.")
     return tok
 
 

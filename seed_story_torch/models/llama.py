@@ -157,9 +157,13 @@ def quantize_weight(w: torch.Tensor):
     """(out, ...) float weight (a Linear's (out, in), a Conv2d's OIHW) ->
     int8 weight and per-output-channel f32 scale max|w| / 127 over every
     other axis, floored at 1e-8 (the JAX ``quantize_llama_params`` and
-    ``quantize_unet_params`` on the flax kernel, whose output axis is last)."""
+    ``quantize_unet_params`` on the flax kernel, whose output axis is last).
+    The bits are the same on every device: the divisor is a tensor, since
+    CUDA turns a division by a Python number into a product with its
+    reciprocal, which rounds otherwise."""
     wf = w.float()
-    scale = (wf.abs().flatten(1).amax(dim=1) / 127.0).clamp_min(1e-8)
+    amax = wf.abs().flatten(1).amax(dim=1)
+    scale = (amax / amax.new_full((), 127.0)).clamp_min(1e-8)
     q = torch.round(wf / scale.view(-1, *[1] * (w.dim() - 1))).clamp(-127, 127)
     return q.to(torch.int8), scale
 

@@ -138,12 +138,15 @@ def load_params_partial(path: str, target: Dict[str, torch.Tensor]
     """strict=False load: the entries of the state dict saved at ``path`` (a
     parameter file, or a checkpoint directory's ``params.pt``) overwrite the
     entries of ``target`` with the same name and shape, cast to the target's
-    dtype and device. Returns (merged, missing, unexpected); an entry whose
-    shape differs counts as missing, and so does one that is int8 where the
-    target is floating point or the other way round (never cast: int8 values
-    read as float weights, or float weights truncated to int8, are wrong
-    without any error)."""
-    return _merge(_read(path), target, path)
+    dtype and device. Returns (merged, missing, unexpected) and prints their
+    counts, as the JAX ``load_params_partial`` does; an entry whose shape
+    differs counts as missing, and so does one that is int8 where the target
+    is floating point or the other way round (never cast: int8 values read as
+    float weights, or float weights truncated to int8, are wrong without any
+    error). A file that shares no entry with ``target`` raises ValueError."""
+    merged, missing, unexpected = _merge(_read(path), target, path)
+    _report(path, missing, unexpected)
+    return merged, missing, unexpected
 
 
 def _read(path: str) -> Dict[str, torch.Tensor]:
@@ -152,9 +155,22 @@ def _read(path: str) -> Dict[str, torch.Tensor]:
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
+def _report(path: str, missing: List[str], unexpected: List[str]) -> None:
+    print(f"partial load from {path}: missing keys: {len(missing)}, "
+          f"unexpected keys: {len(unexpected)}", flush=True)
+
+
 def _merge(loaded: Dict[str, torch.Tensor], target: Dict[str, torch.Tensor], path: str):
+    if not any(k in target for k in loaded):
+        # e.g. a released torch checkpoint: PEFT-wrapped names, other layouts
+        raise ValueError(
+            f"{path} shares no entry with the module ({len(loaded)} entries, such as "
+            f"{next(iter(loaded), None)!r}); convert a released torch checkpoint first with "
+            "python -m seed_story_torch.tools.convert_torch_weights")
     merged = dict(target)
-    missing = [k for k in target if k not in loaded]
+    # the frozen sin-cos tables are computed by the modules, and a converted
+    # file leaves them out (weights.py and the converter skip them alike)
+    missing = [k for k in target if k not in loaded and not k.endswith("pos_embed")]
     unexpected = [k for k in loaded if k not in target]
     for k, v in loaded.items():
         if k not in target:
@@ -164,8 +180,6 @@ def _merge(loaded: Dict[str, torch.Tensor], target: Dict[str, torch.Tensor], pat
             missing.append(k)
             continue
         merged[k] = v.to(dtype=target[k].dtype, device=target[k].device)
-    log.info("partial load from %s: missing keys: %d, unexpected keys: %d",
-             path, len(missing), len(unexpected))
     return merged, missing, unexpected
 
 
@@ -180,12 +194,29 @@ def load_checkpoint_(module: torch.nn.Module, path: Optional[str],
     the quantized module. So a float checkpoint is quantized after it loads,
     as the JAX package converts a float tree with ``quantize_llama_params``,
     and a ``quantize_base`` run's int8 weights and scales load as they were
-    saved. ``path`` None only quantizes."""
+    saved. ``path`` None only quantizes.
+
+    It prints one ``partial load`` line for the file: missing are the
+    module's entries that neither pass filled (a scale the quantizer
+    computed from a loaded float weight counts as filled), unexpected the
+    file's entries that neither the float nor the quantized module has."""
     loaded = _read(path) if path else None
-    if loaded is not None:
-        module.load_state_dict(_merge(loaded, module.state_dict(), path)[0])
+    if loaded is None:
+        if quantize is not None:
+            quantize(module)
+        return module
+    target = module.state_dict()
+    merged, missing, unexpected = _merge(loaded, target, path)
+    module.load_state_dict(merged)
     if quantize is not None:
+        filled = set(target) - set(missing)
         quantize(module)
-        if loaded is not None:
-            module.load_state_dict(_merge(loaded, module.state_dict(), path)[0])
+        quantized = module.state_dict()
+        merged, missing2, unexpected2 = _merge(loaded, quantized, path)
+        module.load_state_dict(merged)
+        filled |= set(quantized) - set(missing2)
+        missing = [k for k in missing2 if k not in filled and not (
+            k not in target and k.rpartition(".")[0] + ".weight" in filled)]
+        unexpected = [k for k in unexpected2 if k in unexpected]
+    _report(path, missing, unexpected)
     return module

@@ -1,6 +1,7 @@
 """The CUDA decode kernels against their plain PyTorch versions, on the
 card: the weight-only int8 product (``csrc/int8_linear.cu``) and the
-small-query cache attention (``csrc/decode_attn.cu``).
+small-query cache attention (``csrc/decode_attn.cu``); and that
+``quantize_weight`` gives the same bits on the card as on the host.
 
 The kernels have no CPU mode, so these tests skip without CUDA. They import
 neither JAX nor the JAX package:
@@ -44,6 +45,23 @@ def _int8_inputs(m, n, k, seed):
     w = torch.randint(-127, 128, (n, k), generator=gen, device="cuda", dtype=torch.int8)
     scale = torch.rand(n, generator=gen, device="cuda") / (127 * k ** 0.5)
     return x, w, scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(4096, 4096), (11008, 4096), (640, 1280, 3, 3)])
+def test_quantize_weight_gives_the_host_bits(shape):
+    """An int8 weight and its scales quantized on the card equal those
+    quantized on the host (what ``tools/convert_torch_weights --int8``
+    writes), from bf16 and from f32 weights."""
+    _card()
+    from seed_story_torch.models.llama import quantize_weight
+
+    gen = torch.Generator(device="cuda").manual_seed(len(shape))
+    w = torch.randn(shape, generator=gen, device="cuda") / shape[1] ** 0.5
+    for weight in (w, w.to(torch.bfloat16)):
+        q, scale = quantize_weight(weight)
+        q_host, scale_host = quantize_weight(weight.cpu())
+        assert torch.equal(q.cpu(), q_host) and torch.equal(scale.cpu(), scale_host)
 
 
 @pytest.mark.gpu

@@ -2,7 +2,9 @@
 uninterrupted run bit for bit (LoRA dropout on, data position restored),
 the checkpoint manager keeps whole checkpoints only, ``load_params_partial``
 reports what it could not load and never casts int8 entries to float or
-float entries to int8, and the stage-2 (also with a ``quantize_base`` YAML
+float entries to int8, ``load_checkpoint_`` refuses a file that shares no
+entry with the module (a released layout not yet converted) and prints its
+counts, and the stage-2 (also with a ``quantize_base`` YAML
 and int8 or float ``--pretrained_agent_path`` files) and stage-3 entry points
 (``seed_story_torch.train.train_clm_sft.main``,
 ``seed_story_torch.train.train_sdxl_img2img_llm.main``) run from YAML
@@ -19,7 +21,7 @@ from PIL import Image
 
 from seed_story_torch.inference.common import fill_module
 from seed_story_torch.models.agent import AgentConfig, ContinuousLVLM
-from seed_story_torch.models.llama import LlamaConfig, quantize_llama_
+from seed_story_torch.models.llama import LlamaConfig, LlamaForCausalLM, quantize_llama_
 from seed_story_torch.train.checkpoint import (CheckpointManager, load_checkpoint_,
                                                load_params_partial, save_params)
 from seed_story_torch.train.runner import RunnerArgs, run_training
@@ -137,6 +139,41 @@ def test_load_params_partial_never_crosses_int8_and_float(tmp_path):
         got = load_checkpoint_(float_agent(0), str(tmp_path / path), quantize_llama_)
         for key, value in quantized.state_dict().items():
             assert torch.equal(got.state_dict()[key], value), (path, key)
+
+
+@pytest.mark.parametrize("quantize", [None, quantize_llama_])
+def test_load_checkpoint_refuses_a_released_layout_and_reports_counts(tmp_path, capsys,
+                                                                       quantize):
+    """A PEFT-prefixed file (a released checkpoint not yet converted) shares no
+    entry with the module: ``load_checkpoint_`` raises, naming the converter,
+    and changes nothing. A partial file prints its missing and unexpected
+    counts once, as the JAX ``load_params_partial`` does; with a quantizer, a
+    projection whose float weight was not in the file misses its scale too."""
+    def llm(seed):
+        return fill_module(LlamaForCausalLM, LlamaConfig.tiny(
+            dtype=torch.float32, num_hidden_layers=1, lora_rank=2), "cpu", seed=seed)
+
+    target, source = llm(0), llm(1)
+    before = {k: v.clone() for k, v in target.state_dict().items()}
+    save_params(str(tmp_path / "peft.pt"), {f"base_model.model.{k}": v
+                                            for k, v in source.state_dict().items()})
+    with pytest.raises(ValueError, match="seed_story_torch.tools.convert_torch_weights"):
+        load_checkpoint_(target, str(tmp_path / "peft.pt"), quantize)
+    for k, v in target.state_dict().items():
+        assert torch.equal(v, before[k]), k
+
+    partial = dict(source.state_dict())
+    del partial["model.norm.weight"], partial["model.layers.0.self_attn.q_proj.weight"]
+    partial["extra.weight"] = torch.ones(2)
+    path = str(tmp_path / "partial.pt")
+    save_params(path, partial)
+    capsys.readouterr()
+    load_checkpoint_(target, path, quantize)
+    missing = 2 if quantize is None else 3  # q_proj.weight_scale: from a random weight
+    assert capsys.readouterr().out == (f"partial load from {path}: missing keys: {missing}, "
+                                       "unexpected keys: 1\n")
+    assert torch.equal(target.state_dict()["model.layers.0.mlp.up_proj.lora_A.weight"],
+                       source.state_dict()["model.layers.0.mlp.up_proj.lora_A.weight"])
 
 
 @pytest.fixture(scope="module")
