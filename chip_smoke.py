@@ -129,9 +129,10 @@ UNets' other levels), and the backward phase the SD-2.1 ones; the kernels
 line lists them under ``new_shapes`` and ``unet_shapes``.
 
 The parallel slice's phases (``parallel/*``, ``decode/tensor_parallel.py``):
-tp_decode, after serving on the same stack (``--decode_tp 2`` and ``4``: a
-copy of the int8 agent split over a 1 x tp mesh whose devices are the one
-card, 64 greedy tokens against the agent at tp = 1 under the lockstep tie rule,
+tp_decode, after serving on the same stack (``--decode_tp 2``: a copy of
+the int8 agent split over a 1 x 2 mesh whose devices are the one card;
+tp = 4 runs on four cards in ``tools/multicard_check.py``; 64 greedy tokens
+against the agent at tp = 1 under the lockstep tie rule,
 kernel C and the flash forward launched once a layer and projection by
 each shard in the prefill, kernels A and B in every decode pass, ms/token
 of each; the kernel phases hold every kernel at the shapes of a tp = 2 / 4
@@ -145,8 +146,16 @@ under ``fsdp``: int8 weights and scales bit-equal, 168 kernel C launches a
 step), ranks (two processes sharing the card over gloo, since NCCL refuses
 two ranks on one device: a ``dp`` step at 7B width with 4 layers against
 rank 0's world-of-1 step on the same global batch, and the contrastive
-loss with negatives gathered across the ranks against the global batch's)
-and framework_free (``native_available()`` and the image path taken).
+loss with negatives gathered across the ranks against the global batch's),
+stage3_ranks (two such processes: stage 3 at SDXL width with the UNet's
+depth cut to STAGE3_RANK_DEPTH, one step at (data 1, model 2) ``fsdp_tp``,
+the UNet split over ``model``, and one at (2, 1) ``dp``, each against rank
+0's world-of-1 step: losses, grad norms, the gradient's cosine, trained and
+frozen parameters, every UNet attention's flash launches at the shard's
+heads, a rank's share of the UNet's bytes) and framework_free
+(``native_available()`` and the image path taken). The kernel phases hold
+the flash kernels at a ``model`` = 2 shard's UNet shapes too
+(``tp2_unet_*``, forward and backward).
 
 The converter's phase, converted (after unet_int8, once the story stack is
 gone): a 7B-width agent (``agent_7b_sft.yaml`` / ``llama2chat7b_lora.yaml``,
@@ -334,6 +343,17 @@ NEW_SHAPE_NAMES = tuple(case[0] for case in NEW_SHAPES)
 # the SD-2.1 edit adapter's training step runs these backward too
 NEW_BWD_SHAPES = [case for case in NEW_SHAPES if case[0].startswith("sd21_")]
 
+# A model = 2 shard of the SDXL UNet in stage 3 (parallel/sharding.py::
+# split_unet_; 2 targets a rank): self-attention at 64x64 and 32x32 on 5 of
+# 10 and 10 of 20 heads, cross-attention from those onto the resampler's 64
+# tokens; forward and backward.
+UNET_TP2_SHAPES = [
+    ("tp2_unet_self_64x64", 2, 5, 5, 4096, 4096, 64, False, None, None, "bshd"),
+    ("tp2_unet_self_32x32", 2, 10, 10, 1024, 1024, 64, False, None, None, "bshd"),
+    ("tp2_unet_cross_64x64", 2, 5, 5, 4096, 64, 64, False, None, None, "bshd"),
+    ("tp2_unet_cross_32x32", 2, 10, 10, 1024, 64, 64, False, None, None, "bshd"),
+]
+
 # (name, B, Hq, Hkv, Sq, Skv, D, causal, q_start, kv_len, layout)
 # layout "bhsd" is contiguous (B, H, S, D); "bshd" is the (B, S, H, D)
 # projection output viewed as (B, H, S, D), as the models pass it.
@@ -353,6 +373,7 @@ KERNEL_CASES = [
     ("unet_self_32x32", 2, 20, 20, 1024, 1024, 64, False, None, None, "bshd"),
     ("unet_cross_64x64", 2, 10, 10, 4096, 64, 64, False, None, None, "bshd"),
     ("unet_cross_32x32", 2, 20, 20, 1024, 64, 64, False, None, None, "bshd"),
+    *UNET_TP2_SHAPES,
     ("ragged_gqa_causal", 2, 8, 2, 200, 333, 128, True, [133, 50], [333, 170], "bhsd"),
     ("empty_rows", 2, 4, 4, 100, 300, 80, True, [-10, 5], [300, 0], "bhsd"),
     ("unaligned_d100", 2, 4, 4, 77, 150, 100, False, None, [150, 91], "bshd"),
@@ -529,9 +550,11 @@ BWD_CASES = [
     ("unet_self_32x32", 2, 20, 20, 1024, 1024, 64, False, None, None, "bshd"),
     ("unet_cross_64x64", 2, 10, 10, 4096, 64, 64, False, None, None, "bshd"),
     ("unet_cross_32x32", 2, 20, 20, 1024, 64, 64, False, None, None, "bshd"),
+    *UNET_TP2_SHAPES,
     *NEW_BWD_SHAPES,
 ]
-UNET_BWD_CASES = tuple(case[0] for case in BWD_CASES if case[0].startswith(("unet_", "sd21_")))
+UNET_BWD_CASES = tuple(case[0] for case in BWD_CASES
+                       if case[0].startswith(("unet_", "sd21_", "tp2_unet_")))
 
 
 def device_events(events) -> list:
@@ -1865,10 +1888,12 @@ def phase_lockstep(label: str, stack):
     return launches, stats, segments
 
 
-def phase_serving(label: str, stack, inline_segments, inline_s: float):
+def phase_serving(label: str, stack, inline_segments, inline_s: float, devices=None):
     """The lockstep phase's 4 seeds through PipelinedStoryServer: decode on
     the default stream, one de-tokenizer replica on the same card (the
-    stack's own UNet and VAE) on a CUDA stream of its own. Texts must equal
+    stack's own UNet and VAE) on a CUDA stream of its own, or one on each of
+    ``devices`` (``--detok_devices``: copies of the UNet and VAE on other
+    cards; the four-card check passes cards 1-3). Texts must equal
     the inline run_batch's, images agree within 2/255, segments come out in
     per-story order. Launches are totals over the phase (two threads
     launch); decode passes are counted by a hook that does not synchronize."""
@@ -1878,7 +1903,7 @@ def phase_serving(label: str, stack, inline_segments, inline_s: float):
         stack.tokenizer, lockstep_generator(agent), stack.visual_encode, None,
         StoryPipelineConfig(story_len=LOCKSTEP_ROUNDS + 1, window_size=WINDOW,
                             num_img_in_tokens=agent.cfg.num_img_in_tokens))
-    pool = DetokenizerPool(stack.detok_factory, [stack.device])
+    pool = DetokenizerPool(stack.detok_factory, devices or [stack.device])
     server = PipelinedStoryServer(pipe, pool)
     passes = []
     hook = agent.llm.register_forward_pre_hook(
@@ -2814,7 +2839,9 @@ TP_NEW = 64  # greedy tokens of the tensor-parallel decode check
 CONVERTED_LAYERS = 2  # of LLaMA-2-7B's 32, at full width
 CONVERTED_NEW = 64  # tokens the converted agent decodes
 PEFT_NORMS = ("input_layernorm", "post_attention_layernorm", "norm")  # modules_to_save
-TP_DEGREES = (2, 4)  # --decode_tp values it checks
+# --decode_tp values it checks with every shard on the one card (tp = 4 runs
+# on four cards in tools/multicard_check.py)
+TP_DEGREES = (2,)
 
 
 def parallel_agent_cfg(layers: int, quantize_base: bool = False) -> AgentConfig:
@@ -2961,7 +2988,7 @@ def phase_world_of_one(label: str):
     return launches
 
 
-def phase_tp_decode(label: str, stack):
+def phase_tp_decode(label: str, stack, degrees=None, devices=None):
     """``--decode_tp 2`` and ``--decode_tp 4`` on the story stack's int8
     agent (int8 KV cache), the one card standing in for every device: a copy
     of the agent decodes TP_NEW greedy tokens over the 1 x tp device mesh,
@@ -2970,7 +2997,10 @@ def phase_tp_decode(label: str, stack):
     top 8, within two bf16 quanta of its top); each shard must launch kernel
     C 7 a layer in the prefill, kernel A 7 and kernel B 1 a layer in every
     decode pass, and the flash forward 1 a layer in the prefill. This checks
-    correctness and the kernels' shapes, not the speed of several cards."""
+    correctness and the kernels' shapes, not the speed of several cards.
+    ``degrees`` (default TP_DEGREES) and ``devices`` (default the card
+    repeated): the four-card check (``tools/multicard_check.py``) passes
+    tp = 4 over four cards."""
     import copy
 
     from seed_story_torch.parallel.mesh import make_mesh
@@ -2999,10 +3029,11 @@ def phase_tp_decode(label: str, stack):
         walls[tp] = time.perf_counter() - t1
 
     run(1, StoryGenerator(agent, gcfg))
-    for tp in TP_DEGREES:
+    for tp in degrees or TP_DEGREES:
         t0 = time.perf_counter()
         tp_agent = copy.deepcopy(agent)
-        tp_gen = StoryGenerator(tp_agent, gcfg, mesh=make_mesh(1, tp, devices=["cuda:0"] * tp))
+        tp_gen = StoryGenerator(tp_agent, gcfg, mesh=make_mesh(1, tp, devices=(
+            devices or ["cuda:0"] * tp)))
         torch.cuda.synchronize()
         print(f"tp_decode tp={tp} build: {time.perf_counter() - t0:.3f} s, "
               f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated [{label}]", flush=True)
@@ -3053,8 +3084,9 @@ def phase_tp_decode(label: str, stack):
                   f"{passes} decode passes [{label}]", flush=True)
             if got != want:
                 failures.append(f"tp={tp} shard {r}: launches {got}, expected {want}")
-        print(f"tp_decode: tp={tp} {len(b)} tokens, {1e3 * walls[tp] / len(b):.2f} ms/token (the "
-              f"shards on one card, in turn) against tp=1 {1e3 * walls[1] / len(a):.2f} ms/token; "
+        where = "on " + ", ".join(devices) if devices else "the shards on one card, in turn"
+        print(f"tp_decode: tp={tp} {len(b)} tokens, {1e3 * walls[tp] / len(b):.2f} ms/token ({where}) "
+              f"against tp=1 {1e3 * walls[1] / len(a):.2f} ms/token; "
               f"tokens {'equal' if parted is None else f'part at {parted} (near tie)'} "
               f"[{label}]", flush=True)
         del tp_gen, tp_agent
@@ -3183,6 +3215,266 @@ def phase_ranks(label: str):
     if failures:
         raise AssertionError(f"parallel ranks phase failed: {failures}")
     return launches2
+
+
+# stage3_ranks: the UNet's depth cut (SDXL's transformer_layers_per_block is
+# (1, 2, 10)); one step each at (data 1, model 2) fsdp_tp and (2, 1) dp
+STAGE3_RANK_DEPTH = (1, 1, 2)
+STAGE3_RANK_LR = 1e-4
+
+
+def digest(t: torch.Tensor) -> int:
+    """An integer of the tensor's bits (their bytes weighted by position),
+    to hold a frozen parameter bit-equal without a host copy."""
+    b = t.detach().contiguous().view(-1).view(torch.uint8).to(torch.int64)
+    return int((b * (torch.arange(b.numel(), device=b.device) % 1_000_003 + 1)).sum())
+
+
+def gathered_grads(trainer) -> torch.Tensor:
+    """The global gradient of every trained parameter in the trainer's
+    order, flattened in f32 on the host: FSDP shards and tensor-parallel
+    slices joined. A collective under a mesh: every rank calls it."""
+    from seed_story_torch.parallel import sharding
+
+    parts = []
+    for name, p in trainer.params.items():
+        g = torch.zeros_like(sharding.to_local(p)) if p.grad is None else sharding.to_local(p.grad)
+        parts.append(sharding.full_tensor(g, p, trainer.tp_splits.get(name), trainer.model_group)
+                     .float().flatten().cpu())
+    return torch.cat(parts)
+
+
+def gathered_params(trainer) -> dict:
+    """Every whole parameter of the trainer's model: a trained one on the
+    host, a frozen one as its ``digest``. A collective under a mesh."""
+    from seed_story_torch.parallel import sharding
+
+    out = {}
+    for name, t in trainer.model.state_dict().items():
+        whole = sharding.full_tensor(sharding.to_local(t), t, trainer.tp_splits.get(name),
+                                     trainer.model_group)
+        out[name] = whole.cpu() if name in trainer.params else digest(whole)
+    return out
+
+
+def sharded_steps(model, loss_fn, mask: dict, batch: dict, mesh, preset, steps: int, lr: float,
+                  accum: int = 1, save_to=None) -> dict:
+    """``steps`` steps of ``model`` (filled on this rank's card) over ``mesh``
+    under ``preset`` (None: one process) on this rank's rows ``batch`` (host
+    arrays; leaves stacked (accum, ...) when ``accum`` > 1). Returns each
+    step's loss (the mean over the ranks), grad_norm, seconds and peak GiB,
+    the first step's global gradient, the flash launches of the steps, the
+    (batch, heads, queries, keys) its UNet attentions ran at and their
+    number, the UNet's parameter bytes on this rank against the whole
+    UNet's (a model with a ``unet``), the trained parameter names and
+    ``gathered_params`` after the steps; ``save_to``: a checkpoint directory
+    the state is saved to after the steps."""
+    from seed_story_torch.parallel import collectives
+    from seed_story_torch.train.checkpoint import CheckpointManager
+
+    unet = getattr(model, "unet", None)
+    nbytes = lambda m: sum(p.numel() * p.element_size() for p in m.parameters())  # noqa: E731
+    whole_bytes = nbytes(unet) if unet is not None else 0
+    trainer = Trainer(model, loss_fn, TrainConfig(learning_rate=lr, warmup_steps=0,
+                                                  training_steps=10, grad_accum_steps=accum,
+                                                  sharding_preset=preset or "fsdp"),
+                      trainable_mask=mask, mesh=mesh)
+    shapes = set()
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args: shapes.add((args[0].shape[0], mod.to_q.weight.shape[0] // mod.dim_head,
+                                      args[0].shape[1], args[-1].shape[1])))
+        for m in model.modules() if isinstance(m, CrossAttention)]
+    dev = next(model.parameters()).device
+    on_card = dev.type == "cuda"
+    local = to_device(batch, dev)
+    out = {"loss": [], "grad_norm": [], "seconds": [], "peak_gib": [], "n_attn": len(hooks),
+           "unet_bytes": (nbytes(unet) if unet is not None else 0, whole_bytes)}
+    before = kernel_launch_counts()
+    for step in range(steps):
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        m = trainer.accumulate_grads(local, derive_seed(0, step))
+        if step == 0:
+            out["grads"] = gathered_grads(trainer)
+        m.update(trainer.apply_updates())
+        if on_card:
+            torch.cuda.synchronize()
+        out["seconds"].append(time.perf_counter() - t0)
+        out["peak_gib"].append(torch.cuda.max_memory_allocated() / 2**30 if on_card else 0.0)
+        host = {k: float(v) for k, v in m.items()}
+        if mesh is not None:  # rank 0's reference may run while the other ranks wait
+            host = collectives.mean_metrics(host)
+        out["loss"].append(host["loss"])
+        out["grad_norm"].append(host["grad_norm"])
+    out["launches"] = [a - b for a, b in zip(kernel_launch_counts(), before)][:3]
+    for hook in hooks:
+        hook.remove()
+    out["shapes"], out["trained"] = sorted(shapes), list(trainer.params)
+    out["params"] = gathered_params(trainer)
+    if save_to is not None:
+        ckpt = CheckpointManager(save_to)
+        ckpt.save(steps, trainer)
+        ckpt.wait()
+    del trainer, local
+    free_memory()
+    return out
+
+
+def stage3_steps(adapter_cfg, frozen, batch: dict, mesh, preset, steps: int, accum: int = 1,
+                 draw=None, save_to=None, device=None) -> dict:
+    """``sharded_steps`` of stage 3: an SDXLAdapter filled from seed 3 on
+    ``device`` (default this rank's card), trained at STAGE3_RANK_LR on its resampler and UNet
+    ``to_k`` / ``to_v`` through the stage-3 loss over ``frozen`` = (ViT or
+    None, agent, VAE), the step's draws from ``draw`` (default: the loss's
+    seeded draw at the global shape)."""
+    vit, agent, vae = frozen
+    adapter = fill_module(SDXLAdapter, adapter_cfg, device or torch.device(
+        "cuda", torch.cuda.current_device()), seed=3)
+    loss_fn = make_stage3_loss_fn(adapter, agent, vae, vit, draw=draw)
+    out = sharded_steps(adapter, loss_fn, adapter_trainable_mask(adapter), batch, mesh, preset,
+                        steps, STAGE3_RANK_LR, accum=accum, save_to=save_to)
+    del adapter, loss_fn
+    free_memory()
+    return out
+
+
+def cosine(a: torch.Tensor, b: torch.Tensor) -> float:
+    """The cosine of two long vectors, summed in f64 (f32 sums over 1e8
+    entries part by percents)."""
+    a, b = a.double(), b.double()
+    return float(a @ b / (a.norm() * b.norm()))
+
+
+def compare_sharded(run: dict, ref: dict, what: str, label: str, lr: float) -> list:
+    """A sharded run against the one-process run on the global batch
+    (``sharded_steps``' results): losses within 5e-3 and grad norms within
+    1e-2 (relative), the first step's gradient cosine >= 0.999, the trained
+    parameters within 2.5 x lr a step of the reference's (an Adam step moves
+    an entry by about lr, so the two runs part by 2 lr a step where a
+    gradient entry near 0 takes the other sign; the rest is slack for the
+    decay term and rounding) and every frozen parameter bit-equal (the
+    gathered shards in their places). Prints the comparison; returns the
+    failures."""
+    failures = []
+    cos = cosine(run["grads"], ref["grads"])
+    trained = set(run["trained"])
+    diff = max(float((run["params"][k] - ref["params"][k]).abs().max()) for k in trained)
+    frozen_differ = [k for k in ref["params"] if k not in trained
+                     and run["params"][k] != ref["params"][k]]
+    rank_bytes, whole_bytes = run["unet_bytes"]
+    share = f"{rank_bytes / 2**30:.3f} GiB of {whole_bytes / 2**30:.3f} " \
+            f"({rank_bytes / whole_bytes:.4f})" if whole_bytes else "-"
+    print(f"{what}: losses {run['loss']} against {ref['loss']}, grad_norm {run['grad_norm']} "
+          f"against {ref['grad_norm']}, gradient cosine {cos:.6f}, trained parameters max |diff| "
+          f"{diff:.3g} (lr {lr}), {len(frozen_differ)} of {len(ref['params']) - len(trained)} "
+          f"frozen differ; s/step {run['seconds']} against {ref['seconds']}, peak "
+          f"{max(run['peak_gib']):.2f} against {max(ref['peak_gib']):.2f} GiB; UNet bytes a rank "
+          f"{share}; flash launches fwd/dq/dkv {run['launches']}; UNet attention (batch, heads, "
+          f"queries, keys) {run['shapes']} [{label}]", flush=True)
+    for i, (a, b) in enumerate(zip(run["loss"], ref["loss"])):
+        if not abs(a - b) <= 5e-3 * abs(b):
+            failures.append(f"{what} step {i + 1}: loss {a} against {b}")
+    for i, (a, b) in enumerate(zip(run["grad_norm"], ref["grad_norm"])):
+        if not abs(a - b) <= 1e-2 * b:
+            failures.append(f"{what} step {i + 1}: grad_norm {a} against {b}")
+    if not cos >= 0.999:
+        failures.append(f"{what}: gradient cosine {cos}")
+    if not diff <= 2.5 * lr * len(ref["loss"]):
+        failures.append(f"{what}: trained parameters differ by {diff}")
+    if frozen_differ:
+        failures.append(f"{what}: frozen {frozen_differ[:3]} differ")
+    return failures
+
+
+def stage3_rank_worker(rank: int, world: int, port: int, out: str):
+    """One of two ranks sharing the card over gloo: rank 0 first takes the
+    world-of-1 stage-3 step on the global batch; then both take one step at
+    (data 1, model 2) ``fsdp_tp`` and at (2, 1) ``dp`` on their rows."""
+    import torch.distributed as dist
+
+    from seed_story_torch.parallel import collectives
+    from seed_story_torch.parallel.mesh import make_mesh
+
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port), RANK=str(rank),
+                      WORLD_SIZE=str(world), LOCAL_RANK=str(rank))
+    collectives.initialize_multihost(device="cuda", backend="gloo")
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    agent_cfg = parallel_agent_cfg(RANK_LAYERS)
+    frozen = (None, fill_module(ContinuousLVLM, agent_cfg, dev, seed=1).eval().requires_grad_(False),
+              fill_module(AutoencoderKL, VAEConfig(), dev, seed=2).eval().requires_grad_(False))
+    batch = stage3_batch(agent_cfg)
+    batch["image_embeds"] = np.random.RandomState(5).randn(
+        batch["images"].shape[0], agent_cfg.num_vit_tokens, agent_cfg.vit_dim).astype(np.float32)
+    del batch["images"]
+    adapter_cfg = SDXLAdapterConfig(unet=SDXLUNetConfig(
+        transformer_layers_per_block=STAGE3_RANK_DEPTH))
+    result = {}
+    if rank == 0:
+        result["world1"] = stage3_steps(adapter_cfg, frozen, batch, None, None, steps=1)
+    dist.barrier()
+    for preset, (data, model) in (("fsdp_tp", (1, 2)), ("dp", (2, 1))):
+        run = stage3_steps(adapter_cfg, frozen, local_rows(batch, rank // model, data),
+                           make_mesh(data, model), preset, steps=1)
+        result[preset] = run if rank == 0 else {"launches": run["launches"]}
+    result["forbidden"] = forbidden_imports()
+    torch.save(result, os.path.join(out, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def phase_stage3_ranks(label: str):
+    """Two processes on the card over gloo (NCCL refuses two ranks on one
+    device): stage 3 at SDXL width with the UNet's depth cut to
+    STAGE3_RANK_DEPTH, the agent to RANK_LAYERS layers (the ViT features
+    given), two 1024x1024 targets; one step at (data 1, model 2) ``fsdp_tp``
+    (the UNet's Megatron split: its attentions at 5 and 10 of 10 and 20
+    heads) and one at (2, 1) ``dp``, each against rank 0's world-of-1 step
+    on the same global batch (``compare_sharded``), every UNet attention
+    launching the flash forward, dq and dk/dv once on each rank, and a rank
+    of the split holding at most 60% of the UNet's parameter bytes."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out:
+        ctx = mp.start_processes(stage3_rank_worker, args=(2, port, out), nprocs=2, join=False,
+                                 start_method="spawn")
+        while not ctx.join(timeout=5):
+            if time.perf_counter() - t0 > 400:
+                for proc in ctx.processes:
+                    proc.terminate()
+                raise AssertionError("stage3_ranks: the two ranks did not finish in 400 s")
+        ranks = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+                 for r in range(2)]
+    print(f"stage3_ranks: 2 processes over gloo on one card, {time.perf_counter() - t0:.1f} s "
+          f"in all; UNet transformer_layers_per_block {STAGE3_RANK_DEPTH}, LLaMA-2-7B width with "
+          f"{RANK_LAYERS} layers [{label}]", flush=True)
+    ref = ranks[0]["world1"]
+    n_unet_attn = ref["n_attn"]
+    failures = [f for r in ranks for f in r["forbidden"]]
+    towers_fwd = RANK_LAYERS + 2  # the LLaMA's layers and both resamplers
+    launches = [0, 0, 0]
+    for preset in ("fsdp_tp", "dp"):
+        failures += compare_sharded(ranks[0][preset], ref, f"stage3_ranks {preset}", label,
+                                    STAGE3_RANK_LR)
+        for r in range(2):
+            fwd, dq, dkv = ranks[r][preset]["launches"]
+            if dq != n_unet_attn or dkv != n_unet_attn or fwd != n_unet_attn + towers_fwd:
+                failures.append(f"{preset} rank {r}: launches fwd/dq/dkv {fwd}/{dq}/{dkv}, "
+                                f"expected {n_unet_attn + towers_fwd}/{n_unet_attn}")
+        launches = [a + b for a, b in zip(launches, ranks[0][preset]["launches"])]
+    rank_bytes, whole_bytes = ranks[0]["fsdp_tp"]["unet_bytes"]
+    if not rank_bytes <= 0.6 * whole_bytes:
+        failures.append(f"fsdp_tp: a rank holds {rank_bytes / whole_bytes:.3f} of the UNet")
+    if failures:
+        raise AssertionError(f"stage3_ranks phase failed: {failures}")
+    return launches
 
 
 def phase_framework_free(label: str):
@@ -3512,6 +3804,7 @@ def main():
     free_memory()
     par_fwd, par_dq, par_dkv, par_gemm = timed("world_of_one", phase_world_of_one, label)
     rank_fwd, rank_dq, rank_dkv, _ = timed("ranks", phase_ranks, label)
+    s3r_fwd, s3r_dq, s3r_dkv = timed("stage3_ranks", phase_stage3_ranks, label)
     timed("framework_free", phase_framework_free, label)
     at = next(r for r in rows if r["name"] == "unet_self_64x64")
     bat = next(r for r in bwd_rows if r["name"] == "llama_train_causal")
@@ -3526,7 +3819,8 @@ def main():
                    "ipa": ipa_fwd, "sd21_edit": sd21_fwd,
                    "align": align_fwd + align_story_fwd, "vit_nopool": nopool_fwd,
                    "tp_decode": tp_launches["flash_fwd"], "world_of_one": par_fwd,
-                   "ranks": rank_fwd, "converted": converted["flash_fwd"]}
+                   "ranks": rank_fwd, "converted": converted["flash_fwd"],
+                   "stage3_ranks": s3r_fwd}
     attn_paths = {"story": story_launches["decode_attn"],
                   "flagship": flagship_launches["decode_attn"],
                   "lockstep": lockstep_launches["decode_attn"],
@@ -3571,10 +3865,10 @@ def main():
           for kname, line, by_path, grads in (
               ("dq", 398, {"train": train_dq, "train_int8": q_dq, "stage3": stage3_dq,
                            "sd21_edit": sd21_dq, "align": align_dq, "world_of_one": par_dq,
-                           "ranks": rank_dq}, ("dq",)),
+                           "ranks": rank_dq, "stage3_ranks": s3r_dq}, ("dq",)),
               ("dkv", 453, {"train": train_dkv, "train_int8": q_dkv, "stage3": stage3_dkv,
                             "sd21_edit": sd21_dkv, "align": align_dkv, "world_of_one": par_dkv,
-                            "ranks": rank_dkv}, ("dk", "dv")))),
+                            "ranks": rank_dkv, "stage3_ranks": s3r_dkv}, ("dk", "dv")))),
         {"name": "int8_linear", "route": "cuda", "source": "seed_story_torch/csrc/int8_linear.cu",
          "replaces": "seed_story_tpu/models/llama.py:294 (XLA-fused, no Pallas kernel)",
          "launches": sum(int8_paths.values()), "launches_by_path": int8_paths,

@@ -30,7 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops.attention import mha
-from ...ops.dense import layer_norm, linear
+from ...ops.dense import layer_norm, linear, sharded
 from ...ops.groupnorm import FastGroupNorm
 from ..llama import quantize_weight
 
@@ -138,14 +138,16 @@ def conv_nhwc(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Ten
     """``conv`` in ``dtype`` on an NHWC tensor (channels_last underneath).
     An int8 ``conv`` convolves its weight converted to ``dtype``, then
     multiplies by its scale and adds the bias, each rounded to ``dtype``
-    (the JAX ``QConv``)."""
+    (the JAX ``QConv``). A tensor-parallel shard of ``conv`` joins its group
+    (``ops/dense.py::sharded``)."""
     bias = None if conv.bias is None else conv.bias.to(dtype)
     x = x.permute(0, 3, 1, 2).to(dtype)
     if conv.weight.dtype == torch.int8:
         y = F.conv2d(x, conv.weight.to(dtype), None, conv.stride, conv.padding)
         y = y.permute(0, 2, 3, 1) * conv.weight_scale.to(dtype)
         return y if bias is None else y + bias
-    return F.conv2d(x, conv.weight.to(dtype), bias, conv.stride, conv.padding).permute(0, 2, 3, 1)
+    return sharded(lambda xs, b: F.conv2d(xs, conv.weight.to(dtype), b, conv.stride,
+                                          conv.padding).permute(0, 2, 3, 1), conv, x, bias)
 
 
 def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
@@ -188,7 +190,9 @@ class ResnetBlock2D(nn.Module):
 
 
 class CrossAttention(nn.Module):
-    """diffusers Attention: to_q/k/v without bias, to_out.0 with bias."""
+    """diffusers Attention: to_q/k/v without bias, to_out.0 with bias. Its
+    heads follow the projections: a tensor-parallel shard attends over the
+    heads its ``to_q`` / ``to_k`` / ``to_v`` rows hold."""
 
     def __init__(self, query_dim: int, heads: int, dim_head: int, context_dim: int,
                  dtype, param_dtype):
@@ -202,17 +206,20 @@ class CrossAttention(nn.Module):
 
     def forward(self, x, context=None):
         context = x if context is None else context
-        dt, h, hd = self.dtype, self.heads, self.dim_head
+        dt, hd = self.dtype, self.dim_head
         b, lq, _ = x.shape
         lk = context.shape[1]
-        q = linear(self.to_q, x, dt).view(b, lq, h, hd).transpose(1, 2)
-        k = linear(self.to_k, context, dt).view(b, lk, h, hd).transpose(1, 2)
-        v = linear(self.to_v, context, dt).view(b, lk, h, hd).transpose(1, 2)
-        out = mha(q, k, v, causal=False).transpose(1, 2).reshape(b, lq, h * hd)
+        q = linear(self.to_q, x, dt).view(b, lq, -1, hd).transpose(1, 2)
+        k = linear(self.to_k, context, dt).view(b, lk, -1, hd).transpose(1, 2)
+        v = linear(self.to_v, context, dt).view(b, lk, -1, hd).transpose(1, 2)
+        out = mha(q, k, v, causal=False).transpose(1, 2).reshape(b, lq, -1)
         return linear(self.to_out[0], out, dt)
 
 
 class GEGLU(nn.Module):
+    """``proj``'s output is ``[h | gate]``; a tensor-parallel shard holds the
+    same rows of both halves (``split_dense(..., chunks=2)``)."""
+
     def __init__(self, dim: int, inner: int, dtype, param_dtype):
         super().__init__()
         self.dtype = dtype

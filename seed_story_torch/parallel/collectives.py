@@ -166,6 +166,18 @@ def global_mean(numerator: torch.Tensor, denominator: torch.Tensor,
     return numerator * dist.get_world_size(group) / total.to(denominator.dtype)
 
 
+_DEVICE_TYPE: Optional[str] = None
+
+
+def device_type() -> str:
+    """The kind of device the ranks compute on ("cuda" or "cpu"): the one
+    :func:`initialize_multihost` started the group for (gloo may join CUDA
+    ranks, as two processes sharing one card do), else the backend's."""
+    if _DEVICE_TYPE is not None:
+        return _DEVICE_TYPE
+    return "cuda" if dist.get_backend() == "nccl" else "cpu"
+
+
 def default_backend(device) -> str:
     """``nccl`` for CUDA, ``gloo`` for the CPU."""
     return "nccl" if torch.device(device).type == "cuda" else "gloo"
@@ -182,12 +194,15 @@ def initialize_multihost(coordinator_address: Optional[str] = None,
     in a single process (no address) or when the group is already up; any
     other failure raises: quietly going on as one process would desync a
     real multi-process launch instead of aborting it. ``backend`` None picks
-    ``nccl`` for a CUDA ``device``, ``gloo`` for the CPU."""
+    ``nccl`` for a CUDA ``device``, ``gloo`` for the CPU; the device's kind
+    is kept for the meshes (:func:`device_type`)."""
     env = os.environ
     addr = coordinator_address or env.get("COORDINATOR_ADDRESS")
     if addr is None and env.get("MASTER_ADDR"):
         addr = f"{env['MASTER_ADDR']}:{env.get('MASTER_PORT', '29500')}"
     if addr and not is_initialized():
+        global _DEVICE_TYPE
+        _DEVICE_TYPE = torch.device(device).type
         if num_processes is None:
             num_processes = int(env.get("NUM_PROCESSES", env.get("WORLD_SIZE", 1)))
         if process_id is None:

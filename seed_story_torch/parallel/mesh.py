@@ -68,8 +68,8 @@ def make_mesh(data: Optional[int] = None, model: int = 1,
         return None
     from torch.distributed.device_mesh import init_device_mesh
 
-    device_type = "cuda" if torch.distributed.get_backend() == "nccl" else "cpu"
-    return init_device_mesh(device_type, (data, model), mesh_dim_names=(DATA_AXIS, MODEL_AXIS))
+    return init_device_mesh(collectives.device_type(), (data, model),
+                            mesh_dim_names=(DATA_AXIS, MODEL_AXIS))
 
 
 def mesh_shape(data: Optional[int] = None, model: int = 1):

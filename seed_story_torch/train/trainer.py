@@ -25,10 +25,14 @@ global batch, under ``cfg.sharding_preset`` (``parallel/sharding.py``):
     averaged over ``data`` (DDP semantics), so every rank holds the
     gradient of the global batch's loss (the losses' masked means count
     their denominators over the global batch, ``collectives.global_mean``);
-  * ``fsdp``: ``fully_shard`` per decoder layer and per tower over ``data``:
-    parameters, gradients and the AdamW moments are shards;
-  * ``fsdp_tp``: ``fsdp`` plus the column / row split of the LLaMA
-    projections over ``model`` (``sharding.split_dense``).
+  * ``fsdp``: ``fully_shard`` per LLaMA decoder layer, per UNet block and
+    per tower over ``data``: parameters, gradients and the AdamW moments are
+    shards;
+  * ``fsdp_tp``: ``fsdp`` plus the column / row split over ``model`` of
+    the LLaMA projections and of any SDXL UNet in the model
+    (``sharding.apply_tensor_parallel_``); frozen modules the loss closes
+    over (stage 3's agent and VAE) stay whole on every rank, as the JAX
+    ``Trainer`` replicates its ``loss_consts``.
 
 The update acts on each rank's local shards in the same operation order;
 ``grad_norm`` stays the norm of the global gradient: each rank's f32 sum of
@@ -97,13 +101,13 @@ class Trainer:
             p.requires_grad_(trainable_mask[name])
         self.preset = cfg.sharding_preset if mesh is not None else None
         self.data_group, self.model_group = _group(mesh, "data"), _group(mesh, "model")
-        self.tp_dims: Dict[str, int] = {}
+        self.tp_splits: Dict[str, Tuple[int, int]] = {}
         whole = set()  # trainable parameters kept whole on every data rank
         if mesh is not None:
             if self.preset not in sharding.PRESETS:
                 raise ValueError(f"unknown sharding preset {self.preset!r}")
             if self.preset == "fsdp_tp" and mesh["model"].size() > 1:
-                self.tp_dims = sharding.apply_tensor_parallel_(model, self.model_group)
+                self.tp_splits = sharding.apply_tensor_parallel_(model, self.model_group)
             if self.preset in ("fsdp", "fsdp_tp"):
                 whole = sharding.apply_fsdp_(model, mesh["data"])
         self.params: Dict[str, nn.Parameter] = {
@@ -169,7 +173,7 @@ class Trainer:
         if self.preset not in (None, "dp"):
             split = {}
             for i, (name, p) in enumerate(self.params.items()):
-                axes = (sharding.is_dtensor(p), name in self.tp_dims)
+                axes = (sharding.is_dtensor(p), name in self.tp_splits)
                 if any(axes):
                     split.setdefault(axes, []).append(i)
             groups = {(True, False): self.data_group, (False, True): self.model_group,
@@ -226,7 +230,7 @@ class Trainer:
     # -- whole state (checkpoints) ---------------------------------------
 
     def _full(self, local: torch.Tensor, name: str, like: torch.Tensor) -> torch.Tensor:
-        return sharding.full_tensor(local, like, self.tp_dims.get(name), self.model_group)
+        return sharding.full_tensor(local, like, self.tp_splits.get(name), self.model_group)
 
     @torch.no_grad()
     def full_state(self) -> Tuple[Dict[str, torch.Tensor], Dict]:
@@ -257,13 +261,13 @@ class Trainer:
             raise ValueError("checkpoint names differ from the model's: "
                              f"{sorted(set(own) ^ set(params))[:8]}")
         for name, t in own.items():
-            piece = sharding.local_piece(params[name], t, self.tp_dims.get(name),
+            piece = sharding.local_piece(params[name], t, self.tp_splits.get(name),
                                          self.model_group)
             sharding.to_local(t).copy_(piece)
         local = {}
         for key in ("mu", "nu"):
-            local[key] = {name: sharding.local_piece(opt[key][name], p, self.tp_dims.get(name),
-                                                      self.model_group)
+            local[key] = {name: sharding.local_piece(opt[key][name], p,
+                                                      self.tp_splits.get(name), self.model_group)
                           for name, p in self.params.items()}
         self.load_state_dict({"step": opt["step"], **local})
 

@@ -171,7 +171,7 @@ def test_port_imports_no_jax_flax_yaml_or_pil():
         "common", "probe_kernels", "probe_attn_variants", "probe_attn_overhead",
         "probe_attn_dma")} <= set(names)
     assert {f"seed_story_torch.tools.{m}" for m in (
-        "convert_torch_weights", "reload_qwen_vit", "storystream")} <= set(names)
+        "convert_torch_weights", "reload_qwen_vit", "storystream", "multicard_check")} <= set(names)
     # the port keeps its own copies of the JAX package's framework-free modules
     code = ("import importlib, sys\n"
             f"for name in {names!r}:\n"
