@@ -2831,9 +2831,11 @@ def phase_vit_nopool(label: str):
 # row it reports: shape and, for the variants' kernel, variant and tiles).
 # The parallel layer (parallel/*, decode/tensor_parallel.py). Stage 2 at
 # full width (LLaMA-2-7B: 4096 hidden, 32 heads, 11008 MLP; ViT-bigG) with
-# the LLaMA cut to PARALLEL_LAYERS layers, so that three trainers in turn
-# (and two ranks sharing the card) fit the time and the card's memory.
+# the LLaMA cut to WORLD1_LAYERS layers in world_of_one, so that its four
+# trainers in turn fit the time (its checks are bit-equality, which more
+# layers do not strengthen), and to PARALLEL_LAYERS in the four-card check.
 PARALLEL_LAYERS, PARALLEL_STEPS = 8, 2
+WORLD1_LAYERS = 4
 RANK_LAYERS = 4  # each of the two ranks on the one card holds its own agent
 TP_NEW = 64  # greedy tokens of the tensor-parallel decode check
 CONVERTED_LAYERS = 2  # of LLaMA-2-7B's 32, at full width
@@ -2906,7 +2908,7 @@ def phase_world_of_one(label: str):
     from seed_story_torch.parallel.mesh import make_mesh
 
     dist = start_world_of_one()
-    cfg = parallel_agent_cfg(PARALLEL_LAYERS)
+    cfg = parallel_agent_cfg(WORLD1_LAYERS)
     n = cfg.llm.num_hidden_layers
     print(f"parallel cuts: world of 1 over NCCL; LLaMA-2-7B width with {n} of 32 layers, "
           f"ViT-bigG whole; {PARALLEL_STEPS} steps a trainer on the train phase's batch "
@@ -2955,7 +2957,7 @@ def phase_world_of_one(label: str):
     del runs, ref_params, initial
     free_memory()
 
-    qcfg = parallel_agent_cfg(PARALLEL_LAYERS)
+    qcfg = parallel_agent_cfg(WORLD1_LAYERS)
     agent = fill_module(ContinuousLVLM, qcfg, "cuda", seed=1)
     quantize_agent_(agent, base=True, kv=False)
     frozen = {k: v.detach().clone() for k, v in agent.state_dict().items()
@@ -3096,12 +3098,35 @@ def phase_tp_decode(label: str, stack, degrees=None, devices=None):
     return tp_launches
 
 
-def rank_worker(rank: int, world: int, port: int, out: str):
+# ranks: the layouts of the vocabulary over model and of the int8 base over
+# data, (name, preset, (data, model), quantize_base), LAYOUT_STEPS steps each
+RANK_LAYOUTS = (("vocab", "fsdp_tp", (1, 2), False), ("int8", "fsdp", (2, 1), True))
+LAYOUT_STEPS, LAYOUT_LR = 2, 1e-3
+
+
+@contextlib.contextmanager
+def whole_weight_layout():
+    """The layout before the vocabulary split and the int8 base's data
+    shards, for s/step and peak memory beside theirs: ``split_vocab_`` and
+    ``shard_int8_base_`` made no-ops, so both stay whole on every rank."""
+    from unittest import mock
+
+    from seed_story_torch.parallel import sharding
+
+    with mock.patch.object(sharding, "split_vocab_", lambda *args: False), \
+            mock.patch.object(sharding, "shard_int8_base_", lambda *args: None):
+        yield
+
+
+def rank_worker(rank: int, world: int, port: int, out: str, label: str):
     """One of two ranks sharing the card over gloo (NCCL refuses two ranks on
     one device), CUDA tensors staged through the host: rank 0 first takes
     the world-of-1 reference step on the global batch; then both take a
     ``dp`` step on their halves, and the contrastive loss with negatives
-    gathered across the ranks."""
+    gathered across the ranks. Then, for each of RANK_LAYOUTS, rank 0 takes
+    LAYOUT_STEPS world-of-1 steps on the global batch and both ranks the
+    same steps in the layout and in the whole-weight layout; rank 0 holds
+    the layout to its world-of-1 steps (``compare_sharded``)."""
     import torch.distributed as dist
 
     from seed_story_torch.models.discrete import contrastive_loss
@@ -3156,6 +3181,7 @@ def rank_worker(rank: int, world: int, port: int, out: str):
         result["grad_rel"] = float((grads - ref[2]).norm() / ref[2].norm())
     del trainer, agent, grads
     free_memory()
+    result.update(layout_runs(rank, cfg, batch, dev, label))
     feats = torch.from_numpy(np.random.RandomState(6).randn(2, 8, 4096).astype(np.float32)).to(dev)
     img, txt = feats[0], feats[1]
     local = contrastive_loss(img[4 * rank:4 * rank + 4], txt[4 * rank:4 * rank + 4],
@@ -3167,13 +3193,66 @@ def rank_worker(rank: int, world: int, port: int, out: str):
     dist.destroy_process_group()
 
 
+def layout_runs(rank: int, cfg: AgentConfig, batch: dict, dev, label: str) -> dict:
+    """RANK_LAYOUTS on this rank (``rank_worker``; a process group of two
+    ranks): rank 0's world-of-1 steps of ``cfg``'s agent on the global
+    ``batch`` (host arrays, ViT features given), then both ranks' steps in
+    the layout and in the whole-weight layout on their rows; rank 0 holds
+    the layout to its world-of-1 steps. Returns {layout: results}."""
+    import torch.distributed as dist
+
+    from seed_story_torch.parallel.mesh import make_mesh
+
+    result = {}
+    for name, preset, (data, model), quantize in RANK_LAYOUTS:
+        def steps(mesh, rows, gather=True):
+            agent = fill_module(ContinuousLVLM, cfg, dev, seed=1)
+            if quantize:
+                quantize_agent_(agent, base=True, kv=False)
+            run = sharded_steps(agent, make_stage2_loss_fn(agent), stage2_mask(agent), rows,
+                                mesh, preset if mesh is not None else None, LAYOUT_STEPS,
+                                LAYOUT_LR, gather=gather)
+            del agent
+            free_memory()
+            return run
+
+        ref = steps(None, batch) if rank == 0 else None
+        dist.barrier()
+        rows = local_rows(batch, rank // model, data)
+        run = steps(make_mesh(data, model), rows)
+        with whole_weight_layout():  # timed only
+            whole = steps(make_mesh(data, model), rows, gather=False)
+        keep = ("seconds", "peak_gib", "vocab_bytes", "int8_bytes", "launches",
+                "int8_gemm_launches")
+        result[name] = {"run": {k: run[k] for k in keep}, "whole": {k: whole[k] for k in keep}}
+        if rank == 0:
+            scales = [k for k in ref["params"] if k.endswith("weight_scale")]
+            int8 = scales + [k[:-len("_scale")] for k in scales]
+            result[name].update(
+                ref={k: ref[k] for k in keep},
+                failures=compare_sharded(run, ref, f"parallel ranks {name} {preset} "
+                                         f"({data}, {model})", label, LAYOUT_LR),
+                int8_gather_equal=(sum(run["params"][k] == ref["params"][k] for k in int8),
+                                   len(int8)))
+        del ref, run, whole
+        free_memory()
+    return result
+
+
 def phase_ranks(label: str):
     """Two processes on the one card over gloo: the ``dp`` step of two ranks
     against rank 0's world-of-1 step on the same global batch (the stage-2
     batch at LLaMA-2-7B width, RANK_LAYERS layers, the ViT features given):
     losses within 5e-3, grad norms within 1e-2, the averaged gradient's
     cosine to the global one >= 0.999; the contrastive loss across the
-    ranks against the global batch's within 1e-5."""
+    ranks against the global batch's within 1e-5. Then RANK_LAYOUTS: (1, 2)
+    ``fsdp_tp`` with the vocabulary split over ``model`` and (2, 1)
+    ``fsdp`` with a ``quantize_base`` base's int8 weights over ``data``,
+    each held to rank 0's world-of-1 steps (``compare_sharded``'s limits),
+    a rank holding at most 55% of the vocabulary tables' or of the int8
+    base's bytes, the int8 weights and scales gathered bit-equal to the
+    whole ones and kernel C launched 3 x 7 a layer a step; s/step and peak
+    GiB beside the whole-weight layout (``whole_weight_layout``)."""
     import socket
 
     import torch.multiprocessing as mp
@@ -3183,13 +3262,13 @@ def phase_ranks(label: str):
         port = sock.getsockname()[1]
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as out:
-        ctx = mp.start_processes(rank_worker, args=(2, port, out), nprocs=2, join=False,
+        ctx = mp.start_processes(rank_worker, args=(2, port, out, label), nprocs=2, join=False,
                                  start_method="spawn")
         while not ctx.join(timeout=5):
-            if time.perf_counter() - t0 > 300:
+            if time.perf_counter() - t0 > 600:
                 for proc in ctx.processes:
                     proc.terminate()
-                raise AssertionError("parallel ranks: the two ranks did not finish in 300 s")
+                raise AssertionError("parallel ranks: the two ranks did not finish in 600 s")
         ranks = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
                  for r in range(2)]
     r0 = ranks[0]
@@ -3212,9 +3291,45 @@ def phase_ranks(label: str):
         failures.append(f"contrastive across ranks {con}")
     if launches2[1] != RANK_LAYERS + 2 or launches2[2] != RANK_LAYERS + 2:
         failures.append(f"dp step: launches {launches2}")
+    layout_failures, launches = check_layouts(ranks, label)
+    failures += layout_failures
+    launches = [a + b for a, b in zip(launches2, launches)]
     if failures:
         raise AssertionError(f"parallel ranks phase failed: {failures}")
-    return launches2
+    return launches
+
+
+def check_layouts(ranks: list, label: str, layers: int = RANK_LAYERS):
+    """Prints and checks ``layout_runs``' results of two ranks at ``layers``
+    layers; returns (failures, rank 0's launches of the layouts: fwd, dq,
+    dkv, int8_gemm)."""
+    r0, failures, launches = ranks[0], [], [0, 0, 0, 0]
+    for name, preset, mesh, _ in RANK_LAYOUTS:
+        failures += r0[name]["failures"]
+        equal, n_int8 = r0[name]["int8_gather_equal"]
+        for r in range(2):
+            run, whole = ranks[r][name]["run"], ranks[r][name]["whole"]
+            held = {k: run[f"{k}_bytes"] for k in ("vocab", "int8")}
+            print(f"parallel ranks {name} {preset} {mesh} rank {r}: "
+                  + ", ".join(f"{k} {h / 2**30:.4f} GiB of {w / 2**30:.4f} ({h / max(w, 1):.4f}; "
+                              f"whole-weight layout {whole[f'{k}_bytes'][0] / 2**30:.4f})"
+                              for k, (h, w) in held.items() if w)
+                  + f"; s/step {run['seconds']} against {whole['seconds']} in the whole-weight "
+                  f"layout; peak {max(run['peak_gib']):.2f} against {max(whole['peak_gib']):.2f} "
+                  f"GiB; int8 gather bit-equal {equal} of {n_int8}; int8_gemm launches "
+                  f"{run['int8_gemm_launches']} [{label}]", flush=True)
+            kind = "int8" if name == "int8" else "vocab"
+            if not held[kind][0] <= 0.55 * held[kind][1]:
+                failures.append(f"{name} rank {r}: holds {held[kind]} of the {kind} bytes")
+            want_gemm = 3 * 7 * layers * LAYOUT_STEPS if name == "int8" else 0
+            if run["int8_gemm_launches"] != want_gemm:
+                failures.append(f"{name} rank {r}: {run['int8_gemm_launches']} int8_gemm "
+                                f"launches, expected {want_gemm}")
+        if equal != n_int8 or (name == "int8" and n_int8 != 2 * 7 * layers):
+            failures.append(f"{name}: int8 gather bit-equal {equal} of {n_int8}")
+        run = r0[name]["run"]
+        launches = [a + b for a, b in zip(launches, [*run["launches"], run["int8_gemm_launches"]])]
+    return failures, launches
 
 
 # stage3_ranks: the UNet's depth cut (SDXL's transformer_layers_per_block is
@@ -3230,6 +3345,22 @@ def digest(t: torch.Tensor) -> int:
     return int((b * (torch.arange(b.numel(), device=b.device) % 1_000_003 + 1)).sum())
 
 
+def held_bytes(model) -> dict:
+    """The bytes of this rank's pieces of the UNet's parameters (a model
+    with a ``unet``), of the LLaMA's ``embed_tokens`` and ``lm_head`` and
+    of its int8 base (the int8 weights and their scales)."""
+    from seed_story_torch.parallel.sharding import to_local
+
+    out = {"unet": 0, "vocab": 0, "int8": 0}
+    unet = {id(p) for p in getattr(model, "unet", torch.nn.Module()).parameters()}
+    for name, p in model.named_parameters():
+        n = to_local(p).numel() * p.element_size()
+        out["unet"] += n if id(p) in unet else 0
+        out["vocab"] += n if name.endswith(("embed_tokens.weight", "lm_head.weight")) else 0
+        out["int8"] += n if p.dtype == torch.int8 or name.endswith("weight_scale") else 0
+    return out
+
+
 def gathered_grads(trainer) -> torch.Tensor:
     """The global gradient of every trained parameter in the trainer's
     order, flattened in f32 on the host: FSDP shards and tensor-parallel
@@ -3239,8 +3370,7 @@ def gathered_grads(trainer) -> torch.Tensor:
     parts = []
     for name, p in trainer.params.items():
         g = torch.zeros_like(sharding.to_local(p)) if p.grad is None else sharding.to_local(p.grad)
-        parts.append(sharding.full_tensor(g, p, trainer.tp_splits.get(name), trainer.model_group)
-                     .float().flatten().cpu())
+        parts.append(trainer.whole_tensor(g, name, p).float().flatten().cpu())
     return torch.cat(parts)
 
 
@@ -3251,34 +3381,34 @@ def gathered_params(trainer) -> dict:
 
     out = {}
     for name, t in trainer.model.state_dict().items():
-        whole = sharding.full_tensor(sharding.to_local(t), t, trainer.tp_splits.get(name),
-                                     trainer.model_group)
+        whole = trainer.whole_tensor(sharding.to_local(t), name, t)
         out[name] = whole.cpu() if name in trainer.params else digest(whole)
     return out
 
 
 def sharded_steps(model, loss_fn, mask: dict, batch: dict, mesh, preset, steps: int, lr: float,
-                  accum: int = 1, save_to=None) -> dict:
+                  accum: int = 1, save_to=None, gather: bool = True) -> dict:
     """``steps`` steps of ``model`` (filled on this rank's card) over ``mesh``
     under ``preset`` (None: one process) on this rank's rows ``batch`` (host
     arrays; leaves stacked (accum, ...) when ``accum`` > 1). Returns each
     step's loss (the mean over the ranks), grad_norm, seconds and peak GiB,
     the first step's global gradient, the flash launches of the steps, the
     (batch, heads, queries, keys) its UNet attentions ran at and their
-    number, the UNet's parameter bytes on this rank against the whole
-    UNet's (a model with a ``unet``), the trained parameter names and
-    ``gathered_params`` after the steps; ``save_to``: a checkpoint directory
-    the state is saved to after the steps."""
+    number, kernel C's launches, this rank's bytes against the whole of the
+    UNet's parameters (a model with a ``unet``), of the LLaMA's vocabulary
+    tables and of its int8 base (``held_bytes``), the trained parameter
+    names and ``gathered_params`` after the steps (without ``gather``: no
+    gradient and no parameters); ``save_to``: a checkpoint directory the
+    state is saved to after the steps."""
     from seed_story_torch.parallel import collectives
     from seed_story_torch.train.checkpoint import CheckpointManager
 
-    unet = getattr(model, "unet", None)
-    nbytes = lambda m: sum(p.numel() * p.element_size() for p in m.parameters())  # noqa: E731
-    whole_bytes = nbytes(unet) if unet is not None else 0
+    whole = held_bytes(model)
     trainer = Trainer(model, loss_fn, TrainConfig(learning_rate=lr, warmup_steps=0,
                                                   training_steps=10, grad_accum_steps=accum,
                                                   sharding_preset=preset or "fsdp"),
                       trainable_mask=mask, mesh=mesh)
+    held = held_bytes(model)
     shapes = set()
     hooks = [m.register_forward_pre_hook(
         lambda mod, args: shapes.add((args[0].shape[0], mod.to_q.weight.shape[0] // mod.dim_head,
@@ -3288,7 +3418,7 @@ def sharded_steps(model, loss_fn, mask: dict, batch: dict, mesh, preset, steps: 
     on_card = dev.type == "cuda"
     local = to_device(batch, dev)
     out = {"loss": [], "grad_norm": [], "seconds": [], "peak_gib": [], "n_attn": len(hooks),
-           "unet_bytes": (nbytes(unet) if unet is not None else 0, whole_bytes)}
+           **{f"{k}_bytes": (held[k], whole[k]) for k in held}}
     before = kernel_launch_counts()
     for step in range(steps):
         if on_card:
@@ -3296,7 +3426,7 @@ def sharded_steps(model, loss_fn, mask: dict, batch: dict, mesh, preset, steps: 
             torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         m = trainer.accumulate_grads(local, derive_seed(0, step))
-        if step == 0:
+        if step == 0 and gather:
             out["grads"] = gathered_grads(trainer)
         m.update(trainer.apply_updates())
         if on_card:
@@ -3308,11 +3438,13 @@ def sharded_steps(model, loss_fn, mask: dict, batch: dict, mesh, preset, steps: 
             host = collectives.mean_metrics(host)
         out["loss"].append(host["loss"])
         out["grad_norm"].append(host["grad_norm"])
-    out["launches"] = [a - b for a, b in zip(kernel_launch_counts(), before)][:3]
+    counts = [a - b for a, b in zip(kernel_launch_counts(), before)]
+    out["launches"], out["int8_gemm_launches"] = counts[:3], counts[3]
     for hook in hooks:
         hook.remove()
     out["shapes"], out["trained"] = sorted(shapes), list(trainer.params)
-    out["params"] = gathered_params(trainer)
+    if gather:
+        out["params"] = gathered_params(trainer)
     if save_to is not None:
         ckpt = CheckpointManager(save_to)
         ckpt.save(steps, trainer)
@@ -3347,6 +3479,15 @@ def cosine(a: torch.Tensor, b: torch.Tensor) -> float:
     return float(a @ b / (a.norm() * b.norm()))
 
 
+def share_text(run: dict) -> str:
+    """A rank's bytes of the UNet, the vocabulary tables and the int8 base
+    against the whole (``sharded_steps``' results), for those the model has."""
+    parts = [f"{kind} bytes a rank {held / 2**30:.3f} GiB of {whole / 2**30:.3f} "
+             f"({held / whole:.4f})" for kind in ("unet", "vocab", "int8")
+             for held, whole in [run[f"{kind}_bytes"]] if whole]
+    return "; ".join(parts) or "no UNet, vocabulary or int8 bytes"
+
+
 def compare_sharded(run: dict, ref: dict, what: str, label: str, lr: float) -> list:
     """A sharded run against the one-process run on the global batch
     (``sharded_steps``' results): losses within 5e-3 and grad norms within
@@ -3363,16 +3504,13 @@ def compare_sharded(run: dict, ref: dict, what: str, label: str, lr: float) -> l
     diff = max(float((run["params"][k] - ref["params"][k]).abs().max()) for k in trained)
     frozen_differ = [k for k in ref["params"] if k not in trained
                      and run["params"][k] != ref["params"][k]]
-    rank_bytes, whole_bytes = run["unet_bytes"]
-    share = f"{rank_bytes / 2**30:.3f} GiB of {whole_bytes / 2**30:.3f} " \
-            f"({rank_bytes / whole_bytes:.4f})" if whole_bytes else "-"
     print(f"{what}: losses {run['loss']} against {ref['loss']}, grad_norm {run['grad_norm']} "
           f"against {ref['grad_norm']}, gradient cosine {cos:.6f}, trained parameters max |diff| "
           f"{diff:.3g} (lr {lr}), {len(frozen_differ)} of {len(ref['params']) - len(trained)} "
           f"frozen differ; s/step {run['seconds']} against {ref['seconds']}, peak "
-          f"{max(run['peak_gib']):.2f} against {max(ref['peak_gib']):.2f} GiB; UNet bytes a rank "
-          f"{share}; flash launches fwd/dq/dkv {run['launches']}; UNet attention (batch, heads, "
-          f"queries, keys) {run['shapes']} [{label}]", flush=True)
+          f"{max(run['peak_gib']):.2f} against {max(ref['peak_gib']):.2f} GiB; {share_text(run)}; "
+          f"flash launches fwd/dq/dkv {run['launches']}, int8_gemm {run['int8_gemm_launches']}; "
+          f"UNet attention (batch, heads, queries, keys) {run['shapes']} [{label}]", flush=True)
     for i, (a, b) in enumerate(zip(run["loss"], ref["loss"])):
         if not abs(a - b) <= 5e-3 * abs(b):
             failures.append(f"{what} step {i + 1}: loss {a} against {b}")
@@ -3803,7 +3941,7 @@ def main():
     nopool_fwd = timed("vit_nopool", phase_vit_nopool, label)
     free_memory()
     par_fwd, par_dq, par_dkv, par_gemm = timed("world_of_one", phase_world_of_one, label)
-    rank_fwd, rank_dq, rank_dkv, _ = timed("ranks", phase_ranks, label)
+    rank_fwd, rank_dq, rank_dkv, rank_gemm = timed("ranks", phase_ranks, label)
     s3r_fwd, s3r_dq, s3r_dkv = timed("stage3_ranks", phase_stage3_ranks, label)
     timed("framework_free", phase_framework_free, label)
     at = next(r for r in rows if r["name"] == "unet_self_64x64")
@@ -3834,7 +3972,8 @@ def main():
                   "lockstep": lockstep_launches["int8_gemm"],
                   "serving": serving_launches["int8_gemm"], "unet_int8": unet_int8_launches,
                   "train_int8": q_gemm, "tp_decode": tp_launches["int8_gemm"],
-                  "world_of_one": par_gemm, "converted": converted["int8_gemm"]}
+                  "world_of_one": par_gemm, "converted": converted["int8_gemm"],
+                  "ranks": rank_gemm}
     print(label, flush=True)
     print(json.dumps({"kernels": [
         {"name": "flash_fwd", "route": "cuda", "source": "seed_story_torch/csrc/flash_fwd.cu",

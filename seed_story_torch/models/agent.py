@@ -143,7 +143,7 @@ class ContinuousLVLM(_GenerationSurface):
         else:
             out = self.llm(inputs_embeds=inputs_embeds, attention_mask=attention_mask,
                            dropout_seed=dropout_seed)
-            lm_loss = cross_entropy_loss(out["logits"], labels)
+            lm_loss = cross_entropy_loss(out["logits"], labels, vocab=self.llm.vocab_shard())
             hidden = out["hidden_states"]
         gen_blocks = gather_image_hidden(hidden, ids_gen_mask, embeds_gen_mask,
                                          cfg.num_img_out_tokens)

@@ -22,6 +22,14 @@ Training surface: LoRA dropout on the adapter input with masks drawn from
 masks again; per-layer ``remat``; ``hidden_states`` + ``chunked_loss``
 (next-token CE in sequence chunks, never the (B, S, V) logits);
 ``lora_trainable_mask``.
+
+Under a mesh (``parallel/sharding.py``) a layer may be a shard: a
+projection's Megatron split (``LoRADense.tp``); the vocabulary over
+``model`` (``embed_tokens`` by rows: :meth:`LlamaModel.embed` adds the
+shards' rows; ``lm_head`` by columns: the logits and the cross-entropy
+are taken on vocabulary shards, :func:`vocab_parallel_log_likelihood`);
+an int8 base weight over ``data`` (``LoRADense.data_shard``: the product
+gathers it).
 """
 
 from __future__ import annotations
@@ -37,7 +45,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import decode_attention, mha
-from ..ops.int8_linear import int8_linear
+from ..ops.int8_linear import int8_linear, int8_linear_gathered
 from ..ops.rope import apply_rope, rope_frequencies
 from ..parallel.collectives import bound_group, copy_to_group, global_mean, reduce_from_group
 
@@ -232,7 +240,12 @@ class LoRADense(nn.Module):
     takes the whole x, its gradient to x summed over the group, and the
     LoRA intermediate x A^T whole (its gradient summed, so ``lora_A``'s is
     whole on every rank); a row shard (which has no bias) sums its partial
-    x_r W_r^T and x_r A_r^T over the group, the latter before ``lora_B``."""
+    x_r W_r^T and x_r A_r^T over the group, the latter before ``lora_B``.
+
+    ``data_shard`` (a ``parallel.sharding.DataShard``, set by
+    ``shard_int8_base_``) means the int8 weight and its scale are this
+    rank's row slices over a data group; the product gathers them
+    (``int8_linear_gathered``)."""
 
     def __init__(self, in_features: int, out_features: int, *, bias: bool = False,
                  lora_rank: int = 0, lora_alpha: float = 32.0, lora_dropout: float = 0.0,
@@ -252,6 +265,7 @@ class LoRADense(nn.Module):
         self.lora_dropout = lora_dropout
         self.dropout_key = ""
         self.tp = None
+        self.data_shard = None
         if lora_rank > 0:
             self.scaling = lora_alpha / lora_rank
             self.lora_A = nn.Linear(in_features, lora_rank, bias=False, dtype=param_dtype)
@@ -278,7 +292,10 @@ class LoRADense(nn.Module):
         bias = None if self.bias is None else self.bias.to(dt)
         xb = copy_to_group(x, tp.group) if col else x
         if self.quantized:
-            y = int8_linear(xb, self.weight, self.weight_scale)
+            shard = self.data_shard
+            y = (int8_linear(xb, self.weight, self.weight_scale) if shard is None else
+                 int8_linear_gathered(xb, self.weight, self.weight_scale, shard.rows,
+                                      shard.group))
             if bias is not None:
                 y = y + bias
         else:
@@ -403,7 +420,19 @@ class LlamaModel(nn.Module):
                     m.dropout_key = f"layers.{i}.{name}"
 
     def embed(self, input_ids):
-        return self.embed_tokens(input_ids).to(self.cfg.dtype)
+        """Token embeddings in ``cfg.dtype``. A row shard of the table
+        (``parallel.sharding.split_embedding``) looks up the ids it owns,
+        gives zero rows for the others and adds the shards' rows over its
+        group, so its gradient reaches only its own rows."""
+        table = self.embed_tokens
+        tp = getattr(table, "tp", None)
+        if tp is None or tp.group is None:
+            return table(input_ids).to(self.cfg.dtype)
+        rows = self.cfg.vocab_padded // tp.size
+        local = input_ids - tp.rank * rows
+        own = (local >= 0) & (local < rows)
+        x = torch.where(own[..., None], table(torch.where(own, local, 0)), 0.0)
+        return reduce_from_group(x, tp.group).to(self.cfg.dtype)
 
     def forward(self, input_ids=None, *, inputs_embeds=None, cache: Optional[KVCache] = None,
                 attention_mask: Optional[torch.Tensor] = None,
@@ -494,12 +523,26 @@ class LlamaForCausalLM(nn.Module):
             head_in = hidden[rows, logits_indices.to(hidden.device)][:, None]
         return {"logits": self._logits(head_in), "hidden_states": hidden, "cache": cache}
 
+    def vocab_shard(self) -> Optional[Tuple[int, object]]:
+        """(first vocabulary id, process group) of this rank's columns of the
+        logits when ``lm_head`` is a column shard over a group
+        (``parallel.sharding.split_vocab_``), else None."""
+        tp = getattr(self.lm_head, "tp", None)
+        if tp is None or tp.group is None:
+            return None
+        return tp.rank * (self.cfg.vocab_padded // tp.size), tp.group
+
     def _logits(self, hidden):
+        """The logits, rows past ``vocab_size`` masked to -1e9; on a
+        vocabulary shard, this shard's columns (its padding mask at its own
+        offset)."""
         logits = self.lm_head(hidden)
         cfg = self.cfg
         if cfg.vocab_padded != cfg.vocab_size:
-            pad = torch.arange(cfg.vocab_padded, device=logits.device) >= cfg.vocab_size
-            logits = logits.masked_fill(pad, -1e9)
+            shard = self.vocab_shard()
+            first = 0 if shard is None else shard[0]
+            ids = torch.arange(first, first + logits.shape[-1], device=logits.device)
+            logits = logits.masked_fill(ids >= cfg.vocab_size, -1e9)
         return logits
 
     def embed(self, input_ids):
@@ -516,7 +559,8 @@ class LlamaForCausalLM(nn.Module):
         taken in ``cfg.ce_chunk_size`` sequence chunks. Each chunk's logits
         and log-softmax live only inside a checkpointed call and are
         recomputed in the backward, so (B, S, V) logits never exist. The
-        last chunk is shorter instead of padded."""
+        last chunk is shorter instead of padded. On a vocabulary shard the
+        CE is taken over the shards (:func:`vocab_parallel_log_likelihood`)."""
         chunk = self.cfg.ce_chunk_size or hidden.shape[1]
         h, lab = hidden[:, :-1], labels[:, 1:]
         totals = torch.zeros(2, dtype=torch.float32, device=hidden.device)
@@ -527,22 +571,68 @@ class LlamaForCausalLM(nn.Module):
         return global_mean(totals[0], totals[1], floor=1.0)
 
     def _ce_sums(self, hidden, labels, ignore_index: int):
-        return _nll_sums(self._logits(hidden), labels, ignore_index)
+        return _nll_sums(self._logits(hidden), labels, ignore_index, self.vocab_shard())
 
 
-def _nll_sums(logits, labels, ignore_index: int):
+class _VocabParallelLogLikelihood(torch.autograd.Function):
+    """log softmax(logits)[target] from the vocabulary shards of the logits
+    over a process group, each rank holding columns ``[first, first + n)``
+    in f32: the row max all-reduced with MAX, the sum of exponentials with
+    SUM, the target's logit from the shard that owns it by SUM. The
+    gradient to a shard's logits is its slice of (one-hot - softmax)."""
+
+    @staticmethod
+    def forward(ctx, logits, target, first, group):
+        n = logits.shape[-1]
+        peak = logits.amax(dim=-1)
+        dist.all_reduce(peak, op=dist.ReduceOp.MAX, group=group)
+        exp = torch.exp(logits - peak[..., None])
+        total = exp.sum(dim=-1)
+        dist.all_reduce(total, group=group)
+        local = target - first
+        own = (local >= 0) & (local < n)
+        index = torch.where(own, local, 0)
+        hit = torch.where(own, logits.gather(-1, index[..., None])[..., 0], 0.0)
+        dist.all_reduce(hit, group=group)
+        ctx.save_for_backward(exp, total, index, own)
+        return hit - (peak + torch.log(total))
+
+    @staticmethod
+    def backward(ctx, g):
+        exp, total, index, own = ctx.saved_tensors
+        grad = exp / total[..., None] * -g[..., None]
+        grad.scatter_add_(-1, index[..., None], torch.where(own, g, 0.0)[..., None])
+        return grad, None, None, None
+
+
+def vocab_parallel_log_likelihood(logits, target, first: int, group):
+    """(...) log-likelihood in f32 of ``target`` (global vocabulary ids)
+    under the softmax over every shard's logits, from this rank's shard
+    ``logits`` (..., n) of columns ``[first, first + n)``; its gradient
+    reaches this shard's logits only. A collective over ``group``."""
+    return _VocabParallelLogLikelihood.apply(logits.float(), target, first, group)
+
+
+def _nll_sums(logits, labels, ignore_index: int, vocab: Optional[Tuple[int, object]] = None):
     """(summed negative log-likelihood in f32, number of supervised tokens)
-    of ``logits`` against ``labels`` at the same positions."""
-    logp = torch.log_softmax(logits.float(), dim=-1)
+    of ``logits`` against ``labels`` at the same positions; ``vocab`` =
+    (first id, group): ``logits`` is this rank's vocabulary shard
+    (``LlamaForCausalLM.vocab_shard``)."""
     valid = labels != ignore_index
-    tll = logp.gather(-1, torch.where(valid, labels, 0).long()[..., None])[..., 0]
+    target = torch.where(valid, labels, 0).long()
+    if vocab is None:
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        tll = logp.gather(-1, target[..., None])[..., 0]
+    else:
+        tll = vocab_parallel_log_likelihood(logits, target, *vocab)
     return torch.stack([-(tll * valid).sum(), valid.sum().float()])
 
 
-def cross_entropy_loss(logits, labels, ignore_index: int = -100):
+def cross_entropy_loss(logits, labels, ignore_index: int = -100,
+                       vocab: Optional[Tuple[int, object]] = None):
     """Mean next-token CE over supervised positions (logits[:, :-1] against
-    labels[:, 1:]), in f32."""
-    nll, count = _nll_sums(logits[:, :-1], labels[:, 1:], ignore_index)
+    labels[:, 1:]), in f32; ``vocab``: see :func:`_nll_sums`."""
+    nll, count = _nll_sums(logits[:, :-1], labels[:, 1:], ignore_index, vocab)
     return global_mean(nll, count, floor=1.0)
 
 

@@ -25,8 +25,11 @@ number of rows:
   a few rows still fill the card (``Int8Gemm.plan``).
 The gradient to x goes through kernel C's transposed form,
 ``dx = bf16( bf16(g * bf16(scale)) W )`` (``Int8LinearFunction``); W and the
-scale take none. There is no fallback: a CUDA input the kernels do not take
-raises, and so does a failed build or launch.
+scale take none. ``int8_linear_gathered`` takes W and the scale as this
+rank's row slices of a data-parallel group (the ``fsdp`` presets' int8
+base): it all-gathers them for the product and frees them, and gathers
+them again for the gradient to x. There is no fallback: a CUDA input the
+kernels do not take raises, and so does a failed build or launch.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..parallel.collectives import gather_rows
 from .cuda_lib import BuiltLibrary, check_launch
 
 MAX_KERNEL_ROWS = 32  # kernel A's rows; more rows take kernel C
@@ -283,6 +287,50 @@ class Int8LinearFunction(torch.autograd.Function):
     def backward(ctx, g):
         weight, scale = ctx.saved_tensors
         return int8_gemm_kernel.transposed(g.contiguous(), weight, scale), None, None
+
+
+def int8_linear_grad_reference(g: torch.Tensor, weight: torch.Tensor, scale: torch.Tensor):
+    """The plain gradient to x of :func:`int8_linear_reference`:
+    ``(g * scale.to(g.dtype)) W.to(g.dtype)``."""
+    return (g * scale.to(g.dtype)).matmul(weight.to(g.dtype))
+
+
+class GatheredInt8LinearFunction(torch.autograd.Function):
+    """The product on an int8 weight held as row slices over a process
+    group: the forward all-gathers W and its scale (int8 stays int8), runs
+    the product on them (kernel A or C on CUDA, the plain version on the
+    CPU) and lets them go; the backward gathers them again for the gradient
+    to x (kernel C's transposed form on CUDA). This is FSDP's reshard after
+    the forward, by hand, for the integer weights FSDP does not hold. The
+    gathered W is the whole weight bit for bit, so every row's result is
+    the one-process product's."""
+
+    @staticmethod
+    def forward(ctx, x, weight, scale, rows, group):
+        ctx.save_for_backward(weight, scale)
+        ctx.rows, ctx.group = rows, group
+        w, s = gather_rows(weight, rows, group), gather_rows(scale, rows, group)
+        return _launch_kernel(x, w, s) if x.is_cuda else int8_linear_reference(x, w, s)
+
+    @staticmethod
+    def backward(ctx, g):
+        weight, scale = ctx.saved_tensors
+        w, s = gather_rows(weight, ctx.rows, ctx.group), gather_rows(scale, ctx.rows, ctx.group)
+        if g.is_cuda:
+            dx = int8_gemm_kernel.transposed(g.contiguous(), w, s)
+        else:
+            dx = int8_linear_grad_reference(g, w, s)
+        return dx, None, None, None, None
+
+
+def int8_linear_gathered(x: torch.Tensor, weight: torch.Tensor, scale: torch.Tensor,
+                         rows: int, group):
+    """:func:`int8_linear` on the whole weight of which ``weight`` (c, K)
+    and ``scale`` (c,) are this rank's rows of ``group`` (each rank's c
+    rows in rank order, cut to ``rows``; ``parallel.sharding.row_slice``):
+    the kernels on CUDA tensors, the plain version on CPU tensors, a
+    gradient to x when x requires one."""
+    return GatheredInt8LinearFunction.apply(x, weight, scale, rows, group)
 
 
 def int8_linear(x: torch.Tensor, weight: torch.Tensor, scale: torch.Tensor,

@@ -130,6 +130,15 @@ def concat_all_gather(x: torch.Tensor, group=None) -> torch.Tensor:
     return torch.cat(out, dim=0)
 
 
+def gather_rows(local: torch.Tensor, rows: int, group) -> torch.Tensor:
+    """The ranks' equal row blocks ``local`` of ``group`` joined along dim
+    0 in rank order and cut to the first ``rows`` (a padded dim-0 shard made
+    whole again); no gradient. A collective; int8 travels as int8."""
+    out = local.new_empty((dist.get_world_size(group) * local.shape[0], *local.shape[1:]))
+    dist.all_gather_into_tensor(out, local.contiguous(), group=group)
+    return out[:rows]
+
+
 def group_rank(group=None) -> int:
     """This process's rank in ``group`` (0 when it is None)."""
     group = resolve_group(group)

@@ -15,10 +15,14 @@ and a Megatron split of the LLaMA projections and of the SDXL UNet:
     the rest of the UNet), and the root, children before parents, so a
     forward gathers one block at a time; parameters, gradients and the
     AdamW moments live as shards of dim 0 (FSDP2 shards dim 0 of every
-    parameter, and pads it to a multiple of the axis), except the int8
-    weights of a ``quantize_base`` base and trainable parameters of a
-    unit's minority dtype (f32 norms beside bf16 LoRA), which stay whole
-    (the latter averaged like ``dp``'s);
+    parameter, and pads it to a multiple of the axis). The int8 weights of
+    a ``quantize_base`` base and their scales, which FSDP does not hold
+    (torch 2.11 refuses integer parameters), are held the same way outside
+    it (:func:`shard_int8_base_`): this rank's padded dim-0 slice, which
+    the product gathers itself in the forward and again in the backward
+    (``ops/int8_linear.py::int8_linear_gathered``). Trainable parameters
+    of a unit's minority dtype (f32 norms beside bf16 LoRA) stay whole,
+    their gradients averaged like ``dp``'s;
   * ``fsdp_tp``: ``fsdp`` plus Megatron tensor parallelism over ``model``,
     written once in :func:`split_dense` (a shard records its ``TPSpec`` and
     the layer's forward joins the shards) and used by the tensor-parallel
@@ -26,7 +30,11 @@ and a Megatron split of the LLaMA projections and of the SDXL UNet:
 
       - the LLaMA: the column split of q / k / v / gate / up (``heads`` /
         ``mlp`` rows) and the row split of o / down (their ``heads`` /
-        ``mlp`` columns); embeddings, norms and ``lm_head`` stay whole;
+        ``mlp`` columns); the vocabulary (:func:`split_vocab_`):
+        ``embed_tokens`` by rows and ``lm_head`` as a column shard, so the
+        embedding adds the shards' rows and the logits and the
+        cross-entropy are taken on vocabulary shards
+        (``models/llama.py``); the norms stay whole;
       - the SDXL UNet (:func:`split_unet_`, the JAX ``heads`` / ``mlp``
         axes of ``seed_story_tpu/models/sdxl/unet.py``): each attention's
         ``to_q`` / ``to_k`` / ``to_v`` column and ``to_out.0`` row, so a
@@ -56,10 +64,11 @@ kv: resampler and latent kv dims; none of these last four is sharded):
     vocab    -      data   model
 
 A dimension that FSDP pads (dim 0 of a sharded parameter that does not
-divide ``data``) is logged loudly, as the JAX package logs one that XLA
-replicates. So is a UNet layer whose heads or width do not divide
-``model``, which stays whole on every ``model`` rank, as the JAX package
-replicates such a dim. A LLaMA width that does not divide ``model`` raises
+divide ``data``, an int8 base weight's too) is logged loudly, as the JAX
+package logs one that XLA replicates. So is a UNet layer whose heads or
+width, or a vocabulary whose padded size, do not divide ``model``: it
+stays whole on every ``model`` rank, as the JAX package replicates such a
+dim. A LLaMA width that does not divide ``model`` raises
 (:func:`split_dense`), and so does a UNet split that would cut a GroupNorm
 group.
 """
@@ -209,6 +218,42 @@ def split_dense(dense: nn.Module, style: str, rank: int, size: int, group=None,
     return shard
 
 
+def split_embedding(emb: nn.Embedding, rank: int, size: int, group=None) -> nn.Embedding:
+    """The row shard ``rank`` of ``size`` of an ``nn.Embedding`` (its
+    table's rows ``[rank n / size, (rank + 1) n / size)``) as a new
+    embedding that records its ``TPSpec`` in ``tp`` (style "col": the
+    table's dim 0 is split, as a column shard's weight) and keeps the
+    trainable flag. ``LlamaModel.embed`` looks up the ids a shard owns and
+    adds the shards' rows over ``group``."""
+    n, dim = emb.weight.shape
+    with torch.device("meta"):
+        shard = nn.Embedding(n // size, dim, dtype=emb.weight.dtype)
+    shard.weight = nn.Parameter(_slice(emb.weight, 0, rank, size),
+                                requires_grad=emb.weight.requires_grad)
+    shard.tp = TPSpec("col", rank, size, group)
+    return shard
+
+
+def split_vocab_(llm: nn.Module, rank: int, size: int, group=None) -> bool:
+    """In place: a ``LlamaForCausalLM``'s ``embed_tokens`` becomes its row
+    shard (:func:`split_embedding`) and its ``lm_head`` its column shard
+    (:func:`split_dense`) over ``group``: the JAX ``("vocab", "model")``
+    rule. A ``vocab_padded`` that does not divide ``size`` keeps both whole,
+    with a warning, as the JAX package replicates such a dim. Returns
+    whether the vocabulary was split."""
+    n = llm.cfg.vocab_padded
+    if n % size:
+        # loud: two whole 7B tables on every model rank are memory the
+        # user cannot diagnose from behavior alone
+        logger.warning("sharding fallback: vocab_padded (%d) does not divide mesh axis model "
+                       "(size %d); embed_tokens and lm_head kept whole on every model rank",
+                       n, size)
+        return False
+    llm.model.embed_tokens = split_embedding(llm.model.embed_tokens, rank, size, group)
+    llm.lm_head = split_dense(llm.lm_head, "col", rank, size, group)
+    return True
+
+
 def tp_split_dim(leaf: str, style: str) -> Optional[int]:
     """The dim along which a ``split_dense`` shard of ``style`` holds a
     slice of its parameter ``leaf`` (None: the shard holds it whole)."""
@@ -297,8 +342,10 @@ def split_unet_(unet: nn.Module, rank: int, size: int, group=None) -> List[str]:
 
 def apply_tensor_parallel_(model: nn.Module, group) -> Dict[str, Tuple[int, int]]:
     """In place: every LLaMA projection of ``model`` becomes this rank's
-    ``split_dense`` shard over ``group``, and so does every UNet of it
-    (:func:`split_unet_`). Returns :func:`tp_splits`."""
+    ``split_dense`` shard over ``group``, every LLaMA's vocabulary its
+    :func:`split_vocab_` shards, and every UNet of it its
+    :func:`split_unet_` shard. Returns :func:`tp_splits`."""
+    from ..models.llama import LlamaForCausalLM
     from ..models.sdxl.unet import UNet2DConditionModel
 
     rank, size = dist.get_rank(group), dist.get_world_size(group)
@@ -307,6 +354,8 @@ def apply_tensor_parallel_(model: nn.Module, group) -> Dict[str, Tuple[int, int]
             if child_name in TP_STYLES and hasattr(child, "lora_rank"):
                 setattr(parent, child_name, split_dense(child, TP_STYLES[child_name], rank,
                                                         size, group))
+    for llm in [m for m in model.modules() if isinstance(m, LlamaForCausalLM)]:
+        split_vocab_(llm, rank, size, group)
     for unet in [m for m in model.modules() if isinstance(m, UNet2DConditionModel)]:
         split_unet_(unet, rank, size, group)
     return tp_splits(model)
@@ -333,14 +382,17 @@ def apply_fsdp_(model: nn.Module, data_mesh) -> set:
     method the losses call then reaches its parameters through a unit's own
     forward, and a forward gathers one block at a time.
 
-    Two kinds of parameters stay whole on every rank, outside FSDP, and are
-    returned: the frozen integer ones (a ``quantize_base`` base's int8
-    weights, which FSDP cannot hold as parameters; kernel C reads them in
-    place), and the trainable ones of another dtype than the most common
-    one of their unit (an f32 RMSNorm or LayerNorm beside bf16 LoRA: FSDP
-    wants one dtype among a unit's trainable parameters), whose gradients
-    are averaged over ``data`` as under ``dp``."""
+    Returned, and kept outside FSDP: the int8 weights of a
+    ``quantize_base`` base and their scales, held as this rank's dim-0
+    slices (:func:`shard_int8_base_`; FSDP cannot hold integer
+    parameters); any other integer parameter, whole; and the trainable
+    parameters of another dtype than the most common one of their unit (an
+    f32 RMSNorm or LayerNorm beside bf16 LoRA: FSDP wants one dtype among a
+    unit's trainable parameters), whole, their gradients averaged over
+    ``data`` as under ``dp``."""
     from torch.distributed.fsdp import fully_shard
+
+    from ..models.llama import LoRADense
 
     layer_t, llama_t = _unit_types()
     units = set()
@@ -350,17 +402,77 @@ def apply_fsdp_(model: nn.Module, data_mesh) -> set:
         if m is model or isinstance(m, llama_t):
             units.update(c for c in m.children() if any(True for _ in c.parameters())
                          and not isinstance(c, (nn.ModuleList, nn.ModuleDict)))
-    ignored = _minority_dtype_params(model, units)
-    ignored |= {p for p in model.parameters() if not p.is_floating_point()}
-    for name in padded_by_fsdp(model, ignored, data_mesh.size()):
+    base = [m for m in model.modules() if isinstance(m, LoRADense) and m.quantized]
+    held = {p for m in base for p in (m.weight, m.weight_scale)}
+    whole = _minority_dtype_params(model, units)
+    whole |= {p for p in model.parameters() if not p.is_floating_point() and p not in held}
+    for name in padded_by_fsdp(model, whole, data_mesh.size()):
         # loud: a padded 7B dim is memory and traffic the user cannot
         # diagnose from behavior alone
-        logger.warning("sharding: %s dim 0 does not divide mesh axis data (size %d); FSDP "
-                       "pads it", name, data_mesh.size())
+        logger.warning("sharding: %s dim 0 does not divide mesh axis data (size %d); it is "
+                       "padded to a multiple of it", name, data_mesh.size())
+    shard_int8_base_(base, data_mesh)
+    ignored = whole | {p for m in base for p in (m.weight, m.weight_scale)}
     for m in [m for m in reversed(list(model.modules())) if m in units]:
         fully_shard(m, mesh=data_mesh, ignored_params=ignored)
     fully_shard(model, mesh=data_mesh, ignored_params=ignored)
     return ignored
+
+
+@dataclasses.dataclass(frozen=True)
+class DataShard:
+    """An int8 ``LoRADense``'s weight and scale held over ``data``: this
+    rank's rows ``[rank c, (rank + 1) c)`` of the ``rows`` of each, ``c`` =
+    ceil(rows / size), the last ranks' zero-padded to ``c`` (FSDP2's dim-0
+    shard); ``group`` is the data group the product gathers them over."""
+
+    rows: int
+    group: object
+
+
+def _padded(t: torch.Tensor, rows: int) -> torch.Tensor:
+    """``t`` with zero rows after its own, ``rows`` in all."""
+    out = t.new_zeros((rows, *t.shape[1:]))
+    out[:t.shape[0]] = t.detach()
+    return out
+
+
+def row_slice(t: torch.Tensor, rank: int, size: int) -> torch.Tensor:
+    """Rows ``[rank c, (rank + 1) c)`` of ``t``, ``c`` = ceil(rows / size),
+    zero-padded to ``c`` rows: FSDP2's dim-0 shard of ``t``."""
+    c = -(-t.shape[0] // size)
+    return _padded(t[rank * c:(rank + 1) * c], c)
+
+
+def shard_int8_base_(base: list, data_mesh) -> None:
+    """In place: each int8 ``LoRADense`` of ``base`` keeps only this data
+    rank's :func:`row_slice` of its weight and scale (both frozen) and
+    records its :class:`DataShard` in ``data_shard``; its product gathers
+    them (``models/llama.py::LoRADense.forward``). Nothing changes at one
+    data rank."""
+    size = data_mesh.size()
+    if size == 1:
+        return
+    rank, group = data_mesh.get_local_rank(), data_mesh.get_group()
+    for m in base:
+        rows = m.weight.shape[0]
+        for leaf in ("weight", "weight_scale"):
+            setattr(m, leaf, nn.Parameter(row_slice(getattr(m, leaf), rank, size),
+                                          requires_grad=False))
+        m.data_shard = DataShard(rows, group)
+
+
+def data_splits(model: nn.Module) -> Dict[str, int]:
+    """{parameter name: whole rows} of the parameters held as data-rank row
+    slices by :func:`shard_int8_base_` (the checkpoint's gather map, beside
+    :func:`tp_splits`)."""
+    out = {}
+    for path, module in model.named_modules():
+        shard = getattr(module, "data_shard", None)
+        if isinstance(shard, DataShard):
+            for leaf in ("weight", "weight_scale"):
+                out[f"{path}.{leaf}" if path else leaf] = shard.rows
+    return out
 
 
 def padded_by_fsdp(model: nn.Module, ignored: set, size: int) -> List[str]:
@@ -409,19 +521,27 @@ def to_local(t: torch.Tensor) -> torch.Tensor:
 
 
 def full_tensor(local: torch.Tensor, like: torch.Tensor,
-                tp_split: Optional[Tuple[int, int]] = None, tp_group=None) -> torch.Tensor:
-    """The whole parameter of which ``local`` is this rank's piece, laid
-    out like ``like`` (a DTensor parameter: its mesh and placements; a
-    plain one: ``local`` itself), then joined over ``tp_group`` along the
-    dim of ``tp_split`` = (dim, chunks) (each rank's piece holding its slice
-    of each of ``chunks`` blocks, :func:`_slice`). A collective: every rank
-    calls it in the same order."""
-    from torch.distributed.tensor import DTensor
+                tp_split: Optional[Tuple[int, int]] = None, tp_group=None,
+                data_rows: Optional[int] = None, data_group=None) -> torch.Tensor:
+    """The whole parameter of which ``local`` is this rank's piece: laid
+    out like ``like`` (a DTensor parameter of FSDP: dim 0 sharded over its
+    1-D mesh, rank r holding rows ``[r c, (r + 1) c)`` but the last ranks
+    fewer; a plain one: ``local`` itself), or with ``data_rows`` the
+    :func:`row_slice` of each rank of ``data_group``; each joined with one
+    plain all-gather (which gloo also takes on CUDA tensors) and cut to the
+    whole rows. Then joined over ``tp_group`` along the dim of ``tp_split``
+    = (dim, chunks) (each rank's piece holding its slice of each of
+    ``chunks`` blocks, :func:`_slice`). A collective: every rank calls it
+    in the same order."""
+    from .collectives import gather_rows
 
     t = local
     if is_dtensor(like):
-        t = DTensor.from_local(local, like.device_mesh, like.placements, shape=like.shape,
-                               stride=like.stride()).full_tensor()
+        group = _dim0_group(like)
+        c = -(-like.shape[0] // dist.get_world_size(group))
+        t = gather_rows(_padded(local, c), like.shape[0], group)
+    if data_rows is not None and data_group is not None:
+        t = gather_rows(t, data_rows, data_group)
     if tp_split is not None and tp_group is not None and dist.get_world_size(tp_group) > 1:
         dim, chunks = tp_split
         parts = [torch.empty_like(t) for _ in range(dist.get_world_size(tp_group))]
@@ -431,8 +551,21 @@ def full_tensor(local: torch.Tensor, like: torch.Tensor,
     return t
 
 
+def _dim0_group(like: torch.Tensor):
+    """The process group of a DTensor sharded along dim 0 over a 1-D mesh
+    (FSDP2's layout); another layout raises."""
+    from torch.distributed.tensor import Shard
+
+    mesh = like.device_mesh
+    if mesh.ndim != 1 or tuple(like.placements) != (Shard(0),):
+        raise ValueError(f"a DTensor placed as {like.placements} over a {mesh.ndim}-D mesh: "
+                         "the port's FSDP shards dim 0 over data only")
+    return mesh.get_group()
+
+
 def local_piece(full: torch.Tensor, like: torch.Tensor,
-                tp_split: Optional[Tuple[int, int]] = None, tp_group=None) -> torch.Tensor:
+                tp_split: Optional[Tuple[int, int]] = None, tp_group=None,
+                data_rows: Optional[int] = None, data_group=None) -> torch.Tensor:
     """The inverse of :func:`full_tensor`: this rank's piece of ``full``,
     for the local tensor of ``like``."""
     from torch.distributed.tensor import distribute_tensor
@@ -441,6 +574,8 @@ def local_piece(full: torch.Tensor, like: torch.Tensor,
     if tp_split is not None and tp_group is not None and dist.get_world_size(tp_group) > 1:
         t = _slice(t, tp_split[0], dist.get_rank(tp_group), dist.get_world_size(tp_group),
                    tp_split[1])
+    if data_rows is not None and data_group is not None:
+        t = row_slice(t, dist.get_rank(data_group), dist.get_world_size(data_group))
     if is_dtensor(like):
         t = distribute_tensor(t.to(like.device), like.device_mesh, like.placements,
                               src_data_rank=None).to_local()

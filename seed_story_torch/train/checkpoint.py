@@ -4,7 +4,10 @@ A checkpoint is one directory per step, ``<dir>/<step>/``, holding
 ``params.pt`` (the model's whole state dict), ``opt_state.pt`` (the
 trainer's whole moments and step) and ``meta.json`` (the step and each
 rank's data pipeline position). Under a mesh the shards are gathered and
-rank 0 writes, so a run saved at one world size resumes at another.
+rank 0 writes (``Trainer.full_state``: FSDP's dim-0 shards, the
+tensor-parallel slices, the vocabulary's among them, and a ``quantize_base``
+base's int8 row slices over ``data``), so a run saved at one mesh resumes
+at another, or in one process.
 ``save`` takes a consistent host copy of the state, then a
 background thread writes it under ``<dir>/<step>.tmp`` and renames it when
 whole, so only complete checkpoints carry a step's name; ``wait`` joins

@@ -34,9 +34,17 @@ Under ``torchrun --nproc_per_node N`` (or any launcher that sets
 COORDINATOR_ADDRESS / NUM_PROCESSES / PROCESS_ID) each rank runs ``main``:
 ``--mesh_data`` x ``--mesh_model`` must span the N ranks, and
 ``--sharding`` (dp / fsdp / fsdp_tp) lays the model out over them
-(``train/trainer.py``); with CUDA the group is NCCL and rank r trains on
-card ``LOCAL_RANK`` modulo the visible cards. Without a process group the
-mesh is 1 x 1 and the model trains unwrapped.
+(``train/trainer.py``, ``parallel/sharding.py``): ``dp`` replicates it;
+``fsdp`` shards every parameter over ``data`` (FSDP2 units; a
+``quantize_base`` base's int8 weights and scales as each rank's row slice
+outside FSDP, which the product gathers; a unit's minority-dtype trainable
+parameters whole); ``fsdp_tp`` adds the Megatron split over ``model`` of the
+seven projections and of the vocabulary (``embed_tokens`` by rows,
+``lm_head`` by columns, the cross-entropy over vocabulary shards). With
+CUDA the group is NCCL and rank r trains on card ``LOCAL_RANK`` modulo the
+visible cards. Without a process group the mesh is 1 x 1 and the model
+trains unwrapped. A checkpoint holds the whole state, so a run resumes at
+another mesh (``--resume_from_checkpoint``).
 """
 
 from __future__ import annotations

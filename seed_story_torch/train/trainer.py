@@ -27,9 +27,11 @@ global batch, under ``cfg.sharding_preset`` (``parallel/sharding.py``):
     their denominators over the global batch, ``collectives.global_mean``);
   * ``fsdp``: ``fully_shard`` per LLaMA decoder layer, per UNet block and
     per tower over ``data``: parameters, gradients and the AdamW moments are
-    shards;
+    shards; so are a ``quantize_base`` base's int8 weights and scales,
+    outside FSDP (``sharding.shard_int8_base_``);
   * ``fsdp_tp``: ``fsdp`` plus the column / row split over ``model`` of
-    the LLaMA projections and of any SDXL UNet in the model
+    the LLaMA projections, of the LLaMA's vocabulary (``embed_tokens`` and
+    ``lm_head``) and of any SDXL UNet in the model
     (``sharding.apply_tensor_parallel_``); frozen modules the loss closes
     over (stage 3's agent and VAE) stay whole on every rank, as the JAX
     ``Trainer`` replicates its ``loss_consts``.
@@ -39,8 +41,10 @@ The update acts on each rank's local shards in the same operation order;
 squares is all-reduced before the square root (a shard counted once).
 LoRA dropout keys each row's mask by its row of the global batch
 (``models/llama.py::lora_dropout``), so a sharded step is the one-process
-step on the global batch. ``full_state`` / ``load_full_state`` move the whole state dict, as a
-checkpoint holds it.
+step on the global batch. ``full_state`` / ``load_full_state`` move the
+whole state dict, as a checkpoint holds it: FSDP's shards, the
+tensor-parallel slices (``tp_splits``) and the int8 base's data-rank row
+slices (``data_splits``) joined.
 """
 
 from __future__ import annotations
@@ -102,6 +106,7 @@ class Trainer:
         self.preset = cfg.sharding_preset if mesh is not None else None
         self.data_group, self.model_group = _group(mesh, "data"), _group(mesh, "model")
         self.tp_splits: Dict[str, Tuple[int, int]] = {}
+        self.data_splits: Dict[str, int] = {}
         whole = set()  # trainable parameters kept whole on every data rank
         if mesh is not None:
             if self.preset not in sharding.PRESETS:
@@ -110,6 +115,7 @@ class Trainer:
                 self.tp_splits = sharding.apply_tensor_parallel_(model, self.model_group)
             if self.preset in ("fsdp", "fsdp_tp"):
                 whole = sharding.apply_fsdp_(model, mesh["data"])
+                self.data_splits = sharding.data_splits(model)
         self.params: Dict[str, nn.Parameter] = {
             name: p for name, p in model.named_parameters() if p.requires_grad}
         # the gradients averaged here over data: all under dp, the whole ones under fsdp
@@ -229,8 +235,16 @@ class Trainer:
 
     # -- whole state (checkpoints) ---------------------------------------
 
-    def _full(self, local: torch.Tensor, name: str, like: torch.Tensor) -> torch.Tensor:
-        return sharding.full_tensor(local, like, self.tp_splits.get(name), self.model_group)
+    def whole_tensor(self, local: torch.Tensor, name: str, like: torch.Tensor) -> torch.Tensor:
+        """The whole tensor of which ``local`` is this rank's piece of the
+        parameter ``name`` (``like``: the parameter), or of a tensor laid
+        out as it is (a gradient, a moment). A collective under a mesh."""
+        return sharding.full_tensor(local, like, self.tp_splits.get(name), self.model_group,
+                                    self.data_splits.get(name), self.data_group)
+
+    def _piece(self, full: torch.Tensor, name: str, like: torch.Tensor) -> torch.Tensor:
+        return sharding.local_piece(full, like, self.tp_splits.get(name), self.model_group,
+                                    self.data_splits.get(name), self.data_group)
 
     @torch.no_grad()
     def full_state(self) -> Tuple[Dict[str, torch.Tensor], Dict]:
@@ -241,11 +255,11 @@ class Trainer:
             return to_host(self.model.state_dict()), to_host(self.state_dict())
         params = {}
         for name, t in self.model.state_dict().items():
-            params[name] = self._full(sharding.to_local(t), name, t).cpu()
+            params[name] = self.whole_tensor(sharding.to_local(t), name, t).cpu()
         opt = {"step": self.step_count, "mu": {}, "nu": {}}
         for name, p in self.params.items():
-            opt["mu"][name] = self._full(self.mu[name], name, p).cpu()
-            opt["nu"][name] = self._full(self.nu[name], name, p).cpu()
+            opt["mu"][name] = self.whole_tensor(self.mu[name], name, p).cpu()
+            opt["nu"][name] = self.whole_tensor(self.nu[name], name, p).cpu()
         return params, opt
 
     @torch.no_grad()
@@ -261,13 +275,10 @@ class Trainer:
             raise ValueError("checkpoint names differ from the model's: "
                              f"{sorted(set(own) ^ set(params))[:8]}")
         for name, t in own.items():
-            piece = sharding.local_piece(params[name], t, self.tp_splits.get(name),
-                                         self.model_group)
-            sharding.to_local(t).copy_(piece)
+            sharding.to_local(t).copy_(self._piece(params[name], name, t))
         local = {}
         for key in ("mu", "nu"):
-            local[key] = {name: sharding.local_piece(opt[key][name], p,
-                                                      self.tp_splits.get(name), self.model_group)
+            local[key] = {name: self._piece(opt[key][name], name, p)
                           for name, p in self.params.items()}
         self.load_state_dict({"step": opt["step"], **local})
 

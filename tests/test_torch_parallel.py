@@ -1,7 +1,10 @@
 """The port's parallel layer on the CPU: collectives at world sizes 1 and 2,
-the contrastive loss across ranks, the ``dp`` / ``fsdp`` / ``fsdp_tp``
-trainer at 2 ranks, an FSDP checkpoint saved at 2 ranks and resumed at 1,
-the datapipe's default rank sharding, and the tensor-parallel decode.
+the contrastive loss across ranks, the vocabulary split over ``model``
+(the embedding and the cross-entropy on vocabulary shards), the ``dp`` /
+``fsdp`` / ``fsdp_tp`` trainer at 2 ranks, a ``quantize_base`` base's int8
+weights sharded over ``data``, checkpoints saved at 2 ranks (FSDP, the
+vocabulary split, the int8 shards) and resumed at 1, the datapipe's
+default rank sharding, and the tensor-parallel decode.
 
 Two ranks run once, as ``torch.multiprocessing.spawn`` processes over
 ``gloo`` (one torch thread a rank), started from the environment through
@@ -16,8 +19,9 @@ relative to the largest entry of each against the one-process port, and
 3.7e-5 of a LoRA A matrix's largest entry after 2 steps on this batch,
 where Adam's normalized update turns the f32 rounding of near-zero
 gradient entries into whole update steps); the contrastive loss 1e-5
-relative; decode tokens exactly; restored checkpoints and the resumed
-same-world step bitwise.
+relative; the vocabulary-parallel CE 1e-6 absolute against whole-logit CE
+(value and gradients); decode tokens exactly; gathered int8 weights,
+restored checkpoints and the resumed same-world step bitwise.
 """
 
 import copy
@@ -35,8 +39,10 @@ from seed_story_torch import weights as W
 from seed_story_torch.data.datapipes import JsonlStoryDataset, shard_for_host
 from seed_story_torch.models import agent as port_agent
 from seed_story_torch.models.discrete import contrastive_loss
-from seed_story_torch.models.llama import LlamaConfig, lora_trainable_mask
+from seed_story_torch.models.llama import (LlamaConfig, LlamaForCausalLM, cross_entropy_loss,
+                                           lora_trainable_mask)
 from seed_story_torch.parallel import collectives as C
+from seed_story_torch.parallel import sharding
 from seed_story_torch.parallel.mesh import DeviceGrid, make_mesh
 from seed_story_torch.train.checkpoint import CheckpointManager
 from seed_story_torch.train.stage2 import make_stage2_loss_fn
@@ -120,6 +126,56 @@ def _collectives_scenario(rank, world, outdir):
         out[key] = (loss.detach(), ti.grad, tt.grad)
     ds = JsonlStoryDataset(os.path.join(outdir, "jsonl"), lambda r: r, seed=3)
     out["files"] = ds._file_stream(0)
+    out["vocab"] = _vocab_losses(rank, world)
+    return out
+
+
+def _vocab_inputs():
+    """A LLaMA whose padded vocabulary (256) has 6 padding rows, all on the
+    last of two shards; hidden states, labels with ignored positions and
+    targets on both shards (the last real id among them), and token ids
+    from every row of the table."""
+    rng = np.random.RandomState(12)
+    cfg = LlamaConfig.tiny(dtype=torch.float32, vocab_size=250, padded_vocab_size=256,
+                           num_hidden_layers=1, ce_chunk_size=5)
+    llm = LlamaForCausalLM(cfg)
+    llm.model.embed_tokens.weight.data = torch.from_numpy(
+        rng.randn(256, cfg.hidden_size).astype(np.float32))
+    llm.lm_head.weight.data = torch.from_numpy(
+        (0.2 * rng.randn(256, cfg.hidden_size)).astype(np.float32))
+    hidden = rng.randn(2, 12, cfg.hidden_size).astype(np.float32)
+    labels = rng.randint(0, 250, (2, 12))
+    labels[0, 3:6] = -100
+    labels[1, :2] = -100
+    labels[0, 7], labels[1, 5], labels[1, 8], labels[1, 9] = 0, 249, 127, 128
+    ids = rng.randint(0, 256, (2, 12))
+    ids[0, :3] = (0, 255, 128)
+    return llm, hidden, labels, ids
+
+
+def _vocab_losses(rank=None, world=None):
+    """The CE of the whole logits and the chunked CE, each with its
+    gradients to the hidden states and to ``lm_head``, and the embedding
+    with the gradient to its table; on this rank's vocabulary shard when
+    ``rank`` is given."""
+    llm, hidden, labels, ids = _vocab_inputs()
+    if rank is not None:
+        assert sharding.split_vocab_(llm, rank, world, torch.distributed.group.WORLD)
+    lab = torch.from_numpy(labels)
+    out = {"rows": (llm.model.embed_tokens.weight.shape[0], llm.lm_head.weight.shape[0])}
+    losses = (("whole_logits", lambda h: cross_entropy_loss(llm._logits(h), lab,
+                                                            vocab=llm.vocab_shard())),
+              ("chunked", lambda h: llm.chunked_loss(h, lab)))
+    for key, loss_of in losses:
+        h = torch.from_numpy(hidden).requires_grad_()
+        llm.zero_grad(set_to_none=True)
+        loss = loss_of(h)
+        loss.backward()
+        out[key] = (loss.detach(), h.grad, llm.lm_head.weight.grad.clone())
+    w = torch.from_numpy(np.random.RandomState(13).randn(*ids.shape, 128).astype(np.float32))
+    emb = llm.embed(torch.from_numpy(ids))
+    (emb * w).sum().backward()
+    out["embed"] = (emb.detach(), llm.model.embed_tokens.weight.grad)
     return out
 
 
@@ -132,10 +188,23 @@ def _agent(dropout, outdir, param_dtype=torch.float32):
     return agent
 
 
-def _int8_agent(outdir):
+def _int8_agent(outdir, dropout=DROPOUT):
     from seed_story_torch.inference.common import quantize_agent_
 
-    return quantize_agent_(_agent(DROPOUT, outdir), base=True, kv=False)
+    return quantize_agent_(_agent(dropout, outdir), base=True, kv=False)
+
+
+def _int8_names(agent):
+    return sorted(n for n, p in agent.named_parameters()
+                  if p.dtype == torch.int8 or n.endswith("weight_scale"))
+
+
+def _save(trainer, directory):
+    """A checkpoint of ``trainer`` at its step; returns the whole state it holds."""
+    ckpt = CheckpointManager(directory)
+    assert ckpt.save(trainer.step_count, trainer)
+    ckpt.wait()
+    return trainer.full_state()
 
 
 def _mask(agent):
@@ -177,18 +246,28 @@ def _train_scenario(rank, world, outdir):
             trainer, metrics = _train(_agent(dropout, outdir), preset, batch, mesh)
             params, _ = trainer.full_state()
             out[preset, dropout] = (metrics, params)
+            if preset == "fsdp_tp" and dropout == DROPOUT:  # the vocabulary split over model
+                llm = trainer.model.llm
+                out["vocab_rows"] = tuple(sharding.to_local(t).shape[0] for t in (
+                    llm.model.embed_tokens.weight, llm.lm_head.weight))
+                out["ckpt_tp"] = _save(trainer, os.path.join(outdir, "ckpt_tp"))
     # f64 projections, embeddings and resamplers beside f32 norms: FSDP keeps
     # the norms whole, and the trainer averages their gradients
     trainer, metrics = _train(_agent(DROPOUT, outdir, torch.float64), "fsdp", batch,
                               make_mesh(2, 1))
     whole = sorted(n for n, p in trainer.params.items() if type(p) is torch.nn.Parameter)
     out["fsdp_mixed"] = (metrics, trainer.full_state()[0], whole)
-    # a quantize_base agent: its int8 weights stay whole outside FSDP
-    agent = _int8_agent(outdir)
-    trainer, metrics = _train(agent, "fsdp", batch, make_mesh(2, 1))
-    int8 = sorted(n for n, p in agent.named_parameters() if p.dtype == torch.int8
-                  and type(p) is torch.nn.Parameter)
-    out["fsdp_int8"] = (metrics, trainer.full_state()[0], int8)
+    # a quantize_base agent: its int8 weights and scales held as each data
+    # rank's rows outside FSDP, gathered by the product
+    for dropout in (DROPOUT, 0.0):
+        agent = _int8_agent(outdir, dropout)
+        trainer, metrics = _train(agent, "fsdp", batch, make_mesh(2, 1))
+        params = dict(agent.named_parameters())
+        local = {n: (tuple(params[n].shape), type(params[n]) is torch.nn.Parameter)
+                 for n in _int8_names(agent)}
+        out["fsdp_int8", dropout] = (metrics, trainer.full_state()[0], local)
+        if dropout == DROPOUT:
+            out["ckpt_int8"] = _save(trainer, os.path.join(outdir, "ckpt_int8"))
     # an FSDP checkpoint after STEPS steps, the uninterrupted run on for one
     # more step, and a fresh 2-rank trainer resumed from the checkpoint for it
     mesh = make_mesh(2, 1)
@@ -260,26 +339,30 @@ def ranks_run(tmp_path_factory):
     (out / "jsonl").mkdir()
     for i in range(5):
         (out / "jsonl" / f"part{i}.jsonl").write_text(json.dumps({"i": i}) + "\n")
+    from test_torch_train import _int8_agent_pair
+
     jagent, params, agent = _agent_pair(seed=13)
     torch.save(agent.state_dict(), out / "agent.pt")
     batch = _stage2_batch()
     np.savez(out / "batch.npz", **batch)
     ctx = _spawn("all", out)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    jint8, qparams, _ = _int8_agent_pair(seed=13)  # the same float tree, quantized
     jax_runs = {}
-    for preset in PRESETS:
+    for run, preset, ja, jp in (*((p, p, jagent, params) for p in PRESETS),
+                                ("fsdp_int8", "fsdp", jint8, qparams)):
         mesh = jax_mesh(data=1, model=2) if preset == "fsdp_tp" else jax_mesh(data=2, model=1)
         jcfg = ref_trainer.TrainConfig(sharding_preset=preset, **TRAIN)
-        jtrainer = ref_trainer.Trainer(mesh, jax.eval_shape(lambda: params),
-                                       ref_stage2.make_stage2_loss_fn(jagent), jcfg,
-                                       trainable_mask=_stage2_mask_jax(params))
+        jtrainer = ref_trainer.Trainer(mesh, jax.eval_shape(lambda: jp),
+                                       ref_stage2.make_stage2_loss_fn(ja), jcfg,
+                                       trainable_mask=_stage2_mask_jax(jp))
         with mesh:
-            state = jtrainer.init_state(jax.tree_util.tree_map(jnp.array, params))
+            state = jtrainer.init_state(jax.tree_util.tree_map(jnp.array, jp))
             metrics = []
             for step in range(STEPS):
                 state, jm = jtrainer.step(state, jbatch, jax.random.PRNGKey(step))
                 metrics.append({k: float(v) for k, v in jm.items()})
-        jax_runs[preset] = (metrics, jax.device_get(state.params))
+        jax_runs[run] = (metrics, jax.device_get(state.params))
     return out, batch, _join(ctx, "all", out), jax_runs
 
 
@@ -358,6 +441,43 @@ def test_contrastive_loss_across_two_ranks_matches_jax_shard_map(collectives_run
     grad_t = torch.cat([ranks[r]["contrastive_step"][2] for r in range(2)]) / 2
     torch.testing.assert_close(grad_i, ti.grad, rtol=REL, atol=1e-7)
     torch.testing.assert_close(grad_t, tt.grad, rtol=REL, atol=1e-7)
+
+
+def test_vocab_parallel_cross_entropy_equals_whole_logit_ce(collectives_run):
+    """At two ranks, each holding half the vocabulary (the 6 padding rows on
+    the last shard), the CE of the sharded logits and the chunked CE equal
+    the whole-logit CE in value and in the gradients to the hidden states
+    and to ``lm_head`` (each rank's rows of the whole gradient), within
+    1e-6; the sharded embedding is the whole one bit for bit, and its
+    gradient reaches each rank's own rows."""
+    _, ranks = collectives_run
+    want = _vocab_losses()
+    for r, got in enumerate(r["vocab"] for r in ranks):
+        assert got["rows"] == (128, 128)
+        rows = slice(128 * r, 128 * (r + 1))
+        for key in ("whole_logits", "chunked"):
+            (loss, dh, dw), (wloss, wdh, wdw) = got[key], want[key]
+            torch.testing.assert_close(loss, want["whole_logits"][0], rtol=0, atol=1e-6)
+            torch.testing.assert_close(loss, wloss, rtol=0, atol=1e-6)
+            torch.testing.assert_close(dh, wdh, rtol=0, atol=1e-6)
+            torch.testing.assert_close(dw, wdw[rows], rtol=0, atol=1e-6)
+        assert torch.equal(got["embed"][0], want["embed"][0])
+        torch.testing.assert_close(got["embed"][1], want["embed"][1][rows], rtol=0, atol=1e-6)
+
+
+def test_vocab_split_falls_back_to_whole_tables(caplog):
+    """A padded vocabulary that does not divide ``model`` keeps
+    ``embed_tokens`` and ``lm_head`` whole, with a warning, as the JAX
+    ``logical_to_sharding`` replicates such a dim."""
+    llm = LlamaForCausalLM(LlamaConfig.tiny(dtype=torch.float32, vocab_size=250,
+                                            padded_vocab_size=255, num_hidden_layers=1))
+    table, head = llm.model.embed_tokens, llm.lm_head
+    with caplog.at_level("WARNING", logger=sharding.logger.name):
+        assert not sharding.split_vocab_(llm, 0, 2)
+    assert llm.model.embed_tokens is table and llm.lm_head is head
+    assert table.weight.shape[0] == head.weight.shape[0] == 255
+    assert "vocab_padded (255) does not divide mesh axis model" in caplog.text
+    assert llm.vocab_shard() is None
 
 
 def _stage2_batch():
@@ -440,24 +560,82 @@ def test_fsdp_keeps_parameters_of_a_minority_dtype_whole_and_averages_them(train
         _assert_params(got_params, state, ("fsdp_mixed", r))
 
 
-def test_fsdp_keeps_a_quantize_base_base_whole(train_run):
-    """The int8 weights of a ``quantize_base`` base stay whole on both ranks
-    (FSDP does not hold integer parameters), bit-equal after the steps, and
-    the steps equal the one-process ones on the global batch."""
+def test_fsdp_tp_splits_the_vocabulary_over_model(train_run):
+    """At (1, 2) ``fsdp_tp`` each rank holds ``vocab_padded / 2`` rows of
+    ``embed_tokens`` and of ``lm_head``, and the tables gathered after the
+    steps equal the one-process tables (the steps themselves against the
+    one-process port and the JAX ``Trainer``: the ``fsdp_tp`` cases
+    above)."""
     out, batch, ranks, _ = train_run
+    _, _, state = _one_process(batch, DROPOUT, out)
+    half = _agent(DROPOUT, str(out)).cfg.llm.vocab_padded // 2
+    tables = ("llm.model.embed_tokens.weight", "llm.lm_head.weight")
+    for r in range(2):
+        assert ranks[r]["vocab_rows"] == (half, half)
+        _assert_params(ranks[r]["fsdp_tp", DROPOUT][1], {k: state[k] for k in tables},
+                       ("fsdp_tp tables", r))
+
+
+def test_fsdp_shards_a_quantize_base_base_over_data(train_run):
+    """Under ``fsdp`` at ``data`` = 2 each rank holds half the rows of every
+    int8 weight and scale of a ``quantize_base`` base (plain parameters
+    outside FSDP), gathered back bit-equal to the whole base after the
+    steps; the steps equal the one-process steps on the global batch
+    (LoRA dropout on) and the JAX ``Trainer``'s on the same int8 tree at
+    (2, 1) ``fsdp`` (dropout off)."""
+    from test_torch_train import PARAM_TOL, _flat
+
+    out, batch, ranks, jax_runs = train_run
     agent = _int8_agent(str(out))
+    names = _int8_names(agent)
+    before = _int8_agent(str(out)).state_dict()
     trainer, metrics = _train(agent, None, batch, None)
     state = agent.state_dict()
-    before = _int8_agent(str(out)).state_dict()
-    n_int8 = sum(1 for t in state.values() if t.dtype == torch.int8)
+    assert len(names) == 2 * 7 * 2  # weight and scale of seven projections of two layers
     for r in range(2):
-        got_metrics, got_params, int8 = ranks[r]["fsdp_int8"]
-        assert len(int8) == n_int8 == 7 * 2  # seven projections of two layers
-        for name in int8:
-            assert torch.equal(got_params[name], before[name]), name
+        for dropout in (DROPOUT, 0.0):
+            got_metrics, got_params, local = ranks[r]["fsdp_int8", dropout]
+            for name in names:
+                rows = before[name].shape[0]
+                assert local[name] == ((rows // 2, *before[name].shape[1:]), True), name
+                assert torch.equal(got_params[name], before[name]), name
+        got_metrics, got_params, _ = ranks[r]["fsdp_int8", DROPOUT]
         _assert_metrics(got_metrics, metrics, ("fsdp_int8", r))
         _assert_params(got_params, {k: v for k, v in state.items()
                                     if v.is_floating_point()}, ("fsdp_int8", r))
+    jmetrics, jparams = jax_runs["fsdp_int8"]
+    got_metrics, got_params, _ = ranks[0]["fsdp_int8", 0.0]
+    _assert_metrics(got_metrics, jmetrics, "fsdp_int8 jax")
+    flat, paths = _flat(jparams), W.agent_flax_paths(agent)
+    want = {}
+    for name, _ in agent.named_parameters():
+        path, transform = paths[name]
+        want[name] = torch.from_numpy(np.asarray(transform(np.asarray(flat[path]))))
+        if name in names:
+            assert torch.equal(got_params[name], want[name]), name
+    _assert_params(got_params, {k: v for k, v in want.items() if k not in names}, "fsdp_int8 jax",
+                   atol=PARAM_TOL)
+
+
+@pytest.mark.parametrize("layout", ["ckpt_tp", "ckpt_int8"])
+def test_sharded_checkpoint_resumes_at_one_process(train_run, layout):
+    """A checkpoint saved at (1, 2) ``fsdp_tp`` with the vocabulary split,
+    or at (2, 1) ``fsdp`` with the int8 base sharded over ``data``, restores
+    into a one-process trainer exactly the whole state the ranks held."""
+    out, _, ranks, _ = train_run
+    agent = _int8_agent(str(out)) if layout == "ckpt_int8" else _agent(DROPOUT, str(out))
+    trainer = Trainer(agent, make_stage2_loss_fn(agent), TrainConfig(**TRAIN),
+                      trainable_mask=_mask(agent))
+    step, _ = CheckpointManager(str(out / layout)).restore(trainer)
+    params, opt = ranks[0][layout]
+    assert step == STEPS == trainer.step_count == opt["step"]
+    assert sorted(agent.state_dict()) == sorted(params)
+    for name, t in agent.state_dict().items():
+        assert torch.equal(t, params[name]), name
+    for key in ("mu", "nu"):
+        assert sorted(getattr(trainer, key)) == sorted(opt[key])
+        for name, t in getattr(trainer, key).items():
+            assert torch.equal(t, opt[key][name]), (key, name)
 
 
 def test_fsdp_checkpoint_saved_at_two_ranks_resumes_at_one(train_run):
