@@ -32,6 +32,7 @@ import torch
 
 from ..data.tokenizer import BOI_TOKEN_ID, EOI_TOKEN_ID, NUM_IMG_TOKENS
 from ..models.llama import KVCache, derive_seed
+from ..utils import tracing
 from .logits_processors import ImageTokenAutomaton
 
 
@@ -296,7 +297,12 @@ class StoryGenerator:
         A finished row keeps riding the pass with nothing committed (its
         writes land past its length). One device-to-host copy a pass; the
         drafts are drawn on the host, one per row. Fills ``hidden``; returns
-        each row's generated ids (numpy)."""
+        each row's generated ids (numpy). Under a profiler each pass is a
+        ``decode.pass`` span over its parts (``decode.draft``,
+        ``decode.verify``, ``decode.sync``: the copy of the picks,
+        ``decode.accept``), and the counters ``decode.drafted`` (K a row
+        that commits) and ``decode.accepted`` (the drafts it commits) grow
+        (``utils/tracing.py``)."""
         cfg, agent, dev = self.cfg, self.agent, self.device
         k, max_new, eos = cfg.speculate_k, cfg.max_new_tokens, cfg.eos_token_id
         b = len(prompts)
@@ -305,31 +311,41 @@ class StoryGenerator:
         idx, done = np.ones(b, np.int64), np.zeros(b, bool)
         steps = np.arange(k + 1)
         while ((idx < max_new) & ~done).any():
-            drafts = np.stack([self._draft(np.concatenate([prompts[r], tokens[r]]),
-                                           len(prompts[r]) + idx[r]) for r in range(b)])
-            block = np.concatenate([tokens[np.arange(b), idx - 1][:, None], drafts], axis=1)
-            length = np.asarray(cache.length)
-            block_t = torch.as_tensor(block, device=dev)
-            out = agent.llm_step(agent.embed_tokens(block_t), cache)
-            picked = self.automaton(block_t.reshape(-1),
-                                    out["logits"].reshape(b * (k + 1), -1).float())
-            nxt = torch.argmax(picked, dim=-1).reshape(b, k + 1).cpu().numpy()
-            if cfg.force_boi_at is not None:
-                force = ((idx[:, None] + steps == cfg.force_boi_at)
-                         & (self._forced_next[block] < 0))
-                nxt = np.where(force, BOI_TOKEN_ID, nxt)
-            accept = np.cumprod(nxt[:, :k] == drafts, axis=1).sum(axis=1)
-            first_eos = np.where(nxt == eos, steps, k + 1).min(axis=1)
-            ncommit = np.minimum(np.minimum(accept + 1, first_eos + 1), max_new - idx)
-            # EOS ends a story when it is consumed: a pass that feeds it
-            # commits nothing; a finished row is frozen the same way
-            prev_is_eos = block[:, 0] == eos
-            ncommit = np.where(prev_is_eos | done, 0, ncommit)
-            done |= prev_is_eos | (first_eos + 1 <= ncommit) | (idx + ncommit >= max_new)
-            for r in range(b):
-                tokens[r, idx[r]:idx[r] + k + 1] = nxt[r]
-                hidden[r, idx[r] - 1:idx[r] + k] = out["hidden_states"][r]
-            # keep t_prev and the consumed drafts; the rest is overwritten later
-            cache.length = (length + ncommit).tolist()
-            idx = idx + ncommit
+            with tracing.span("decode.pass"):
+                with tracing.span("decode.draft"):
+                    drafts = np.stack([self._draft(np.concatenate([prompts[r], tokens[r]]),
+                                                   len(prompts[r]) + idx[r]) for r in range(b)])
+                    block = np.concatenate([tokens[np.arange(b), idx - 1][:, None], drafts],
+                                           axis=1)
+                    length = np.asarray(cache.length)
+                with tracing.span("decode.verify"):
+                    block_t = torch.as_tensor(block, device=dev)
+                    out = agent.llm_step(agent.embed_tokens(block_t), cache)
+                    picked = self.automaton(block_t.reshape(-1),
+                                            out["logits"].reshape(b * (k + 1), -1).float())
+                    nxt = torch.argmax(picked, dim=-1).reshape(b, k + 1)
+                with tracing.span("decode.sync"):
+                    nxt = nxt.cpu().numpy()
+                with tracing.span("decode.accept"):
+                    if cfg.force_boi_at is not None:
+                        force = ((idx[:, None] + steps == cfg.force_boi_at)
+                                 & (self._forced_next[block] < 0))
+                        nxt = np.where(force, BOI_TOKEN_ID, nxt)
+                    accept = np.cumprod(nxt[:, :k] == drafts, axis=1).sum(axis=1)
+                    first_eos = np.where(nxt == eos, steps, k + 1).min(axis=1)
+                    ncommit = np.minimum(np.minimum(accept + 1, first_eos + 1), max_new - idx)
+                    # EOS ends a story when it is consumed: a pass that feeds it
+                    # commits nothing; a finished row is frozen the same way
+                    prev_is_eos = block[:, 0] == eos
+                    ncommit = np.where(prev_is_eos | done, 0, ncommit)
+                    if tracing.recording():
+                        tracing.count("decode.drafted", k * int(np.count_nonzero(ncommit)))
+                        tracing.count("decode.accepted", int(np.maximum(ncommit - 1, 0).sum()))
+                    done |= prev_is_eos | (first_eos + 1 <= ncommit) | (idx + ncommit >= max_new)
+                    for r in range(b):
+                        tokens[r, idx[r]:idx[r] + k + 1] = nxt[r]
+                        hidden[r, idx[r] - 1:idx[r] + k] = out["hidden_states"][r]
+                    # keep t_prev and the consumed drafts; the rest is overwritten later
+                    cache.length = (length + ncommit).tolist()
+                    idx = idx + ncommit
         return [tokens[r, :idx[r]] for r in range(b)]

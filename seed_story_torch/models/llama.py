@@ -48,6 +48,7 @@ from ..ops.attention import decode_attention, mha
 from ..ops.int8_linear import int8_linear, int8_linear_gathered
 from ..ops.rope import apply_rope, rope_frequencies
 from ..parallel.collectives import bound_group, copy_to_group, global_mean, reduce_from_group
+from ..utils import tracing
 
 
 @dataclasses.dataclass(frozen=True)
@@ -338,7 +339,8 @@ class LlamaAttention(nn.Module):
         level ``start`` (B,) and attention spans the buffer's valid prefix:
         row r sees ``kv_len[r]`` keys (``start + S``, or ``start`` plus the
         row's true length of a right-padded block), and the padding's K/V
-        lands beyond it."""
+        lands beyond it. Under a profiler the quantize and the writes are
+        the span ``llm.kv_write`` (``utils/tracing.py``)."""
         cfg = self.cfg
         b, s, _ = x.shape
         hd = cfg.head_dim  # heads follow the projections (a tensor-parallel shard has H / tp)
@@ -352,15 +354,16 @@ class LlamaAttention(nn.Module):
         else:
             k_buf, v_buf = cache.k[layer_idx], cache.v[layer_idx]
             ks_buf = vs_buf = None
-            if cache.quantized:
-                ks_buf, vs_buf = cache.k_scale[layer_idx], cache.v_scale[layer_idx]
-                (k, k_sc), (v, v_sc) = quantize_kv_rows(k), quantize_kv_rows(v)
-                writes = ((k_buf, k), (v_buf, v), (ks_buf, k_sc), (vs_buf, v_sc))
-            else:
-                writes = ((k_buf, k), (v_buf, v))
-            for row, st in enumerate(cache.length):
-                for buf, new in writes:
-                    buf[row, :, st:st + s] = new[row]
+            with tracing.span("llm.kv_write"):
+                if cache.quantized:
+                    ks_buf, vs_buf = cache.k_scale[layer_idx], cache.v_scale[layer_idx]
+                    (k, k_sc), (v, v_sc) = quantize_kv_rows(k), quantize_kv_rows(v)
+                    writes = ((k_buf, k), (v_buf, v), (ks_buf, k_sc), (vs_buf, v_sc))
+                else:
+                    writes = ((k_buf, k), (v_buf, v))
+                for row, st in enumerate(cache.length):
+                    for buf, new in writes:
+                        buf[row, :, st:st + s] = new[row]
             end = kv_len
             q = q.to(cfg.dtype)
             limit = max(cache.length) + s  # attention reads the valid prefix only

@@ -1,4 +1,4 @@
-"""Metrics, logging and tracing of a training run; counterpart of
+"""Metrics, logging and profiling of a training run; counterpart of
 ``seed_story_tpu/train/metrics.py``.
 
   * ``MetricsWriter``: one JSON line per logged step in
@@ -7,9 +7,10 @@
   * ``Profiler``: ``torch.profiler`` over the steps
     ``profile_start`` .. ``profile_stop``, written as a Chrome trace and a
     kernel table;
-  * ``Throughput``: steps/s for the progress line;
-  * ``device_mark`` / ``seconds_between``: the parts of a step on the
-    device's clock.
+  * ``Throughput``: steps/s for the progress line.
+
+The parts of a step are timed on the device's clock by
+``utils/tracing.py::device_mark`` / ``seconds_between``.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import json
 import logging
 import os
 import time
-from typing import Dict, List, Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -103,22 +104,3 @@ class Throughput:
         self._ema = sps if self._ema is None else 0.9 * self._ema + 0.1 * sps
         return {"steps_per_sec": self._ema}
 
-
-def device_mark(device: torch.device):
-    """A point on ``device``'s clock: a CUDA event recorded on its current
-    stream (no synchronization until it is read), the host clock on the
-    CPU."""
-    if device.type == "cuda":
-        event = torch.cuda.Event(enable_timing=True)
-        event.record(torch.cuda.current_stream(device))
-        return event
-    return time.perf_counter()
-
-
-def seconds_between(marks) -> List[float]:
-    """Seconds between consecutive :func:`device_mark` points; waits for
-    the last one on a card."""
-    if isinstance(marks[-1], float):
-        return [b - a for a, b in zip(marks, marks[1:])]
-    marks[-1].synchronize()
-    return [a.elapsed_time(b) / 1e3 for a, b in zip(marks, marks[1:])]

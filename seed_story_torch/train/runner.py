@@ -5,12 +5,12 @@ Each stage supplies a model, a loss function and batches; the runner owns
 the trainer, the host->device prefetch, metrics, the profiler window,
 checkpoints, and resume with the data pipeline's position restored. Each
 logged step's line in ``metrics.jsonl`` carries its seconds (forward and
-backward, update) on the device's clock, and on a card its peak memory and
-the launches of the flash kernels and of kernel C (the int8 GEMM of a
-``quantize_base`` base); a last line carries the final checkpoint's host
-copy and write seconds. The
-dropout seed of step ``s`` is ``derive_seed(seed, s)``, so a resumed run
-draws exactly the masks an uninterrupted one would.
+backward, update) on the device's clock (``utils/tracing.py::device_mark``),
+and on a card its peak memory and the launches of the flash kernels and of
+kernel C (the int8 GEMM of a ``quantize_base`` base); a last line carries
+the final checkpoint's host copy and write seconds. The dropout seed of
+step ``s`` is ``derive_seed(seed, s)``, so a resumed run draws exactly the
+masks an uninterrupted one would.
 
 In a process group (``parallel.collectives.initialize_multihost``) the
 runner trains over the ``(mesh_data, mesh_model)`` mesh of the ranks with
@@ -39,9 +39,9 @@ from ..ops.attention import flash_bwd, flash_fwd
 from ..ops.int8_linear import int8_gemm_kernel
 from ..parallel import collectives
 from ..parallel.mesh import make_mesh
+from ..utils.tracing import device_mark, seconds_between
 from .checkpoint import CheckpointManager
-from .metrics import (MetricsWriter, Profiler, Throughput, device_mark, log, seconds_between,
-                      setup_logging)
+from .metrics import MetricsWriter, Profiler, Throughput, log, setup_logging
 from .trainer import LossFn, TrainConfig, Trainer
 
 # the flash kernels' and kernel C's launch counts, logged per step on a card
