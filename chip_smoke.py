@@ -57,7 +57,12 @@ the small-query cache attention (``csrc/decode_attn.cu``, int8 and bf16
 caches, 1 and 5 queries, GQA and an empty row) against their plain
 versions, with device times, bounds and the library yardsticks (``F.linear``
 on a pre-dequantized bf16 weight; SDPA on a dequantized cache with a
-boolean mask). Between 4 and 5, the flagship phase on the story phase's
+boolean mask). Then K-EXAONE's phase (``phase_kexaone``; alone with
+``--only kexaone``): the grouped int8 expert kernel, kernel B with and
+without the window of 128 at GQA group 8 and the windowed flash forward at
+the ``kexaone_story_b8`` cell's shapes against their plain versions, and its
+main path through ``run_batch`` with each kernel's launches a verify pass
+and a prefill checked. Between 4 and 5, the flagship phase on the story phase's
 stack: the agent quantized in place (int8 weights, int8 KV cache) and
 decoding with prompt-lookup speculation (K = 4) through ``run`` (3
 segments), a speculative-against-greedy token check, ``run_sink`` (4
@@ -1024,6 +1029,256 @@ def phase_decode_attn_kernel(label: str):
     if failed:
         raise AssertionError(f"decode_attn disagrees with the plain version at {failed}")
     return rows
+
+
+# K-EXAONE-236B-A23B as the agent's LLM (perfbench/configs/kexaone_236b_ep8_agent.json):
+# a card of an 8-card expert-parallel node holds 16 of each layer's 128
+# experts; windowed (128) and global GQA layers, 64 query and 8 KV heads.
+KEXAONE_WIDTHS = dict(hidden_size=6144, intermediate_size=18432, num_attention_heads=64,
+                      num_key_value_heads=8, head_size=128, rope_theta=1e6, rms_norm_eps=1e-5,
+                      vocab_size=153666, padded_vocab_size=153728, nope_global=True,
+                      qk_norm=True, post_norms=True, first_k_dense_replace=1)
+KEXAONE_HELD, KEXAONE_TOP_K, KEXAONE_MOE_WIDTH = 16, 8, 2048
+KEXAONE_STORIES = 8  # the cell's batch: 40 rows a K = 4 verify pass
+KEXAONE_LAYERS = 5  # the dense layer and one LLLG period; depth cut for time
+# The grouped kernel against its plain version on the card, which rounds as
+# it does (the f32 sum to bf16, times the bf16 scale, to bf16): sums added in
+# another order may round one bf16 step apart, and so may the product after
+# them, in a small share of the outputs; two bf16 steps of the largest output
+# bound such a difference.
+GROUPED_MAX_REL, GROUPED_UNEQUAL_SHARE = 2.0 ** -6, 0.02
+
+
+def kexaone_llm_config(layers: int) -> LlamaConfig:
+    from seed_story_torch.models.moe import MoEConfig
+
+    return LlamaConfig(num_hidden_layers=layers, max_position_embeddings=4096,
+                       sliding_windows=tuple([128, 128, 128, 0] * (layers // 4 + 1))[:layers],
+                       moe=MoEConfig(num_experts=128, experts_per_token=KEXAONE_TOP_K,
+                                     intermediate_size=KEXAONE_MOE_WIDTH, num_shared_experts=1,
+                                     routed_scaling_factor=2.5, held=(0, KEXAONE_HELD)),
+                       lora_rank=16, lora_alpha=32.0, lora_dropout=0.05,
+                       param_dtype=torch.bfloat16, **KEXAONE_WIDTHS)
+
+
+def window_bound(b, hq, hkv, sq, d, q_start, kv_len, window, cache_bytes):
+    """(ms, what binds) of attention under the window rule: the (query, key)
+    pairs of ``_visible``, the keys some query of a row sees (K and V at
+    ``cache_bytes`` an element, an int8 cache's two f32 scales), q and O
+    once each."""
+    mask = _visible(sq, int(kv_len.max()), True, q_start, kv_len, window)
+    pairs, keys = int(mask.sum()) * hq, int(mask.any(dim=2).sum()) * hkv
+    nbytes = (2 * keys * d * cache_bytes + (8 * keys if cache_bytes == 1 else 0)
+              + 2 * 2 * b * hq * sq * d)
+    return bound(4 * d * pairs, nbytes)
+
+
+def phase_kexaone(label: str):
+    """K-EXAONE's kernels at the cell's shapes, then its main path.
+
+    Kernels: the grouped int8 expert kernel (``csrc/grouped_int8.cu``) over
+    a verify pass's routing (40 tokens, top-8 of 128, 16 experts held) for
+    gate and up (4096 x 6144) and down (6144 x 2048), against its plain
+    version (within two bf16 steps of the largest output, at most 2% of the
+    outputs not bit-equal; the error against the exact f32 products
+    printed), a token's
+    rows alone bit-equal to the same rows among 39 others, pairs not held
+    zero; kernel B at GQA group 8 over an int8 cache
+    of 1100-1600 keys with the window of 128 and without; the flash forward
+    over a round's prefill (8 prompts of up to 1100 positions) with the
+    window. Each against its plain version, with device ms and bounds.
+
+    Main path: the agent with K-EXAONE's LLM at full width, cut to the dense
+    layer and one LLLG period, int8 weights (experts included) and int8 KV
+    cache, 8 stories through ``run_batch`` for one round with K = 4: each
+    verify pass must launch the grouped kernel twice an expert layer, kernel
+    B once a layer, kernel C for every projection (40 rows) and kernel A
+    never; each prefill the flash forward once a layer."""
+    from seed_story_torch.models.moe import MoE
+    from seed_story_torch.ops.int8_linear import grouped_int8_linear
+
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    rows, failed = [], []
+    tokens, e = KEXAONE_STORIES * (FLAGSHIP_K + 1), KEXAONE_HELD
+    probe = MoE(kexaone_llm_config(2)).to("cuda")  # its dispatch only
+    experts = torch.stack([torch.randperm(128, generator=gen, device="cuda")[:KEXAONE_TOP_K]
+                           for _ in range(tokens)])
+    order, offsets = probe.dispatch(experts)
+    one_order, one_offsets = probe.dispatch(experts[:1])
+    held_rows = (experts.reshape(-1) < e)
+    for name, n, k, in_div in (("gate_up", 2 * KEXAONE_MOE_WIDTH, 6144, KEXAONE_TOP_K),
+                               ("down", 6144, KEXAONE_MOE_WIDTH, 1)):
+        w = torch.randint(-127, 128, (e, n, k), generator=gen, device="cuda", dtype=torch.int8)
+        scale = torch.rand(e, n, generator=gen, device="cuda") / (127 * k ** 0.5)
+        x = torch.randn(tokens * KEXAONE_TOP_K // in_div, k, generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        got = grouped_int8_linear(x, w, scale, order, offsets, in_div)
+        matmul = torch.backends.cuda.matmul  # f32 sums, as exact_plain_int8
+        flag = matmul.allow_bf16_reduced_precision_reduction
+        matmul.allow_bf16_reduced_precision_reduction = False
+        try:
+            plain = grouped_int8_linear(x, w, scale, order, offsets, in_div,
+                                        implementation="plain")[held_rows].float()
+        finally:
+            matmul.allow_bf16_reduced_precision_reduction = flag
+        exact = torch.zeros(order.shape[0], n, device="cuda")
+        bounds_host = offsets.tolist()
+        for ex in range(e):
+            pairs = order[bounds_host[ex]:bounds_host[ex + 1]].long()
+            exact[pairs] = x[pairs // in_div].float() @ (w[ex].float() * scale[ex][:, None]).T
+        held = got[held_rows].float()
+        err = (got.float() - exact).abs()
+        alone = grouped_int8_linear(x[:KEXAONE_TOP_K // in_div], w, scale, one_order,
+                                    one_offsets, in_div)
+        row = dict(name=f"grouped_{name}", shape=[tokens, e, n, k],
+                   pairs=int(bounds_host[-1]),
+                   hit=int(sum(b > a for a, b in zip(bounds_host, bounds_host[1:]))),
+                   max_rel=float((held - plain).abs().max() / plain.abs().max()),
+                   unequal_share=float((held != plain).float().mean()),
+                   exact_max_rel=float(err.max() / exact.abs().max()),
+                   exact_mean_rel=float(err[held_rows].mean() / exact[held_rows].abs().mean()),
+                   unheld_zero=bool((got[~held_rows] == 0).all()),
+                   alone_equal=bool(torch.equal(alone, got[:KEXAONE_TOP_K])))
+        if (row["max_rel"] > GROUPED_MAX_REL or row["unequal_share"] > GROUPED_UNEQUAL_SHARE
+                or not row["unheld_zero"] or not row["alone_equal"]):
+            failed.append(row["name"])
+        kernel = lambda: grouped_int8_linear(x, w, scale, order, offsets, in_div)  # noqa: E731
+        row["ms"] = _profiled_ms(kernel, 50, ("grouped_int8_kernel",))["grouped_int8_kernel"][0]
+        x_rows = len(set((order[:bounds_host[-1]] // in_div).tolist()))
+        row["bound_ms"], row["bound_by"] = bound(
+            2 * row["pairs"] * n * k, row["hit"] * (n * k + 4 * n) + 2 * x_rows * k
+            + 2 * row["pairs"] * n)
+        row["roofline"] = row["bound_ms"] / row["ms"]
+        print(f"kexaone {row['name']}: {json.dumps(row)} [{label}]", flush=True)
+        rows.append(row)
+    del probe
+
+    # kernel B: a verify block of 5 queries a row, 8 rows, GQA group 8
+    b, hq, hkv, d, s = KEXAONE_STORIES, 64, 8, 128, FLAGSHIP_K + 1
+    c = 1600
+    q = torch.randn(b, hq, s, d, generator=gen, device="cuda").to(torch.bfloat16)
+    k_, v_ = (torch.randn(b, hkv, c, d, generator=gen, device="cuda") for _ in range(2))
+    ks, vs = k_.abs().amax(-1) / 127, v_.abs().amax(-1) / 127
+    k8 = torch.round(k_ / ks[..., None]).clamp(-127, 127).to(torch.int8)
+    v8 = torch.round(v_ / vs[..., None]).clamp(-127, 127).to(torch.int8)
+    lens = torch.randint(1100, c + 1, (b,), generator=gen, device="cuda", dtype=torch.int32)
+    starts = (lens - s).to(torch.int32)
+    for window in (128, 0):
+        kw = dict(kv_len=lens, q_start=starts, k_scale=ks, v_scale=vs, window=window)
+        out = decode_attention(q, k8, v8, implementation="kernel", **kw)
+        want = decode_attention(q.float(), k8, v8, implementation="plain", **kw)
+        err = (out.float() - want).abs()
+        row = dict(name=f"decode_attn_w{window}", shape=[b, hq, hkv, s, c], window=window,
+                   o_max_abs=float(err.max()), o_mean_abs=float(err.mean()))
+        if row["o_max_abs"] > O_MAX_ABS or row["o_mean_abs"] > O_MEAN_ABS:
+            failed.append(row["name"])
+        kernel = lambda: decode_attention(q, k8, v8, implementation="kernel", **kw)  # noqa: E731
+        row["ms"] = _profiled_ms(kernel, 50, ("decode_attn_chunk_kernel",))[
+            "decode_attn_chunk_kernel"][0]
+        row["bound_ms"], row["bound_by"] = window_bound(b, hq, hkv, s, d, starts, lens, window, 1)
+        row["roofline"] = row["bound_ms"] / row["ms"]
+        print(f"kexaone {row['name']}: {json.dumps(row)} [{label}]", flush=True)
+        rows.append(row)
+
+    # the flash forward over a round's prefill, right-padded prompts
+    sq = 1100
+    qp = torch.randn(b, hq, sq, d, generator=gen, device="cuda").to(torch.bfloat16)
+    kp, vp = (torch.randn(b, hkv, sq, d, generator=gen, device="cuda").to(torch.bfloat16)
+              for _ in range(2))
+    zero = torch.zeros(b, dtype=torch.int32, device="cuda")
+    kl = torch.randint(600, sq + 1, (b,), generator=gen, device="cuda", dtype=torch.int32)
+    kw = dict(causal=True, q_start=zero, kv_len=kl, window=128)
+    out = mha(qp, kp, vp, implementation="kernel", **kw)
+    want = mha(qp.float(), kp.float(), vp.float(), implementation="plain", **kw)
+    valid = (torch.arange(sq, device="cuda")[None, :] < kl[:, None])[:, None, :, None]
+    err = (out.float() - want).abs().masked_select(valid)
+    row = dict(name="flash_fwd_w128", shape=[b, hq, hkv, sq, d], window=128,
+               o_max_abs=float(err.max()), o_mean_abs=float(err.mean()))
+    if row["o_max_abs"] > O_MAX_ABS or row["o_mean_abs"] > O_MEAN_ABS:
+        failed.append(row["name"])
+    kernel = lambda: mha(qp, kp, vp, implementation="kernel", **kw)  # noqa: E731
+    row["ms"] = _profiled_ms(kernel, 20, ("flash_fwd_kernel",))["flash_fwd_kernel"][0]
+    row["bound_ms"], row["bound_by"] = window_bound(b, hq, hkv, sq, d, zero, kl, 128, 2)
+    row["roofline"] = row["bound_ms"] / row["ms"]
+    print(f"kexaone {row['name']}: {json.dumps(row)} [{label}]", flush=True)
+    rows.append(row)
+    del q, k_, v_, k8, v8, qp, kp, vp
+    if failed:
+        raise AssertionError(f"K-EXAONE's kernels disagree with their plain versions at {failed}")
+    free_memory()
+    return rows, kexaone_main_path(label, kexaone_llm_config(KEXAONE_LAYERS),
+                                   ViTConfig(param_dtype=torch.bfloat16))
+
+
+def kexaone_main_path(label: str, llm_cfg: LlamaConfig, vit_cfg: ViTConfig, device="cuda"):
+    """``phase_kexaone``'s main path: the stack built on seeded weights, one
+    round of 8 stories through ``run_batch``, each kernel's launches a
+    verify pass and a prefill checked."""
+    from seed_story_torch.models.moe import MoE
+    from seed_story_torch.ops.int8_linear import grouped_int8_kernel
+
+    agent_cfg = AgentConfig(llm=llm_cfg, resampler_heads=64)
+    t0 = time.perf_counter()
+    stack = build_stack(vit_cfg, agent_cfg, seed=25,
+                        device=device, max_new_tokens=MAX_NEW, cache_capacity=FLAGSHIP_CAPACITY,
+                        force_boi_at=FORCE_BOI_AT, eos_token_id=-1, quantize_base=True,
+                        quantize_kv=True, speculate_k=FLAGSHIP_K, batch_stories=KEXAONE_STORIES)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    agent = stack.agent
+    n_expert_layers = sum(isinstance(layer.mlp, MoE) for layer in agent.llm.model.layers)
+    pipe = StoryGenerationPipeline(stack.tokenizer, stack.generator, stack.visual_encode, None,
+                                   StoryPipelineConfig(story_len=2, window_size=WINDOW,
+                                                       num_img_in_tokens=agent.cfg.num_img_in_tokens))
+    starts = [(np.random.RandomState(40 + r).randn(1, 3, 448, 448).astype(np.float32),
+               LOCKSTEP_CAPTIONS[r % len(LOCKSTEP_CAPTIONS)]) for r in range(KEXAONE_STORIES)]
+    launches_of = dict(LAUNCHES, grouped_int8=lambda: grouped_int8_kernel.launches)
+    clock = StageClock()
+    counts = {}
+
+    def before(mod, args, kwargs):
+        counts["n"] = {k: f() for k, f in launches_of.items()}
+
+    def after(mod, args, kwargs, out):
+        shape = tuple(kwargs["inputs_embeds"].shape[:2])
+        stage = ("verify" if shape == (KEXAONE_STORIES, FLAGSHIP_K + 1)
+                 else "prefill" if shape[1] > 8 else f"other_{shape}")
+        clock.calls[stage].append((0.0, {k: f() - counts["n"][k]
+                                         for k, f in launches_of.items()}))
+
+    handles = [agent.llm.register_forward_pre_hook(before, with_kwargs=True),
+               agent.llm.register_forward_hook(after, with_kwargs=True)]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rounds = pipe.run_batch(starts)
+    segments = next(rounds)
+    rounds.close()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for h in handles:
+        h.remove()
+    passes, prefills = len(clock.calls["verify"]), len(clock.calls["prefill"])
+    per_pass = {k: clock.launches("verify", k) / passes for k in launches_of}
+    per_prefill = {k: clock.launches("prefill", k) / prefills for k in launches_of}
+    n_layers = llm_cfg.num_hidden_layers
+    want_pass = {"grouped_int8": 2 * n_expert_layers, "decode_attn": n_layers,
+                 "int8_gemm": 7 * n_layers, "int8_linear": 0, "flash_fwd": 0}
+    stats = {"build_s": build_s, "wall_s": wall, "verify_passes": passes, "prefills": prefills,
+             "other_calls": {k: len(v) for k, v in clock.calls.items()
+                             if k not in ("verify", "prefill")},
+             "segments": sum(sg is not None for sg in segments), "per_pass": per_pass,
+             "per_prefill": per_prefill, "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    print(f"kexaone main path: {json.dumps(stats)} [{label}]", flush=True)
+    bad = {k: (per_pass[k], v) for k, v in want_pass.items() if per_pass[k] != v}
+    if per_prefill["flash_fwd"] != n_layers:
+        bad["prefill flash_fwd"] = (per_prefill["flash_fwd"], n_layers)
+    if per_prefill["grouped_int8"] != 0:
+        bad["prefill grouped_int8"] = (per_prefill["grouped_int8"], 0)
+    del stack, agent, pipe
+    free_memory()
+    if bad:
+        raise AssertionError(f"K-EXAONE's main path launched (got, expected) {bad}")
+    return stats
 
 
 # The attention probes (seed_story_torch/benchmarks/): each kernel against
@@ -3896,13 +4151,20 @@ def main():
     parser.add_argument("--baseline", help="log of an earlier run of this script (or of the "
                         "parent commit's) whose decode kernel and kernel C times to print "
                         "beside these")
+    parser.add_argument("--only", choices=["kexaone"],
+                        help="run the device phase and this phase alone")
     args = parser.parse_args()
     label = phase_device()
+    if args.only:
+        timed(args.only, phase_kexaone, label)
+        print(json.dumps({"ok": True, "only": args.only}), flush=True)
+        return
     rows = timed("kernels", phase_kernels, label)
     bwd_rows = timed("bwd_kernels", phase_bwd_kernels, label)
     int8_rows = timed("int8_kernel", phase_int8_kernel, label)
     gemm_rows = timed("int8_gemm_kernel", phase_int8_gemm_kernel, label)
     attn_rows = timed("decode_attn_kernel", phase_decode_attn_kernel, label)
+    kexaone_rows, kexaone_stats = timed("kexaone", phase_kexaone, label)
     if args.baseline:
         compare_with_baseline(args.baseline, int8_rows, attn_rows, gemm_rows)
     probe_rows, probe_launches = timed("probes", phase_probes, label)
@@ -4034,6 +4296,12 @@ def main():
          "bound_by": b_at["bound_by"], "library_ms": b_at["library_ms"],
          "library": f"SDPA on a dequantized cache: {b_at['library']}", "at": b_at["name"],
          "tp_shapes": tp_shapes(attn_rows)},
+        {"name": "grouped_int8", "route": "cuda", "source": "seed_story_torch/csrc/grouped_int8.cu",
+         "replaces": "none (the JAX package has no mixture of experts)",
+         "launches_per_verify_pass": kexaone_stats["per_pass"]["grouped_int8"],
+         "max_rel_err": max(r["max_rel"] for r in kexaone_rows if "max_rel" in r),
+         "rows": [{k: r[k] for k in ("name", "ms", "bound_ms", "bound_by", "roofline")}
+                  for r in kexaone_rows]},
         *(probe_entry(name, replaces, probe_rows, probe_launches[name], at)
           for name, replaces, at in PROBE_REPORT),
     ]}), flush=True)

@@ -7,7 +7,10 @@
 // with f32 (B, Hkv, C) scales or bf16 without; kv_len, q_start (B,) int32.
 // GQA folds the group into the query rows: row r = g * S + s of KV head h is
 // query s of head h * group + g. Query s sees keys j < min(q_start + s + 1,
-// kv_len) (for S = 1: j < kv_len); a row that sees no key outputs 0. Scores
+// kv_len) (for S = 1: j < kv_len); with a window W > 0 also only keys
+// j >= q_start + s + 1 - W (for S = 1: j >= kv_len - W), the windowed layers
+// of a model that mixes windowed and global layers (K-EXAONE's 128); a row
+// that sees no key outputs 0. Scores
 // are f32 dots times the softmax scale times k_scale[j]; the softmax is f32;
 // probabilities are multiplied by v_scale[j], rounded to bf16, and go
 // through PV with f32 sums. Output (B, Hq, S, 128) bf16.
@@ -60,6 +63,12 @@
 //   its share of the outputs. One launch, no scratch in device memory.
 // - Every call takes this kernel, one query row too, so a row's sums do not
 //   depend on how many rows share its call.
+// - A window: each block starts its 16-key tiles at the first tile that holds
+//   a key some row of its tile of query rows sees, so the tiles wholly below
+//   every row's window are neither loaded nor multiplied (a windowed layer
+//   reads at most window + S - 1 keys a row however long the cache); keys
+//   below a row's window inside a loaded tile are masked like those past its
+//   end. Without a window the tiles start at the chunk's first key, as before.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -87,7 +96,7 @@ struct Params {
   const int* q_start;
   const int* kv_len;
   __nv_bfloat16* out;
-  int hq, hkv, s, c, chunk, n_chunks, rows, row_tiles;
+  int hq, hkv, s, c, chunk, n_chunks, rows, row_tiles, window;
   long long q_sb, q_sh, q_ss;
   long long kv_sb, kv_sh, kv_sc;  // K and V share strides (elements)
   long long sc_sb, sc_sh, sc_sc;  // k_scale and v_scale share strides
@@ -190,6 +199,12 @@ __device__ __forceinline__ int row_limit(const Params& p, int row, int kv_len, i
   return max(0, min(lim, p.c));
 }
 
+// The first key query row `row` may see: its window's start (0 without one).
+__device__ __forceinline__ int row_lower(const Params& p, int row, int kv_len, int q_start) {
+  if (p.window <= 0 || row >= p.rows) return 0;
+  return max(0, (p.s == 1 ? kv_len : q_start + row % p.s + 1) - p.window);
+}
+
 __device__ __forceinline__ size_t out_index(const Params& p, int b, int h, int row, int d) {
   const int group = p.hq / p.hkv;
   const int head = h * group + row / p.s;
@@ -212,11 +227,17 @@ __global__ void __launch_bounds__(kThreads) decode_attn_chunk_kernel(Params p) {
   const int row0 = rt * kRowTile;
   const int lim_g = row_limit(p, row0 + g, kv_len, q_start);
   const int lim_g8 = row_limit(p, row0 + g + 8, kv_len, q_start);
-  int jmax = 0;
-  for (int r = 0; r < kRowTile; ++r) jmax = max(jmax, row_limit(p, row0 + r, kv_len, q_start));
+  const int lo_g = row_lower(p, row0 + g, kv_len, q_start);
+  const int lo_g8 = row_lower(p, row0 + g + 8, kv_len, q_start);
+  int jmax = 0, jmin = p.c;
+  for (int r = 0; r < kRowTile && row0 + r < p.rows; ++r) {
+    jmax = max(jmax, row_limit(p, row0 + r, kv_len, q_start));
+    jmin = min(jmin, row_lower(p, row0 + r, kv_len, q_start));
+  }
   const int j0 = chunk_id * p.chunk;
+  const int jbeg = max(j0, jmin / St::kKeys * St::kKeys);  // the first tile with a visible key
   const int jend = min(j0 + p.chunk, jmax);
-  const int n_tiles = jend > j0 ? (jend - j0 + St::kKeys - 1) / St::kKeys : 0;
+  const int n_tiles = jend > jbeg ? (jend - jbeg + St::kKeys - 1) / St::kKeys : 0;
   const int mine = n_tiles > warp ? (n_tiles - warp + kWarps - 1) / kWarps : 0;
 
   const T* kbase = static_cast<const T*>(p.k) + b * p.kv_sb + h * p.kv_sh;
@@ -228,7 +249,7 @@ __global__ void __launch_bounds__(kThreads) decode_attn_chunk_kernel(Params p) {
 
   auto issue = [&](int i) {  // this warp's i-th tile into slot i % kStages
     if (i < mine) {
-      const int tile0 = j0 + (warp + i * kWarps) * St::kKeys;
+      const int tile0 = jbeg + (warp + i * kWarps) * St::kKeys;
       const uint32_t slot = ring_s + (i % kStages) * St::kBytes;
       // K and V: whole rows, 16-byte chunks swizzled by key (K: to split the
       // two keys a fragment load pairs; V: the four keys a PV fragment reads)
@@ -343,7 +364,7 @@ __global__ void __launch_bounds__(kThreads) decode_attn_chunk_kernel(Params p) {
   // updated and the output rescaled
   auto softmax = [&](int i, float (&sc)[2][4], uint32_t (&pa)[4]) {
     const uint8_t* slot = ring + (i % kStages) * St::kBytes;
-    const int tile0 = j0 + (warp + i * kWarps) * St::kKeys;
+    const int tile0 = jbeg + (warp + i * kWarps) * St::kKeys;
     const float* scl = reinterpret_cast<const float*>(slot + St::kKBytes + St::kVBytes);
     float vs[2][2];
     float mx_g = -INFINITY, mx_g8 = -INFINITY;
@@ -355,8 +376,8 @@ __global__ void __launch_bounds__(kThreads) decode_attn_chunk_kernel(Params p) {
         const int j = tile0 + kk;
         const float f = kInt8 ? sc2 * scl[kk] : sc2;
         vs[hf][e] = kInt8 ? scl[St::kKeys + kk] : 1.f;
-        sc[hf][e] = j < lim_g ? sc[hf][e] * f : -INFINITY;
-        sc[hf][2 + e] = j < lim_g8 ? sc[hf][2 + e] * f : -INFINITY;
+        sc[hf][e] = j < lim_g && j >= lo_g ? sc[hf][e] * f : -INFINITY;
+        sc[hf][2 + e] = j < lim_g8 && j >= lo_g8 ? sc[hf][2 + e] * f : -INFINITY;
         mx_g = fmaxf(mx_g, sc[hf][e]);
         mx_g8 = fmaxf(mx_g8, sc[hf][2 + e]);
       }
@@ -564,17 +585,19 @@ cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
 // 16-byte aligned rows; k_scale, v_scale (B, Hkv, C) f32 with strides sc_s*
 // (null unless kv_int8); q_start, kv_len (B,) int32; out (B, Hq, S, 128)
 // bf16 contiguous. Keys are cut into n_chunks chunks of `chunk` (a multiple
-// of 64), n_chunks <= 16; query rows (group * S) go in tiles of 16.
+// of 64), n_chunks <= 16; query rows (group * S) go in tiles of 16. window:
+// 0 for none, else the keys a query sees ending at its own position.
 // Returns a cudaError_t code.
 extern "C" int decode_attn(const void* q, const void* k, const void* v, const void* k_scale,
                            const void* v_scale, const void* q_start, const void* kv_len, void* out,
                            int batch, int hq, int hkv, int s, int c, int chunk, int n_chunks,
-                           int kv_int8, long long q_sb, long long q_sh, long long q_ss,
+                           int kv_int8, int window, long long q_sb, long long q_sh, long long q_ss,
                            long long kv_sb, long long kv_sh, long long kv_sc, long long sc_sb,
                            long long sc_sh, long long sc_sc, float scale, void* stream) {
   if (batch < 1 || hkv < 1 || hq % hkv != 0 || s < 1 || s > 8 || c < 1 || chunk < 1 ||
       chunk % 64 != 0 || n_chunks < 1 || static_cast<long long>(chunk) * n_chunks < c ||
-      n_chunks > kMaxChunks || (kv_int8 && (k_scale == nullptr || v_scale == nullptr))) {
+      n_chunks > kMaxChunks || window < 0 ||
+      (kv_int8 && (k_scale == nullptr || v_scale == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Params p;
@@ -594,6 +617,7 @@ extern "C" int decode_attn(const void* q, const void* k, const void* v, const vo
   p.n_chunks = n_chunks;
   p.rows = (hq / hkv) * s;
   p.row_tiles = (p.rows + kRowTile - 1) / kRowTile;
+  p.window = window;
   p.q_sb = q_sb;
   p.q_sh = q_sh;
   p.q_ss = q_ss;

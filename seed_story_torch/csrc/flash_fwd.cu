@@ -4,6 +4,10 @@
 // (launched by _flash_fwd). Same contract:
 //
 //   visible(b, i, j) = j < kv_len[b] && j < Skv && (!causal || j <= q_start[b] + i)
+//                      && (!window || j > q_start[b] + i - window)
+//
+// (a window, under causal only, is a windowed layer of a model that mixes
+// windowed and global layers: K-EXAONE's prefill at window 128).
 //
 // Masked scores never contribute (the contract's -0.7 * FLT_MAX gives them
 // weight exactly 0); rows with no visible key output exactly 0 with LSE = -inf.
@@ -41,8 +45,11 @@
 //   (ex2.approx): each thread owns two rows of its warp's 16, the row max
 //   over the 4 threads of a quad with two shuffles, the row sum kept per
 //   thread and reduced once at the end. The mask is applied only on tiles
-//   that cross kv_len, Skv or the diagonal; tiles past the last key any row
-//   of the block sees are never loaded.
+//   that cross kv_len, Skv or the diagonal (or a row's window start); tiles
+//   past the last key any row of the block sees, and with a window the tiles
+//   wholly before the first key any row of it sees, are never loaded: the
+//   producer and the consumers walk the same run of tiles, from the tile
+//   that holds the block's first row's window start.
 // - O += P V: P converted to bf16 in registers is wgmma's A operand (the
 //   accumulator layout of S is the A-fragment layout), V from shared memory as
 //   an MN-major B. O is rescaled in registers: S, P and O never touch shared
@@ -72,6 +79,7 @@ struct Params {
   int hq, hkv, sq, skv, d;
   float scale_log2;  // scale * log2(e): the softmax runs in base 2
   int causal;
+  int window;  // 0: none
   // which of (row, head, batch) each tensor-map dim 1..3 of Q, K and V holds
   int perm_q[3], perm_k[3], perm_v[3];
 };
@@ -126,15 +134,19 @@ __global__ void __launch_bounds__(128 * NWG + 32, 1)
   // One past the last key any row of this block can see.
   int kv_end = min(kv_len, p.skv);
   if (p.causal) kv_end = min(kv_end, q_start + min(q0 + BLOCK_M, p.sq));
-  const int n_tiles = (max(kv_end, 0) + BLOCK_N - 1) / BLOCK_N;
+  const int t_end = (max(kv_end, 0) + BLOCK_N - 1) / BLOCK_N;
+  // The first tile any row of this block sees: its first row's window start.
+  const int t_first = p.window > 0 ? min(t_end, max(0, q_start + q0 + 1 - p.window) / BLOCK_N) : 0;
+  const int n_tiles = t_end - t_first;  // the ring's stages count from t_first
 
-  auto load_kv = [&](int t) {
+  auto load_kv = [&](int t) {  // the n-th tile of the run into stage n % STAGES
     const int s = t % STAGES;
     const uint32_t dst = base + L::K + s * L::STAGE;
     mbar_expect_tx(bar_full + 8 * s, KV_BYTES);
-    tma_load_tile(dst, &tm_k, bar_full + 8 * s, p.perm_k, L::KBOX, L::KV_BOX, t * BLOCK_N, hk, b);
+    tma_load_tile(dst, &tm_k, bar_full + 8 * s, p.perm_k, L::KBOX, L::KV_BOX,
+                  (t_first + t) * BLOCK_N, hk, b);
     tma_load_tile(dst + L::V_OFF, &tm_v, bar_full + 8 * s, p.perm_v, L::KBOX, L::KV_BOX,
-                  t * BLOCK_N, hk, b);
+                  (t_first + t) * BLOCK_N, hk, b);
   };
 
   if (tid == 0 && n_tiles > 0) {
@@ -167,15 +179,18 @@ __global__ void __launch_bounds__(128 * NWG + 32, 1)
 
   // This thread's two rows (within the block): r and r + 8 of its warp's 16.
   const int row_in_block = wg * 64 + warp * 16 + lane / 4;
-  int limit[2];
+  int limit[2], lower[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     limit[r] = min(kv_len, p.skv);
     if (p.causal) limit[r] = min(limit[r], q_start + q0 + row_in_block + 8 * r + 1);
+    lower[r] = p.window > 0 ? q_start + q0 + row_in_block + 8 * r + 1 - p.window : 0;
   }
-  // The least limit over this warpgroup's rows: tiles below it need no mask.
+  // The least limit over this warpgroup's rows: tiles below it need no mask;
+  // with a window, nor do tiles from its rows' last window start on.
   int wg_limit = min(kv_len, p.skv);
   if (p.causal) wg_limit = min(wg_limit, q_start + q0 + wg * 64 + 1);
+  const int wg_lower = p.window > 0 ? q_start + q0 + wg * 64 + 64 - p.window : 0;
 
   float o[NT * 4];
 #pragma unroll
@@ -207,15 +222,16 @@ __global__ void __launch_bounds__(128 * NWG + 32, 1)
     fence_regs(sc);
 
     // sc[n * 4 + r * 2 + j] is row r, key k0 + 8 n + 2 (lane % 4) + j.
-    const int k0 = t * BLOCK_N;
-    if (k0 + BLOCK_N > wg_limit) {
+    const int k0 = (t_first + t) * BLOCK_N;
+    if (k0 + BLOCK_N > wg_limit || k0 < wg_lower) {
 #pragma unroll
       for (int n = 0; n < 16; ++n) {
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
 #pragma unroll
           for (int j = 0; j < 2; ++j) {
-            if (k0 + n * 8 + 2 * (lane % 4) + j >= limit[r]) sc[n * 4 + r * 2 + j] = -INFINITY;
+            const int key = k0 + n * 8 + 2 * (lane % 4) + j;
+            if (key >= limit[r] || key < lower[r]) sc[n * 4 + r * 2 + j] = -INFINITY;
           }
         }
       }
@@ -314,7 +330,8 @@ cudaError_t launch(const CUtensorMap& q, const CUtensorMap& k, const CUtensorMap
 
 // Plain C entry point, bound with ctypes. Returns 0, a CUDA error code, or
 // 1000 + cuTensorMapEncodeTiled's CUresult when a tensor map cannot describe
-// an input.
+// an input. window: 0 for none, else (under causal) the keys a query sees
+// ending at its own position.
 // d is the head dim of O; d_in the column count of the q / k / v views
 // (d, or d rounded up to 8 for the wrapper's aligned copies). Every base must
 // be 16-byte aligned and every stride a multiple of 8 elements.
@@ -323,9 +340,9 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v, void*
                               int sq, int skv, int d, int d_in, long long q_sb, long long q_sh,
                               long long q_ss, long long k_sb, long long k_sh, long long k_ss,
                               long long v_sb, long long v_sh, long long v_ss, float scale,
-                              int causal, void* stream) {
+                              int causal, int window, void* stream) {
   if (d <= 0 || d_in < d || d_in > 128 || sq <= 0 || skv <= 0 || hkv <= 0 || hq % hkv != 0 ||
-      !(scale > 0.f)) {
+      !(scale > 0.f) || window < 0 || (window > 0 && !causal)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (encoder() == nullptr) return static_cast<int>(cudaErrorNotSupported);
@@ -342,6 +359,7 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v, void*
   p.d = d;
   p.scale_log2 = scale * LOG2E;
   p.causal = causal;
+  p.window = window;
   CUtensorMap tq, tk, tv;
   CUresult r = encode_map(&tq, q, d_in, sq, hq, batch, q_ss, q_sh, q_sb, 64 * nwg, p.perm_q);
   if (r == CUDA_SUCCESS) {

@@ -36,7 +36,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import TYPE_CHECKING, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -50,9 +50,38 @@ from ..ops.rope import apply_rope, rope_frequencies
 from ..parallel.collectives import bound_group, copy_to_group, global_mean, reduce_from_group
 from ..utils import tracing
 
+if TYPE_CHECKING:
+    from .moe import MoEConfig
+
+# query blocks of at most this many positions a row (decode, speculative
+# verify) take decode_attention, and a mixture of experts' grouped kernel
+SHORT_BLOCK = 8
+
 
 @dataclasses.dataclass(frozen=True)
 class LlamaConfig:
+    """The decoder's shape and serving precision. The fields after
+    ``param_dtype`` describe blocks other than LLaMA's (EXAONE 4 / K-EXAONE's);
+    at their defaults a layer is LLaMA's, with the same parameters and the
+    same device work:
+
+    - ``head_size``: the attention heads' width where it is not
+      ``hidden_size / num_attention_heads`` (q is heads x head_size wide);
+    - ``sliding_windows``: one window a layer, 0 for a global layer, empty
+      for all global. A windowed layer's query at position i sees the keys j
+      with i - window < j <= i (HF's ``sliding_window``: the window counts
+      the query's own key); every layer keeps the cache's one capacity;
+    - ``nope_global``: RoPE in the windowed layers only, no position
+      encoding in the global ones (EXAONE 4's NoPE global layers);
+    - ``qk_norm``: an RMSNorm over each head's channels of q and of k
+      (``q_norm`` / ``k_norm``), before RoPE;
+    - ``post_norms``: the block is h = x + norm_pa(attn(x)), y = h +
+      norm_pf(ffn(h)), with no norm before a sublayer (``post_attention_
+      layernorm`` / ``post_feedforward_layernorm``, no ``input_layernorm``);
+    - ``moe`` / ``first_k_dense_replace``: layers from
+      ``first_k_dense_replace`` on take the mixture of experts of
+      ``models/moe.py`` in place of the dense SwiGLU (``intermediate_size``
+      stays the dense layers' width)."""
     vocab_size: int = 32066  # 32000 + 66 multimodal tokens
     # Embedding/lm_head rows are padded to this size (None -> next multiple
     # of 128); logits beyond vocab_size are masked.
@@ -82,6 +111,23 @@ class LlamaConfig:
     quantize_kv: bool = False
     dtype: torch.dtype = torch.bfloat16  # compute dtype
     param_dtype: torch.dtype = torch.float32  # projection / embedding storage
+    head_size: Optional[int] = None
+    sliding_windows: Tuple[int, ...] = ()
+    nope_global: bool = False
+    qk_norm: bool = False
+    post_norms: bool = False
+    moe: Optional["MoEConfig"] = None
+    first_k_dense_replace: int = 0
+
+    def window(self, layer: int) -> int:
+        """The layer's sliding window (0: global)."""
+        return self.sliding_windows[layer] if self.sliding_windows else 0
+
+    def uses_rope(self, layer: int) -> bool:
+        return not (self.nope_global and self.window(layer) == 0)
+
+    def is_moe(self, layer: int) -> bool:
+        return self.moe is not None and layer >= self.first_k_dense_replace
 
     @property
     def vocab_padded(self) -> int:
@@ -91,7 +137,7 @@ class LlamaConfig:
 
     @property
     def head_dim(self) -> int:
-        return self.hidden_size // self.num_attention_heads
+        return self.head_size or self.hidden_size // self.num_attention_heads
 
     @property
     def kv_heads(self) -> int:
@@ -323,14 +369,19 @@ def _proj(cfg: LlamaConfig, n_in: int, n_out: int) -> LoRADense:
 
 
 class LlamaAttention(nn.Module):
-    def __init__(self, cfg: LlamaConfig):
+    def __init__(self, cfg: LlamaConfig, layer_idx: int = 0):
         super().__init__()
         self.cfg = cfg
         h, hkv, hd, d = cfg.num_attention_heads, cfg.kv_heads, cfg.head_dim, cfg.hidden_size
+        self.window = cfg.window(layer_idx)
+        self.rope = cfg.uses_rope(layer_idx)
         self.q_proj = _proj(cfg, d, h * hd)
         self.k_proj = _proj(cfg, d, hkv * hd)
         self.v_proj = _proj(cfg, d, hkv * hd)
         self.o_proj = _proj(cfg, h * hd, d)
+        if cfg.qk_norm:
+            self.q_norm = RMSNorm(hd, cfg.rms_norm_eps, cfg.dtype)
+            self.k_norm = RMSNorm(hd, cfg.rms_norm_eps, cfg.dtype)
 
     def forward(self, x, cos, sin, *, layer_idx: int, cache: Optional[KVCache],
                 start: torch.Tensor, kv_len: Optional[torch.Tensor],
@@ -339,18 +390,22 @@ class LlamaAttention(nn.Module):
         level ``start`` (B,) and attention spans the buffer's valid prefix:
         row r sees ``kv_len[r]`` keys (``start + S``, or ``start`` plus the
         row's true length of a right-padded block), and the padding's K/V
-        lands beyond it. Under a profiler the quantize and the writes are
-        the span ``llm.kv_write`` (``utils/tracing.py``)."""
+        lands beyond it. A windowed layer passes its window to the attention,
+        which reads only the keys inside it. Under a profiler the quantize
+        and the writes are the span ``llm.kv_write`` (``utils/tracing.py``)."""
         cfg = self.cfg
         b, s, _ = x.shape
         hd = cfg.head_dim  # heads follow the projections (a tensor-parallel shard has H / tp)
         q = self.q_proj(x, dropout_seed).view(b, s, -1, hd).transpose(1, 2)
         k = self.k_proj(x, dropout_seed).view(b, s, -1, hd).transpose(1, 2)
         v = self.v_proj(x, dropout_seed).view(b, s, -1, hd).transpose(1, 2)
-        q, k = apply_rope(q, k, cos, sin)
+        if cfg.qk_norm:
+            q, k = self.q_norm(q), self.k_norm(k)
+        if self.rope:
+            q, k = apply_rope(q, k, cos, sin)
 
         if cache is None:
-            out = mha(q, k, v, causal=True, q_start=0, kv_len=kv_len)
+            out = mha(q, k, v, causal=True, q_start=0, kv_len=kv_len, window=self.window)
         else:
             k_buf, v_buf = cache.k[layer_idx], cache.v[layer_idx]
             ks_buf = vs_buf = None
@@ -370,26 +425,29 @@ class LlamaAttention(nn.Module):
             k_buf, v_buf = k_buf[:, :, :limit], v_buf[:, :, :limit]
             if cache.quantized:
                 ks_buf, vs_buf = ks_buf[:, :, :limit], vs_buf[:, :, :limit]
-            if s <= 8:
+            if s <= SHORT_BLOCK:
                 # short query block: the int8 scales apply after the products
                 out = decode_attention(q, k_buf, v_buf, kv_len=end, q_start=start,
-                                       k_scale=ks_buf, v_scale=vs_buf)
+                                       k_scale=ks_buf, v_scale=vs_buf, window=self.window)
             else:
                 if cache.quantized:  # prefill dequantizes the prefix once
                     k_buf = k_buf.to(cfg.dtype) * ks_buf[..., None].to(cfg.dtype)
                     v_buf = v_buf.to(cfg.dtype) * vs_buf[..., None].to(cfg.dtype)
                 out = mha(q, k_buf.to(cfg.dtype), v_buf.to(cfg.dtype), causal=True,
-                          q_start=start, kv_len=end)
+                          q_start=start, kv_len=end, window=self.window)
         out = out.transpose(1, 2).reshape(b, s, -1)
         return self.o_proj(out, dropout_seed)
 
 
 class LlamaMLP(nn.Module):
-    def __init__(self, cfg: LlamaConfig):
+    """The SwiGLU, ``width`` wide (None: ``cfg.intermediate_size``)."""
+
+    def __init__(self, cfg: LlamaConfig, width: Optional[int] = None):
         super().__init__()
-        self.gate_proj = _proj(cfg, cfg.hidden_size, cfg.intermediate_size)
-        self.up_proj = _proj(cfg, cfg.hidden_size, cfg.intermediate_size)
-        self.down_proj = _proj(cfg, cfg.intermediate_size, cfg.hidden_size)
+        width = width or cfg.intermediate_size
+        self.gate_proj = _proj(cfg, cfg.hidden_size, width)
+        self.up_proj = _proj(cfg, cfg.hidden_size, width)
+        self.down_proj = _proj(cfg, width, cfg.hidden_size)
 
     def forward(self, x, dropout_seed: Optional[int] = None):
         h = F.silu(self.gate_proj(x, dropout_seed)) * self.up_proj(x, dropout_seed)
@@ -397,14 +455,36 @@ class LlamaMLP(nn.Module):
 
 
 class LlamaDecoderLayer(nn.Module):
-    def __init__(self, cfg: LlamaConfig):
+    """Layer ``layer_idx`` of the stack: LLaMA's pre-norm block, or with
+    ``cfg.post_norms`` the post-norm one, with the layer's window, RoPE and
+    FFN (dense, or ``models/moe.py``'s ``MoE``) as the configuration gives
+    them (:class:`LlamaConfig`)."""
+
+    def __init__(self, cfg: LlamaConfig, layer_idx: int = 0):
         super().__init__()
-        self.input_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, cfg.dtype)
-        self.self_attn = LlamaAttention(cfg)
-        self.post_attention_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, cfg.dtype)
-        self.mlp = LlamaMLP(cfg)
+        self.post_norms = cfg.post_norms
+
+        def norm():
+            return RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, cfg.dtype)
+
+        if not cfg.post_norms:
+            self.input_layernorm = norm()
+        self.self_attn = LlamaAttention(cfg, layer_idx)
+        self.post_attention_layernorm = norm()
+        if cfg.post_norms:
+            self.post_feedforward_layernorm = norm()
+        if cfg.is_moe(layer_idx):
+            from .moe import MoE
+
+            self.mlp = MoE(cfg)
+        else:
+            self.mlp = LlamaMLP(cfg)
 
     def forward(self, x, cos, sin, dropout_seed: Optional[int] = None, **attn_kw):
+        if self.post_norms:
+            x = x + self.post_attention_layernorm(
+                self.self_attn(x, cos, sin, dropout_seed=dropout_seed, **attn_kw))
+            return x + self.post_feedforward_layernorm(self.mlp(x, dropout_seed))
         x = x + self.self_attn(self.input_layernorm(x), cos, sin, dropout_seed=dropout_seed,
                                **attn_kw)
         return x + self.mlp(self.post_attention_layernorm(x), dropout_seed)
@@ -415,7 +495,8 @@ class LlamaModel(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.embed_tokens = nn.Embedding(cfg.vocab_padded, cfg.hidden_size, dtype=cfg.param_dtype)
-        self.layers = nn.ModuleList(LlamaDecoderLayer(cfg) for _ in range(cfg.num_hidden_layers))
+        self.layers = nn.ModuleList(LlamaDecoderLayer(cfg, i)
+                                    for i in range(cfg.num_hidden_layers))
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, cfg.dtype)
         for i, layer in enumerate(self.layers):
             for name, m in layer.named_modules():
@@ -657,11 +738,17 @@ QUANT_MODULES = frozenset(("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", 
 def quantize_llama_(module: nn.Module) -> nn.Module:
     """In place, the counterpart of the JAX ``quantize_llama_params``: every
     ``LoRADense`` named like one of the seven projections (``QUANT_MODULES``)
-    gets an int8 weight with per-output-channel scales. LoRA, norms,
-    embeddings, ``lm_head`` and the resamplers (none of whose modules bears
-    such a name) stay as they are. One projection is converted at a time, so
+    gets an int8 weight with per-output-channel scales, and so does every
+    expert's stacked weight of a mixture of experts (``models/moe.py``:
+    per expert and output channel). LoRA, norms, embeddings, ``lm_head``,
+    the routers and the resamplers (none of whose modules bears such a name)
+    stay as they are. One projection (one expert) is converted at a time, so
     the transient peak is one projection's f32 copy."""
+    from .moe import RoutedExperts
+
     for name, m in module.named_modules():
         if isinstance(m, LoRADense) and name.rpartition(".")[2] in QUANT_MODULES:
+            m.quantize_()
+        elif isinstance(m, RoutedExperts):
             m.quantize_()
     return module

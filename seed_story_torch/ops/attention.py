@@ -9,9 +9,12 @@ version and the CUDA kernel ``csrc/decode_attn.cu``).
 Masking rule for query row ``i`` (0-based within the call) and key ``j``:
 
   visible(b, i, j) = (j < kv_len[b]) and (not causal or j <= q_start[b] + i)
+                     and (not window or j > q_start[b] + i - window)
 
-Defaults ``q_start = Skv - Sq`` and ``kv_len = Skv``. Rows with no visible
-key output exactly 0 (LSE -inf).
+Defaults ``q_start = Skv - Sq``, ``kv_len = Skv`` and ``window = 0`` (none;
+a window needs ``causal``): a windowed query sees the ``window`` keys that
+end at its own position. Rows with no visible key output exactly 0 (LSE
+-inf).
 
 ``mha(implementation="auto")`` runs the plain versions on CPU tensors and
 the kernels on CUDA tensors. There is no fallback: a CUDA tensor the
@@ -50,18 +53,26 @@ def _normalize_lens(b: int, sq: int, skv: int, q_start: Lens, kv_len: Lens,
 
 
 def _visible(sq: int, skv: int, causal: bool, q_start: torch.Tensor,
-             kv_len: torch.Tensor) -> torch.Tensor:
+             kv_len: torch.Tensor, window: int = 0) -> torch.Tensor:
     """(B, 1, Sq, Skv) bool mask of the contract above."""
     jpos = torch.arange(skv, device=kv_len.device)[None, None, None, :]
     mask = jpos < kv_len[:, None, None, None]
     if causal:
         ipos = torch.arange(sq, device=kv_len.device)[None, None, :, None]
         mask = mask & (jpos <= q_start[:, None, None, None] + ipos)
+        if window:
+            mask = mask & (jpos > q_start[:, None, None, None] + ipos - window)
     return mask
 
 
+def _check_window(causal: bool, window: int):
+    if window < 0 or (window and not causal):
+        raise ValueError(f"a window takes causal attention and window >= 0, got "
+                         f"window={window}, causal={causal}")
+
+
 def mha_reference_lse(q, k, v, *, causal: bool = True, q_start: Lens = None,
-                      kv_len: Lens = None, scale: Optional[float] = None):
+                      kv_len: Lens = None, scale: Optional[float] = None, window: int = 0):
     """Plain O(S^2)-memory attention in f32, returning (O in q.dtype, LSE f32
     of shape (B, Hq, Sq, 1)). q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D)."""
     b, hq, sq, d = q.shape
@@ -76,7 +87,7 @@ def mha_reference_lse(q, k, v, *, causal: bool = True, q_start: Lens = None,
     if group > 1:
         kf = kf.repeat_interleave(group, dim=1)
         vf = vf.repeat_interleave(group, dim=1)
-    mask = _visible(sq, skv, causal, q_start, kv_len)
+    mask = _visible(sq, skv, causal, q_start, kv_len, window)
     logits = torch.where(mask, qf @ kf.transpose(-1, -2), DEFAULT_MASK_VALUE)
     any_visible = mask.any(dim=-1, keepdim=True)
     probs = torch.where(any_visible, torch.softmax(logits, dim=-1), 0.0)
@@ -87,17 +98,17 @@ def mha_reference_lse(q, k, v, *, causal: bool = True, q_start: Lens = None,
 
 
 def mha_reference(q, k, v, *, causal: bool = True, q_start: Lens = None,
-                  kv_len: Lens = None, scale: Optional[float] = None):
+                  kv_len: Lens = None, scale: Optional[float] = None, window: int = 0):
     """Plain attention output alone (counterpart of the JAX ``mha_reference``)."""
     return mha_reference_lse(q, k, v, causal=causal, q_start=q_start,
-                             kv_len=kv_len, scale=scale)[0]
+                             kv_len=kv_len, scale=scale, window=window)[0]
 
 
 def decode_attention_reference(q, k, v, *, kv_len: torch.Tensor,
                                q_start: Optional[torch.Tensor] = None,
                                scale: Optional[float] = None,
                                k_scale: Optional[torch.Tensor] = None,
-                               v_scale: Optional[torch.Tensor] = None):
+                               v_scale: Optional[torch.Tensor] = None, window: int = 0):
     """The plain version of :func:`decode_attention`, the JAX formula in
     PyTorch: an int8 cache is converted to the query dtype (the JAX
     ``astype``); the scores ``q K^T`` are f32 products of those values (the
@@ -106,7 +117,8 @@ def decode_attention_reference(q, k, v, *, kv_len: torch.Tensor,
     score and probability vectors after the products; the probabilities are
     cast to the query dtype for PV, a product in the query dtype with one
     rounding of its result. On f32 inputs (the CPU tests, the smoke's
-    reference) every product is exact f32."""
+    reference) every product is exact f32. ``window``: see
+    :func:`decode_attention`."""
     b, hq, sq, d = q.shape
     _, hkv, c, _ = k.shape
     if sq > 1 and q_start is None:
@@ -122,10 +134,14 @@ def decode_attention_reference(q, k, v, *, kv_len: torch.Tensor,
     pos = torch.arange(c, device=q.device)[None, None, None, :]
     if sq == 1:
         mask = pos < kv_len[:, None, None, None]
+        if window:
+            mask = mask & (pos >= kv_len[:, None, None, None] - window)
     else:
-        limit = q_start[:, None] + torch.arange(sq, device=q.device)[None, :] + 1
-        limit = torch.minimum(limit, kv_len[:, None]).repeat(1, group)  # rows g-major
+        end = q_start[:, None] + torch.arange(sq, device=q.device)[None, :] + 1  # (B, S)
+        limit = torch.minimum(end, kv_len[:, None]).repeat(1, group)  # rows g-major
         mask = pos < limit[:, None, :, None]
+        if window:
+            mask = mask & (pos >= (end - window).repeat(1, group)[:, None, :, None])
     logits = torch.where(mask, logits, DEFAULT_MASK_VALUE)
     probs = torch.softmax(logits, dim=-1)
     probs = torch.where(mask.any(dim=-1, keepdim=True), probs, 0.0)
@@ -165,7 +181,7 @@ class DecodeAttention:
         if self._built is None:
             built = BuiltLibrary("decode_attn")
             fn = built.lib.decode_attn
-            fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+            fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
                            + [ctypes.c_longlong] * 9 + [ctypes.c_float, ctypes.c_void_p])
             fn.restype = ctypes.c_int
             self._built = built
@@ -185,12 +201,12 @@ class DecodeAttention:
 
     def __call__(self, q, k, v, kv_len: torch.Tensor, q_start: Optional[torch.Tensor],
                  scale: float, k_scale: Optional[torch.Tensor] = None,
-                 v_scale: Optional[torch.Tensor] = None):
+                 v_scale: Optional[torch.Tensor] = None, window: int = 0):
         """q (B, Hq, S, 128) bf16 with S <= 8; k, v (B, Hkv, C, 128), both
         int8 with f32 (B, Hkv, C) scales or both bf16 without, with equal
         strides, a unit-stride head dim and 16-byte aligned rows; kv_len and
-        (for S > 1) q_start (B,) int32; all on one CUDA device. Returns
-        (B, Hq, S, 128) bf16."""
+        (for S > 1) q_start (B,) int32; all on one CUDA device; ``window``
+        >= 0 (0: none). Returns (B, Hq, S, 128) bf16."""
         b, hq, sq, d = q.shape
         _, hkv, c, _ = k.shape
         if not (q.is_cuda and k.device == q.device and v.device == q.device):
@@ -205,6 +221,8 @@ class DecodeAttention:
                              f"q={tuple(q.shape)} k={tuple(k.shape)} v={tuple(v.shape)}")
         if not 1 <= sq <= 8:
             raise ValueError(f"decode_attn takes 1..8 queries, got {sq}")
+        if window < 0:
+            raise ValueError(f"decode_attn takes a window >= 0, got {window}")
         if (k.stride() != v.stride() or k.stride(-1) != 1 or q.stride(-1) != 1
                 or not _aligned_16(k) or not _aligned_16(v)):
             raise ValueError("decode_attn: k and v need equal strides, a unit-stride head "
@@ -244,7 +262,7 @@ class DecodeAttention:
                      k_scale.data_ptr() if quantized else None,
                      v_scale.data_ptr() if quantized else None,
                      q_start.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
-                     b, hq, hkv, sq, c, chunk, n_chunks, int(quantized),
+                     b, hq, hkv, sq, c, chunk, n_chunks, int(quantized), int(window),
                      *q.stride()[:3], *k.stride()[:3], *ks_strides, float(scale), stream)
         check_launch("decode_attn", err)
         with self._lock:
@@ -259,7 +277,7 @@ def decode_attention(q, k, v, *, kv_len: torch.Tensor,
                      q_start: Optional[torch.Tensor] = None,
                      scale: Optional[float] = None,
                      k_scale: Optional[torch.Tensor] = None,
-                     v_scale: Optional[torch.Tensor] = None,
+                     v_scale: Optional[torch.Tensor] = None, window: int = 0,
                      implementation: str = "auto"):
     """Small-query attention for the decode path (single-token decode and
     short speculative-verify blocks); the counterpart of the JAX
@@ -270,7 +288,10 @@ def decode_attention(q, k, v, *, kv_len: torch.Tensor,
 
     q: (B, Hq, S, D) with small S; k/v: (B, Hkv, C, D); kv_len: (B,) valid
     prefix. For S > 1, ``q_start`` (B,) is the cache position of query 0:
-    query i sees keys < min(q_start + i + 1, kv_len). Returns (B, Hq, S, D).
+    query i sees keys < min(q_start + i + 1, kv_len); a single query sits at
+    kv_len - 1. With ``window`` > 0 a query at position p sees only keys
+    > p - window as well; the kernel skips the tiles wholly below that.
+    Returns (B, Hq, S, D).
 
     implementation: 'auto' (the plain version for CPU tensors, the CUDA
     kernel ``csrc/decode_attn.cu`` for CUDA tensors), 'kernel' or 'plain'.
@@ -279,18 +300,18 @@ def decode_attention(q, k, v, *, kv_len: torch.Tensor,
         implementation = "kernel" if q.is_cuda else "plain"
     if implementation == "plain":
         return decode_attention_reference(q, k, v, kv_len=kv_len, q_start=q_start, scale=scale,
-                                          k_scale=k_scale, v_scale=v_scale)
+                                          k_scale=k_scale, v_scale=v_scale, window=window)
     if implementation != "kernel":
         raise ValueError(f"unknown implementation {implementation!r}")
     if not q.is_cuda:
         raise ValueError("implementation='kernel' needs CUDA tensors")
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    return decode_attn(q, k, v, kv_len, q_start, scale, k_scale, v_scale)
+    return decode_attn(q, k, v, kv_len, q_start, scale, k_scale, v_scale, window)
 
 
 def mha_backward_reference(q, k, v, o, lse, do, *, causal: bool = True, q_start: Lens = None,
-                           kv_len: Lens = None, scale: Optional[float] = None):
+                           kv_len: Lens = None, scale: Optional[float] = None, window: int = 0):
     """Plain attention backward in f32 under the module's mask rule: the
     formulas of the flash backward (P = exp(scale * Q K^T - LSE) on visible
     entries, dS = P * (dO V^T - rowsum(dO * O)), dq = scale * dS K,
@@ -307,7 +328,7 @@ def mha_backward_reference(q, k, v, o, lse, do, *, causal: bool = True, q_start:
     if group > 1:
         kf = kf.repeat_interleave(group, dim=1)
         vf = vf.repeat_interleave(group, dim=1)
-    mask = _visible(sq, skv, causal, q_start, kv_len)
+    mask = _visible(sq, skv, causal, q_start, kv_len, window)
     scores = scale * (qf @ kf.transpose(-1, -2))
     # a select, not a product with the mask: exp is inf on rows whose LSE is -inf
     probs = torch.where(mask, torch.exp(scores - lse), 0.0)
@@ -381,22 +402,25 @@ class FlashForward:
             fn = built.lib.flash_fwd_bf16
             fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
                            + [ctypes.c_longlong] * 9
-                           + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                           + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
             fn.restype = ctypes.c_int
             self._built = built
         return self._built
 
     def __call__(self, q, k, v, q_start: torch.Tensor, kv_len: torch.Tensor,
-                 causal: bool, scale: float):
+                 causal: bool, scale: float, window: int = 0):
         """q: (B, Hq, Sq, D), k/v: (B, Hkv, Skv, D) bf16 CUDA tensors with a
         unit-stride head dim (other strides are free); q_start, kv_len: (B,)
-        int32 on the same device; scale > 0. Returns O (B, Hq, Sq, D) bf16 and
+        int32 on the same device; scale > 0; ``window`` >= 0 under ``causal``
+        (0: none; the kernel skips the key tiles wholly below every row's
+        window). Returns O (B, Hq, Sq, D) bf16 and
         LSE (B, Hq, Sq, 1) f32. Inputs that TMA cannot read in place are
         copied into aligned buffers with D padded to a multiple of 8, and the
         same kernel runs on those."""
         _check_kernel_inputs("flash_fwd", q, k, v, q_start, kv_len)
         if not scale > 0:
             raise ValueError(f"flash_fwd takes a positive scale, got {scale}")
+        _check_window(causal, window)
         b, hq, sq, d = q.shape
         _, hkv, skv, _ = k.shape
         o = torch.empty((b, hq, sq, d), dtype=torch.bfloat16, device=q.device)
@@ -418,7 +442,7 @@ class FlashForward:
             err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                      lse.data_ptr(), q_start.data_ptr(), kv_len.data_ptr(),
                      b, hq, hkv, sq, skv, d, d_in, *strides, float(scale),
-                     int(causal), stream)
+                     int(causal), int(window), stream)
         check_launch("flash_fwd", err)
         with self._lock:
             self.launches += 1
@@ -508,14 +532,15 @@ class FlashAttention(torch.autograd.Function):
     the LSE is not differentiable."""
 
     @staticmethod
-    def forward(ctx, q, k, v, q_start, kv_len, causal: bool, scale: float, kernel: bool):
+    def forward(ctx, q, k, v, q_start, kv_len, causal: bool, scale: float, kernel: bool,
+                window: int):
         if kernel:
-            o, lse = flash_fwd(q, k, v, q_start, kv_len, causal, scale)
+            o, lse = flash_fwd(q, k, v, q_start, kv_len, causal, scale, window)
         else:
             o, lse = mha_reference_lse(q, k, v, causal=causal, q_start=q_start,
-                                       kv_len=kv_len, scale=scale)
+                                       kv_len=kv_len, scale=scale, window=window)
         ctx.save_for_backward(q, k, v, o, lse, q_start, kv_len)
-        ctx.causal, ctx.scale, ctx.kernel = causal, scale, kernel
+        ctx.causal, ctx.scale, ctx.kernel, ctx.window = causal, scale, kernel, window
         ctx.mark_non_differentiable(lse)
         return o, lse
 
@@ -523,19 +548,23 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, do, _dlse):
         q, k, v, o, lse, q_start, kv_len = ctx.saved_tensors
         if ctx.kernel:
+            if ctx.window:
+                raise NotImplementedError("the CUDA flash backward takes no window")
             if do.stride(-1) != 1:  # e.g. the expanded gradient of a sum
                 do = do.contiguous()
             dq, dk, dv = flash_bwd(q, k, v, o, lse, do, q_start, kv_len, ctx.causal, ctx.scale)
         else:
             dq, dk, dv = mha_backward_reference(q, k, v, o, lse, do, causal=ctx.causal,
-                                                q_start=q_start, kv_len=kv_len, scale=ctx.scale)
-        return dq, dk, dv, None, None, None, None, None
+                                                q_start=q_start, kv_len=kv_len, scale=ctx.scale,
+                                                window=ctx.window)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def mha(q, k, v, *, causal: bool = True, q_start: Lens = None,
-        kv_len: Lens = None, scale: Optional[float] = None,
+        kv_len: Lens = None, scale: Optional[float] = None, window: int = 0,
         implementation: str = "auto", with_lse: bool = False):
-    """Multi-head attention under the module's mask rule.
+    """Multi-head attention under the module's mask rule (``window``: see
+    there; the CUDA backward takes none).
 
     implementation: 'auto' (the plain version for CPU tensors, the CUDA
     kernels for CUDA tensors), 'kernel' (CUDA tensors only) or 'plain'.
@@ -550,6 +579,7 @@ def mha(q, k, v, *, causal: bool = True, q_start: Lens = None,
         raise ValueError(f"k/v shape mismatch: {tuple(k.shape)} vs {tuple(v.shape)}")
     if scale is None:
         scale = 1.0 / math.sqrt(d)
+    _check_window(causal, window)
     if implementation == "auto":
         implementation = "kernel" if q.is_cuda else "plain"
     if implementation not in ("plain", "kernel"):
@@ -557,5 +587,6 @@ def mha(q, k, v, *, causal: bool = True, q_start: Lens = None,
     if implementation == "kernel" and not q.is_cuda:
         raise ValueError("implementation='kernel' needs CUDA tensors")
     qs, kl = _normalize_lens(b, sq, skv, q_start, kv_len, q.device)
-    out = FlashAttention.apply(q, k, v, qs, kl, causal, scale, implementation == "kernel")
+    out = FlashAttention.apply(q, k, v, qs, kl, causal, scale, implementation == "kernel",
+                               int(window))
     return out if with_lse else out[0]

@@ -30,6 +30,14 @@ rank's row slices of a data-parallel group (the ``fsdp`` presets' int8
 base): it all-gathers them for the product and frees them, and gathers
 them again for the gradient to x. There is no fallback: a CUDA input the
 kernels do not take raises, and so does a failed build or launch.
+
+``grouped_int8_linear`` is the same product for the routed experts of a
+mixture of experts (``models/moe.py``): every held expert's int8 weight
+(E, N, K) applied to the (token, expert) pairs routed to it, listed by a
+sort on the device. On CUDA tensors it is one launch of
+``csrc/grouped_int8.cu`` (kernel A's design per expert, the pair counts
+read on the device, experts without pairs skipped); its plain version is a
+loop over the experts.
 """
 
 from __future__ import annotations
@@ -352,3 +360,117 @@ def int8_linear(x: torch.Tensor, weight: torch.Tensor, scale: torch.Tensor,
     if torch.is_grad_enabled() and x.requires_grad:
         return Int8LinearFunction.apply(x, weight, scale)
     return _launch_kernel(x, weight, scale)
+
+
+def grouped_int8_linear_reference(x: torch.Tensor, weight: torch.Tensor, scale: torch.Tensor,
+                                  order: torch.Tensor, offsets: torch.Tensor,
+                                  in_div: int) -> torch.Tensor:
+    """The plain version of :func:`grouped_int8_linear`: a loop over the
+    experts, each pair's row of ``int8_linear_reference`` on its expert's
+    weight; rows of no listed pair are zero."""
+    out = x.new_zeros((order.shape[0], weight.shape[1]))
+    bounds = offsets.tolist()
+    for e in range(weight.shape[0]):
+        pairs = order[bounds[e]:bounds[e + 1]].long()
+        if len(pairs):
+            out[pairs] = int8_linear_reference(x[pairs // in_div], weight[e], scale[e])
+    return out
+
+
+class GroupedInt8Linear:
+    """Wrapper of the grouped int8 expert kernel (``csrc/grouped_int8.cu``).
+    ``launches`` counts its launches (under a lock, as ``Int8Linear``);
+    nothing else touches the count."""
+
+    ROWS = 64          # output channels of a block
+    STAGE_K = 256      # columns of a stage; a K slice is a multiple of it
+    MAX_SLICES = 8
+    BLOCKS_PER_SM = 2
+
+    def __init__(self):
+        self.launches = 0
+        self._lock = threading.Lock()
+        self._built: Optional[BuiltLibrary] = None
+        self._sms = {}
+
+    def build(self) -> BuiltLibrary:
+        if self._built is None:
+            built = BuiltLibrary("grouped_int8")
+            fn = built.lib.grouped_int8_bf16
+            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            self._built = built
+        return self._built
+
+    def k_range(self, device, experts: int, n: int, k: int) -> int:
+        """Columns of a K slice: about 2 blocks per multiprocessor were every
+        expert hit, at most 8 slices. It depends on the shapes only, never
+        on how the pairs fall, so a pair is summed in the same order however
+        many pairs share its expert."""
+        if device not in self._sms:
+            self._sms[device] = torch.cuda.get_device_properties(device).multi_processor_count
+        blocks = experts * -(-n // self.ROWS)
+        stages = -(-k // self.STAGE_K)
+        want = min(stages, self.MAX_SLICES,
+                   max(1, round(self.BLOCKS_PER_SM * self._sms[device] / blocks)))
+        return -(-stages // want) * self.STAGE_K
+
+    def __call__(self, x: torch.Tensor, weight: torch.Tensor, scale: torch.Tensor,
+                 order: torch.Tensor, offsets: torch.Tensor, in_div: int) -> torch.Tensor:
+        """x (R, K) bf16, weight (E, N, K) int8, scale (E, N) f32, order (P,)
+        and offsets (E + 1,) int32: CUDA tensors on one device, contiguous,
+        16-byte aligned (order and offsets 4-byte), K a multiple of 16.
+        Returns (P, N) bf16, zero in the rows of no listed pair."""
+        _check_operands("grouped_int8", (("x", x, torch.bfloat16),
+                                         ("weight", weight, torch.int8),
+                                         ("scale", scale, torch.float32)))
+        for name, t in (("order", order), ("offsets", offsets)):
+            if t.device != x.device or t.dtype != torch.int32 or not t.is_contiguous():
+                raise ValueError(f"grouped_int8: {name} must be contiguous int32 on {x.device}")
+        experts, n, k = weight.shape
+        if (x.dim() != 2 or x.shape[1] != k or scale.shape != (experts, n)
+                or offsets.shape != (experts + 1,) or order.dim() != 1):
+            raise ValueError(f"grouped_int8: bad shapes x={tuple(x.shape)} "
+                             f"weight={tuple(weight.shape)} scale={tuple(scale.shape)} "
+                             f"order={tuple(order.shape)} offsets={tuple(offsets.shape)}")
+        if k % 16 or in_div < 1 or x.shape[0] * in_div < order.shape[0]:
+            raise ValueError(f"grouped_int8 takes K a multiple of 16 and in_div >= 1 covering "
+                             f"the pairs, got K={k}, in_div={in_div}")
+        y = torch.zeros((order.shape[0], n), dtype=torch.bfloat16, device=x.device)
+        if order.shape[0] == 0:
+            return y
+        fn = self.build().lib.grouped_int8_bf16
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            check_launch("grouped_int8", fn(x.data_ptr(), weight.data_ptr(), scale.data_ptr(),
+                                            order.data_ptr(), offsets.data_ptr(), y.data_ptr(),
+                                            experts, n, k, self.k_range(x.device, experts, n, k),
+                                            in_div, stream))
+        with self._lock:
+            self.launches += 1
+        return y
+
+
+grouped_int8_kernel = GroupedInt8Linear()
+
+
+def grouped_int8_linear(x: torch.Tensor, weight: torch.Tensor, scale: torch.Tensor,
+                        order: torch.Tensor, offsets: torch.Tensor, in_div: int,
+                        implementation: str = "auto") -> torch.Tensor:
+    """The routed experts' int8 products: (P, N) with row p = the product
+    of x's row ``p // in_div`` with expert e's weight (N, K) and scale (N,)
+    for each pair p listed in ``order[offsets[e]:offsets[e + 1]]``; rows of
+    no listed pair are zero. ``weight`` (E, N, K) int8, ``scale`` (E, N),
+    ``order`` (P,) and ``offsets`` (E + 1,) int32.
+
+    implementation: 'auto' (the plain loop over experts on CPU tensors, the
+    CUDA kernel on CUDA tensors), 'kernel' or 'plain'."""
+    if implementation == "auto":
+        implementation = "kernel" if x.is_cuda else "plain"
+    if implementation == "plain":
+        return grouped_int8_linear_reference(x, weight, scale, order, offsets, in_div)
+    if implementation != "kernel":
+        raise ValueError(f"unknown implementation {implementation!r}")
+    if not x.is_cuda:
+        raise ValueError("implementation='kernel' needs CUDA tensors")
+    return grouped_int8_kernel(x.contiguous(), weight, scale, order, offsets, in_div)

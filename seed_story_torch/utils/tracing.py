@@ -28,7 +28,13 @@ Spans and counters of the port, each read by a per-layer metric of
   ``decode.verify``, ``decode.sync`` and ``decode.accept``; counters
   ``decode.drafted`` and ``decode.accepted`` (``decode/generate.py``);
 - ``llm.kv_write``: the new rows' quantize and writes into a KV cache
-  (``models/llama.py``).
+  (``models/llama.py``);
+- per expert layer of a mixture of experts ``moe.route`` (the router, top-k
+  and the dispatch's sort on the device) and ``moe.experts`` (the expert
+  products and the weighted combine) (``models/moe.py``); in a verify pass
+  both are children of ``decode.verify``. Routing counts live on the device
+  and are no counter here: the benchmark's hooks keep them and read them
+  after the window.
 """
 
 from __future__ import annotations
